@@ -1,0 +1,30 @@
+"""Device selection shared by the port's entry points."""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None
+                   ) -> torch.device:
+    """``None`` means the card: ``cuda`` if one is present, else raise.
+
+    CPU runs only when asked for explicitly (``device="cpu"``), so a
+    missing card never silently turns a GPU run into a CPU run.
+    """
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device found; pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is unavailable")
+    return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for queued work on ``device`` (no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

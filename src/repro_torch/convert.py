@@ -1,0 +1,59 @@
+"""Convert the reference's parameters into the port's.
+
+The reference keeps a params pytree whose per-layer leaves are stacked on
+a leading ``[L, ...]`` axis (``lax.scan`` over layers); the port keeps a
+list of per-layer dicts.  Weights share the ``[d_in, d_out]`` layout, so
+conversion is an unstack plus a copy, with no reshaping.  With tied
+embeddings there is no ``lm_head``: the port's head is the embedding
+table, as in the reference.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping, Optional, Union
+
+import numpy as np
+import torch
+
+
+def _tensor(a, device, dtype) -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype.kind == "V" or str(arr.dtype) == "bfloat16":
+        # numpy has no bf16: take the raw bits and reinterpret
+        t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr, copy=True))
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def _convert(tree, device, dtype):
+    if isinstance(tree, Mapping):
+        return {k: _convert(v, device, dtype) for k, v in tree.items()}
+    return _tensor(tree, device, dtype)
+
+
+def _unstack(tree, i: int):
+    if isinstance(tree, Mapping):
+        return {k: _unstack(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def _n_layers(tree) -> int:
+    while isinstance(tree, Mapping):
+        tree = next(iter(tree.values()))
+    return int(np.asarray(tree).shape[0])
+
+
+def params_from_jax(tree: Mapping[str, Any],
+                    device: Union[str, torch.device] = "cpu",
+                    dtype: Optional[torch.dtype] = None) -> dict:
+    """Reference LM params (nested dicts of numpy arrays, layer leaves
+    ``[L, ...]``) -> the port's params on ``device``.  ``dtype`` casts
+    floating leaves (``None`` keeps each leaf's own dtype)."""
+    out = {k: _convert(v, device, dtype) for k, v in tree.items()
+           if k != "layers"}
+    layers = tree["layers"]
+    out["layers"] = [_convert(_unstack(layers, i), device, dtype)
+                     for i in range(_n_layers(layers))]
+    return out

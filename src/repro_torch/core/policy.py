@@ -1,0 +1,129 @@
+"""MCAPolicy: where/how Monte-Carlo projection runs inside a model.
+
+Port of ``repro/core/policy.py`` (single-device branch; the ``shard_map``
+branch waits for the distribution slice).  ``mca_project`` runs the paper
+pipeline
+
+    importance -> Eq.9 r schedule -> tier quantization -> capacity routing
+               -> block-sampled matmuls (per tier)      [mode="tiered"]
+               -> per-token i.i.d. estimator            [mode="per_token"]
+
+and returns (y, stats) with the paper's FLOPs accounting.  Stats values
+that depend on the data stay device tensors; the host reads them once
+per step.  Device telemetry (``mca.device_tier_hist``) is not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from . import amm, dispatch, schedule
+
+Stats = dict
+
+
+@dataclasses.dataclass(frozen=True)
+class MCAConfig:
+    """User-facing MCA knobs. ``alpha`` is the paper's single error knob."""
+    enabled: bool = False
+    alpha: float = 0.2
+    block: int = 128
+    n_tiers: int = 4
+    r_min_blocks: int = 1
+    mode: str = "tiered"            # "tiered" | "per_token"
+    # static capacity fractions (of token count) per tier, cheap->exact;
+    # tier 0 is always unbounded.
+    capacity_fracs: Tuple[float, ...] = (1.0, 0.5, 0.375, 0.25)
+    sites: Tuple[str, ...] = ("v_proj", "o_proj")
+    use_kernel: bool = False        # route per-tier matmuls to the kernel
+    fast_colmax: bool = False       # fused conservative colmax (not ported)
+
+    def active(self, site: str) -> bool:
+        return self.enabled and site in self.sites
+
+    def block_for(self, d: int) -> int:
+        b = min(self.block, d)
+        while d % b != 0:
+            b //= 2
+        return max(b, 1)
+
+
+def _caps_for(n_tokens: int, n_tiers: int, fracs: Tuple[float, ...]
+              ) -> Tuple[int, ...]:
+    caps = []
+    for t in range(n_tiers):
+        if t == 0:
+            caps.append(n_tokens)
+        else:
+            frac = fracs[min(t, len(fracs) - 1)]
+            caps.append(max(1, int(round(frac * n_tokens))))
+    return tuple(caps)
+
+
+def exact_project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(x, w)
+
+
+def mca_project(key: Optional[int], x: torch.Tensor, w: torch.Tensor,
+                importance: Optional[torch.Tensor], seq_len: int,
+                cfg: MCAConfig, site: str) -> Tuple[torch.Tensor, Stats]:
+    """Project ``x @ w`` under the MCA policy.
+
+    x: [..., n, d]; w: [d, f]; importance: [..., n] non-negative (None or
+    inactive site -> exact matmul); seq_len: the ``n`` of Eq. 9; key: an
+    integer key (``amm.fold_in``), None for exact.
+    """
+    lead = x.shape[:-2]
+    n, d = x.shape[-2], x.shape[-1]
+    f = w.shape[-1]
+    flat_n = math.prod(lead) * n
+    exact_fl = amm.exact_flops(flat_n, d, f)
+
+    if not cfg.active(site) or importance is None or key is None:
+        y = exact_project(x, w)
+        return y, {"site": site, "exact_flops": exact_fl,
+                   "mca_flops": exact_fl, "tokens": flat_n}
+
+    block = cfg.block_for(d)
+    ladder = schedule.tier_ladder(d, block, cfg.n_tiers, cfg.r_min_blocks)
+
+    x2 = x.reshape(flat_n, d)
+    imp = importance.reshape(flat_n)
+    r_cols = schedule.r_cols_from_attention(imp, seq_len, cfg.alpha, d)
+    r_blocks = schedule.r_blocks_from_cols(r_cols, block)
+    tier = schedule.assign_tiers(r_blocks, ladder)
+
+    if cfg.mode == "per_token":
+        y2 = dispatch.per_token_mca_matmul(key, x2, w, r_blocks, block)
+        mca_fl = amm.sampled_flops(r_blocks, f, block)
+        hist = dispatch.tier_histogram(tier, len(ladder))
+    else:
+        caps = _caps_for(flat_n, len(ladder), cfg.capacity_fracs)
+        tier_routed = dispatch.apply_capacity(tier, imp, caps)
+        y2 = dispatch.tiered_mca_matmul(key, x2, w, tier_routed, imp, ladder,
+                                        caps, block,
+                                        use_kernel=cfg.use_kernel)
+        hist = dispatch.tier_histogram(tier_routed, len(ladder))
+        # int64 on the device: the sum reaches ~2e9 at d=f=3072 and a few
+        # hundred tokens, where int32 would overflow
+        hist64 = hist.to(torch.int64)
+        mca_fl = sum(hist64[t] * (2 * r_t * block * f)
+                     for t, r_t in enumerate(ladder))
+
+    y = y2.reshape(*lead, n, f)
+    stats = {"site": site, "exact_flops": exact_fl, "mca_flops": mca_fl,
+             "tokens": flat_n, "tier_hist": hist,
+             "mean_r_blocks": torch.mean(r_blocks.float()),
+             "ladder": ladder}
+    return y, stats
+
+
+def flops_reduction(stats: Stats):
+    """The paper's headline metric: exact / MCA attention-encoding FLOPs."""
+    mca = stats["mca_flops"]
+    if isinstance(mca, torch.Tensor):
+        return stats["exact_flops"] / torch.clamp(mca, min=1)
+    return stats["exact_flops"] / max(mca, 1)

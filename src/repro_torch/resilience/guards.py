@@ -1,0 +1,33 @@
+"""Numeric guards: cheap host-side finite checks at recovery decision
+points (wave logits, per-step loss/grad-norm).  A torch tensor on the
+card is reduced on the card and only the verdict crosses to the host."""
+from __future__ import annotations
+
+import math
+import numpy as np
+import torch
+
+
+class NonFiniteError(FloatingPointError):
+    """A guarded value (logits, loss, grads) came back NaN/Inf."""
+
+
+def is_finite(value) -> bool:
+    """True iff a scalar / array / tensor is entirely finite."""
+    if isinstance(value, (int, float)):
+        return math.isfinite(value)
+    if isinstance(value, torch.Tensor):
+        if not value.is_floating_point():
+            return True
+        return bool(torch.isfinite(value).all())
+    arr = np.asarray(value)
+    if not np.issubdtype(arr.dtype, np.floating):
+        return True
+    return bool(np.isfinite(arr).all())
+
+
+def check_finite(value, what: str):
+    """Return ``value`` or raise :class:`NonFiniteError` naming ``what``."""
+    if not is_finite(value):
+        raise NonFiniteError(f"non-finite values in {what}")
+    return value

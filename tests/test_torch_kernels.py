@@ -1,0 +1,155 @@
+"""Port kernels (plain PyTorch path on the CPU) vs the reference's Pallas
+kernels (interpret mode on the CPU), on the same numpy inputs.
+
+The CUDA kernels themselves run only on the card: tests/test_torch_gpu.py
+holds them against these plain versions there.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro import obs as jobs  # noqa: E402
+from repro.kernels import kv_slot_update as j_kv_slot_update  # noqa: E402
+from repro.kernels import mca_matmul as j_mca_matmul  # noqa: E402
+from repro.kernels.mca_matmul import mca_matmul_fixed as j_fixed  # noqa: E402
+from repro_torch import obs  # noqa: E402
+from repro_torch.kernels import _build, cache_update, ops, ref  # noqa: E402
+from repro_torch.kernels.mca_matmul import mca_matmul_fixed  # noqa: E402
+
+
+def _mca_inputs(m, d, f, r, seed, mode, block=128):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, d)).astype(np.float32)
+    w = (rng.standard_normal((d, f)) / np.sqrt(d)).astype(np.float32)
+    k = d // block
+    if mode == "exact":
+        idx = np.arange(k, dtype=np.int32)
+        inv_rp = np.ones(k, np.float32)
+    else:
+        p = rng.dirichlet(np.ones(k)).astype(np.float32)
+        idx = rng.choice(k, size=r, p=p).astype(np.int32)
+        inv_rp = (1.0 / (r * p[idx])).astype(np.float32)
+    return x, w, idx, inv_rp
+
+
+CASES = [(128, 512, 128, 2, "sampled"), (256, 384, 256, 4, "sampled"),
+         (128, 512, 128, 4, "exact"), (64, 256, 384, 2, "exact")]
+
+
+@pytest.mark.parametrize("m,d,f,r,mode", CASES)
+def test_plain_mca_matmul_fixed_matches_pallas(m, d, f, r, mode):
+    """Same (idx, inv_rp): the port's plain version equals the Pallas
+    kernel (interpret mode) to f32-accumulation tolerance."""
+    x, w, idx, inv_rp = _mca_inputs(m, d, f, r, seed=m + d + f, mode=mode)
+    want = np.asarray(j_fixed(jnp.asarray(x), jnp.asarray(w),
+                              jnp.asarray(idx), jnp.asarray(inv_rp),
+                              block=128, interpret=True))
+    got = ref.ref_mca_matmul_fixed(torch.from_numpy(x), torch.from_numpy(w),
+                                   torch.from_numpy(idx),
+                                   torch.from_numpy(inv_rp), 128).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    if mode == "exact":
+        np.testing.assert_allclose(got, x @ w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["sampled", "exact"])
+def test_ops_mca_matmul_matches_reference_wrapper(mode):
+    """The public wrappers agree, and both count one call of the op (the
+    reference's kernel path; the port's plain path on a CPU tensor)."""
+    x, w, idx, inv_rp = _mca_inputs(128, 512, 256, 3, seed=5, mode=mode)
+    with jobs.scoped() as jreg:
+        want = np.asarray(j_mca_matmul(jnp.asarray(x), jnp.asarray(w),
+                                       jnp.asarray(idx), jnp.asarray(inv_rp),
+                                       block=128))
+        jc = jreg.snapshot()["counters"]
+    with obs.scoped() as reg:
+        got = ops.mca_matmul(torch.from_numpy(x), torch.from_numpy(w),
+                             torch.from_numpy(idx), torch.from_numpy(inv_rp),
+                             block=128).numpy()
+        c = reg.snapshot()["counters"]
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert jc["kernels.mca_matmul.kernel_calls"] == 1
+    assert c == {"kernels.mca_matmul.fallback_calls": 1.0}
+
+
+@pytest.mark.parametrize("shape", [(4, 16, 256), (3, 32, 2, 128),
+                                   (2, 8, 4, 32)])
+def test_kv_slot_update_bitwise(shape):
+    """cache[b, pos[b]] = new[b, 0]: bitwise equal to the Pallas kernel
+    (or the reference's scatter fallback for unaligned rows), untouched
+    rows included; the port writes the caller's tensor in place."""
+    rng = np.random.default_rng(len(shape))
+    b, s = shape[:2]
+    cache = rng.standard_normal(shape).astype(np.float32)
+    new = rng.standard_normal((b, 1) + shape[2:]).astype(np.float32)
+    pos = rng.integers(0, s, b).astype(np.int32)
+    want = np.asarray(j_kv_slot_update(jnp.asarray(cache), jnp.asarray(new),
+                                       jnp.asarray(pos)))
+    t_cache = torch.from_numpy(cache.copy())
+    out = ops.kv_slot_update(t_cache, torch.from_numpy(new),
+                             torch.from_numpy(pos))
+    assert out is t_cache
+    np.testing.assert_array_equal(out.numpy(), want)
+
+
+def test_kv_slot_update_layer_view_of_stacked_cache():
+    """Writing layer 1's view of a [L, B, S, H, D] stack changes only that
+    layer, exactly as the reference does on the unstacked layer."""
+    rng = np.random.default_rng(0)
+    stack = rng.standard_normal((3, 2, 8, 2, 16)).astype(np.float32)
+    new = rng.standard_normal((2, 1, 2, 16)).astype(np.float32)
+    pos = np.asarray([5, 0], np.int32)
+    t_stack = torch.from_numpy(stack.copy())
+    ops.kv_slot_update(t_stack[1], torch.from_numpy(new),
+                       torch.from_numpy(pos))
+    want = stack.copy()
+    want[1] = np.asarray(j_kv_slot_update(jnp.asarray(stack[1]),
+                                          jnp.asarray(new), jnp.asarray(pos)))
+    np.testing.assert_array_equal(t_stack.numpy(), want)
+
+
+def test_cpu_tensors_never_launch():
+    """On CPU tensors the wrappers take the plain versions: fallback calls
+    count, the CUDA launch counters do not move."""
+    ops.reset_launch_counts()
+    with obs.scoped() as reg:
+        x = torch.ones(4, 256)
+        ops.mca_matmul(x, torch.ones(256, 8),
+                       torch.zeros(1, dtype=torch.int32), torch.ones(1))
+        ops.kv_slot_update(torch.zeros(2, 4, 8), torch.ones(2, 1, 8),
+                           torch.zeros(2, dtype=torch.int32))
+        c = reg.snapshot()["counters"]
+    assert c == {"kernels.mca_matmul.fallback_calls": 1.0,
+                 "kernels.kv_slot_update.fallback_calls": 1.0}
+    assert ops.launch_counts() == {"mca_matmul_fixed": 0,
+                                   "kv_slot_update": 0}
+
+
+@pytest.mark.parametrize("launcher", ["mca_matmul", "kv_slot_update"])
+def test_kernel_launchers_refuse_cpu_tensors(launcher):
+    """The CUDA launchers check their inputs before touching a pointer."""
+    with pytest.raises(ValueError, match="CUDA"):
+        if launcher == "mca_matmul":
+            mca_matmul_fixed(
+                torch.ones(4, 256), torch.ones(256, 8),
+                torch.zeros(1, dtype=torch.int32), torch.ones(1))
+        else:
+            cache_update.kv_slot_update(
+                torch.zeros(2, 4, 8), torch.ones(2, 1, 8),
+                torch.zeros(2, dtype=torch.int32))
+
+
+def test_build_layout_and_missing_toolkit(monkeypatch, tmp_path):
+    """Every csrc source is built, into build/kernels at the repository
+    root; without nvcc the build says so instead of failing obscurely."""
+    assert _build.BUILD_DIR.parts[-2:] == ("build", "kernels")
+    assert _build.BUILD_DIR.parents[1] == _build.CSRC.parents[2]
+    assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == sorted(
+        _build.SOURCES)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "DEFAULT_NVCC", str(tmp_path / "nvcc"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build._nvcc()
