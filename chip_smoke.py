@@ -12,16 +12,32 @@ Phases, each of which must pass:
              parallel (``nvcc -Xptxas -v`` lines printed).
 3. kernels — each kernel against its plain PyTorch version on the card,
              at the serve path's shapes, in bf16: ``mca_matmul_fixed``
-             within 1e-2 of the output's max magnitude (the output is
-             rounded to bf16 after an f32 sum taken in another order),
-             ``kv_slot_update`` bitwise, untouched rows included.
+             and ``mca_matmul_ragged`` within 1e-2 of the output's max
+             magnitude (the output is rounded to bf16 after an f32 sum
+             taken in another order), ``kv_slot_update`` bitwise,
+             untouched rows included; ``flash_attention`` out within 2e-2
+             of max|out| in bf16 (P is rounded to bf16 for PV) and 2e-4 in
+             f32, lse within 1e-3, ``attn_colmax`` within 1e-3, at
+             starcoder2-3b (24/2 heads, dh 128, causal, also suffix
+             queries and a ragged 200), bert-base (12 heads, dh 64, full)
+             and one f32 shape.
 4. parity  — a reduced starcoder2-3b (f32, 2 layers) served on the card
              gives the same tokens as on the CPU and logits within 1e-4.
 5. serve   — starcoder2-3b at full width (30 layers, d_model 3072, bf16,
              random weights from a seed) with MCA on
              (alpha=0.2, block=128, use_kernel=True) through both batchers;
              kernel launch counts are reset just before each batcher runs
-             and read just after.
+             and read just after (flash, colmax and the ragged matmul are
+             not on this path: their counts print as 0).
+5b. entry  — this slice's path, ``repro_torch.kernels`` at full width on
+             layer 0 of that model (4 prompts of 512 tokens): q, k, v from
+             the port's own layer code; ``flash_attention`` -> (out, lse)
+             held against ``onepass_attention``; ``attn_colmax`` against
+             ``chunked_colmax`` on that lse; Eq. 9 budgets in [1, d]; the
+             value projection of the budget-sorted tokens through
+             ``mca_matmul_ragged`` (128-row tiles, each taking the largest
+             budget of its rows) against its plain version.  Counts are
+             reset just before and read just after.
 6. profile — ``torch.profiler`` over one full-width prefill and one
              8-step decode burst: device busy share, kernel launches, the
              largest device kernels and host ops.
@@ -30,7 +46,8 @@ Phases, each of which must pass:
              version's and one library call's time; prefill / decode-step
              p50, tokens/s, peak memory.
 
-Ends with a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
+Builds four sources (one ``nvcc`` each, in parallel).  Ends with a
+``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
 line and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero (and
 prints no result) on any failure or without a card.
 """
@@ -49,6 +66,18 @@ BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor-core peak
 MCA_CASES = [(64, 3072, 256, 1), (128, 3072, 256, 4), (24, 3072, 3072, 2),
              (128, 3072, 3072, 4), (256, 3072, 3072, 4)]
 MCA_TIMED = (128, 3072, 3072, 4)  # o_proj: 128 rows at the 4-block rung
+# (m, d, f, r_tile, R_max): 128-row tiles of a 512-token bucket
+RAGGED_CASES = [(512, 3072, 3072, (4, 2, 1, 0), 4),      # o_proj
+                (512, 3072, 256, (4, 2, 1, 0), 4)]       # v_proj
+# (b, hq, hkv, sq, skv, dh, causal, dtype)
+ATTN_CASES = [(4, 24, 2, 512, 512, 128, True, "bfloat16"),   # starcoder2-3b
+              (1, 24, 2, 256, 512, 128, True, "bfloat16"),   # suffix queries
+              (4, 12, 12, 512, 512, 64, False, "bfloat16"),  # bert-base
+              (1, 24, 2, 200, 200, 128, True, "bfloat16"),   # ragged edges
+              (2, 24, 2, 256, 256, 128, True, "float32")]
+ATTN_TIMED = ATTN_CASES[0]
+SERVE_KERNELS = ("mca_matmul_fixed", "kv_slot_update")
+ENTRY_KERNELS = ("flash_attention", "attn_colmax", "mca_matmul_ragged")
 KV_SHAPE = (4, 512, 256)          # one layer's K (or V) cache, flattened
 KV_STACK = (30, 4, 512, 2, 128)   # layer-stacked cache of the serve path
 
@@ -123,19 +152,10 @@ def phase_kernels():
             want = x.float() @ w.float()
         else:
             want = ref.ref_mca_matmul_fixed(x, w, idx, inv_rp, 128).float()
-        got = mca_matmul_fixed(x, w, idx, inv_rp,
-                                          block=128).float()
+        got = mca_matmul_fixed(x, w, idx, inv_rp, block=128)
         torch.cuda.synchronize()
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"mca_matmul_fixed {mode} {(m, d, f, r)}: "
-                                 "non-finite output")
-        err = float((got - want).abs().max())
-        tol = 1e-2 * float(want.abs().max())
-        log(f"[kernels] mca_matmul_fixed {mode} m={m} d={d} f={f} R={r}: "
-            f"max|err|={err:.3e} tol={tol:.3e}")
-        if not err <= tol:
-            raise AssertionError(f"mca_matmul_fixed {mode} {(m, d, f, r)}: "
-                                 f"err {err} > tol {tol}")
+        err = _held(f"[kernels] mca_matmul_fixed {mode} m={m} d={d} f={f} "
+                    f"R={r}", got, want, 1e-2 * float(want.abs().max()))
         if mode == "sampled":
             errs["mca_matmul_fixed"] = max(errs["mca_matmul_fixed"], err)
 
@@ -144,11 +164,8 @@ def phase_kernels():
                                     dtype=torch.float32)
     want = ref.ref_mca_matmul_fixed(x, w, idx, inv_rp, 128)
     got = mca_matmul_fixed(x, w, idx, inv_rp, block=128)
-    err = float((got - want).abs().max())
-    log(f"[kernels] mca_matmul_fixed f32 m=48 d=256 f=128 R=2: "
-        f"max|err|={err:.3e}")
-    if not err <= 1e-4 * float(want.abs().max()):
-        raise AssertionError(f"mca_matmul_fixed f32: err {err}")
+    _held("[kernels] mca_matmul_fixed f32 m=48 d=256 f=128 R=2", got, want,
+          1e-4 * float(want.abs().max()))
 
     g = torch.Generator(device="cuda").manual_seed(7)
     b, s, f = KV_SHAPE
@@ -173,6 +190,101 @@ def phase_kernels():
                              "!= plain version")
     log("[kernels] kv_slot_update [4,512,256] and layer 7 of "
         "[30,4,512,2,128]: bitwise equal to the plain version")
+    errs["mca_matmul_ragged"] = _check_ragged()
+    errs.update(_check_attention())
+    return errs
+
+
+def _held(what, got, want, tol):
+    """max |got - want|; raises unless finite and within ``tol``."""
+    import torch
+    err = float((got.float() - want.float()).abs().max())
+    log(f"{what}: max|err|={err:.3e} tol={tol:.3e}")
+    if not (bool(torch.isfinite(got).all()) and err <= tol):
+        raise AssertionError(f"{what}: err {err} > tol {tol} or non-finite")
+    return err
+
+
+def _ragged_inputs(m, d, f, r_tile, r_max, seed):
+    """bf16 x, w; per-tile sample lists drawn from w's block
+    probabilities, weights 1 / (r_tile[t] * p)."""
+    import torch
+    from repro_torch.core import amm
+    x, w, _, _ = _mca_inputs(m, d, f, 1, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    probs = amm.block_probs(w, 128)
+    idx, _ = amm.draw_block_samples(g, probs, len(r_tile) * r_max)
+    idx = idx.reshape(len(r_tile), r_max).contiguous()
+    rt = torch.tensor(r_tile, dtype=torch.int32, device="cuda")
+    inv_rp = (1.0 / (rt.clamp(min=1)[:, None] * probs[idx.long()])).float()
+    return x, w, rt, idx, inv_rp.contiguous()
+
+
+def _check_ragged():
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mca_matmul import mca_matmul_ragged
+    err = 0.0
+    for m, d, f, r_tile, r_max in RAGGED_CASES:
+        x, w, rt, idx, inv_rp = _ragged_inputs(m, d, f, r_tile, r_max,
+                                               seed=m + f)
+        got = mca_matmul_ragged(x, w, rt, idx, inv_rp, block=128)
+        want = ref.ref_mca_matmul_ragged(x, w, rt, idx, inv_rp, 128)
+        torch.cuda.synchronize()
+        err = max(err, _held(
+            f"[kernels] mca_matmul_ragged m={m} d={d} f={f} r_tile={r_tile}",
+            got,
+            want, 1e-2 * float(want.float().abs().max())))
+        if bool(got[(m // len(r_tile)) * 3:].any()):
+            raise AssertionError("mca_matmul_ragged: r_tile 0 rows not 0")
+    # exact: every block once per tile, unit weights -> the dense product
+    x, w, _, _ = _mca_inputs(512, 3072, 3072, 1, seed=9)
+    full = torch.full((4,), 24, dtype=torch.int32, device="cuda")
+    idx = torch.arange(24, dtype=torch.int32, device="cuda").repeat(4, 1)
+    got = mca_matmul_ragged(x, w, full, idx.contiguous(),
+                            torch.ones((4, 24), device="cuda"), block=128)
+    want = x.float() @ w.float()
+    _held("[kernels] mca_matmul_ragged exact m=512 R=24 vs dense", got, want,
+          1e-2 * float(want.abs().max()))
+    return err
+
+
+def _attn_inputs(b, hq, hkv, sq, skv, dh, dtype, seed):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=g, device="cuda").to(dtype)
+            for shape in ((b, hq, sq, dh), (b, hkv, skv, dh),
+                          (b, hkv, skv, dh))]
+
+
+def _check_attention():
+    """flash_attention and attn_colmax against the plain versions; returns
+    the largest bf16 errors (flash out, colmax)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.attn_colmax import attn_colmax
+    from repro_torch.kernels.flash_attention import flash_attention
+    errs = {"flash_attention": 0.0, "attn_colmax": 0.0}
+    for b, hq, hkv, sq, skv, dh, causal, dtn in ATTN_CASES:
+        dt = getattr(torch, dtn)
+        q, k, v = _attn_inputs(b, hq, hkv, sq, skv, dh, dt, seed=sq + dh)
+        scale = dh ** -0.5
+        out, lse = flash_attention(q, k, v, scale=scale, causal=causal)
+        cm = attn_colmax(q, k, lse, scale=scale, causal=causal)
+        want_out, want_lse = ref.ref_attention(q, k, v, scale=scale,
+                                               causal=causal)
+        want_cm = ref.ref_colmax(q, k, lse, scale=scale, causal=causal)
+        torch.cuda.synchronize()
+        shape = (f"[{b},{hq}/{hkv},{sq}x{skv},{dh}] "
+                 f"{'causal' if causal else 'full'} {dtn}")
+        rel = 2e-2 if dt == torch.bfloat16 else 2e-4
+        e_out = _held(f"[kernels] flash_attention out {shape}", out, want_out,
+                      rel * float(want_out.float().abs().max()))
+        _held(f"[kernels] flash_attention lse {shape}", lse, want_lse, 1e-3)
+        e_cm = _held(f"[kernels] attn_colmax {shape}", cm, want_cm, 1e-3)
+        if dt == torch.bfloat16:
+            errs["flash_attention"] = max(errs["flash_attention"], e_out)
+            errs["attn_colmax"] = max(errs["attn_colmax"], e_cm)
     return errs
 
 
@@ -233,7 +345,8 @@ def _check_path(name, snap, launches, decode_steps):
         if k <= 0 or fb != 0:
             raise AssertionError(f"{name}: {op} kernel_calls={k} "
                                  f"fallback_calls={fb}")
-    for kern, n in launches.items():
+    for kern in SERVE_KERNELS:
+        n = launches[kern]
         if n <= 0:
             raise AssertionError(f"{name}: {kern} never launched")
     if launches["kv_slot_update"] < 60 * decode_steps:
@@ -336,10 +449,98 @@ def phase_serve():
     log("[serve] " + json.dumps(serve_nums))
     total = {k: launches["slot"][k] + launches["wave"][k]
              for k in launches["slot"]}
+    log(f"[serve] launches of the kernels off the serve path: "
+        f"{ {k: total[k] for k in ENTRY_KERNELS} }")
     per = {"mca_matmul_fixed": "per prefill: 30 layers x 2 sites x 3 "
                                "sampled tiers = 180",
            "kv_slot_update": "per decode step: 30 layers x (K, V) = 60"}
     return total, per, serve_nums, engine
+
+
+# ------------------------------------------------------------ phase 5b
+def phase_entry(engine):
+    """This slice's path: ``repro_torch.kernels`` at full width on layer 0
+    of the served model.  Returns the launch counts of the run."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import amm, schedule
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention as attn
+    from repro_torch.models.common import apply_norm, apply_rope, \
+        embed_tokens
+    params, cfg = engine.params, engine.model.cfg
+    b, s, block = 4, 512, 128
+    hq, hkv, dh, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_model
+    g = hq // hkv
+    tokens = torch.as_tensor(np.random.default_rng(2).integers(
+        1, cfg.vocab_size, (b, s)), device="cuda")
+    p0 = params["layers"][0]["mixer"]
+    h = apply_norm(params["layers"][0]["ln1"], cfg,
+                   embed_tokens(params["embed"], tokens))
+    pos = torch.arange(s, device="cuda")[None]
+    q = apply_rope((h @ p0["wq"]).reshape(b, s, hq, dh), pos,
+                   cfg.rope_theta, cfg.rotary_pct)
+    k = apply_rope((h @ p0["wk"]).reshape(b, s, hkv, dh), pos,
+                   cfg.rope_theta, cfg.rotary_pct)
+    v = (h @ p0["wv"]).reshape(b, s, hkv, dh)
+
+    def heads(t):                           # [B, S, H, dh] -> [B, H, S, dh]
+        return t.permute(0, 2, 1, 3).contiguous()
+
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    scale = dh ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    probs = amm.block_probs(p0["wv"], block)
+    k_blocks = d // block
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    out, lse = kernels.flash_attention(qh, kh, vh, scale=scale, causal=True)
+    cm = kernels.attn_colmax(qh, kh, lse, scale=scale, causal=True)
+    r_cols = schedule.r_cols_from_attention(cm, s, alpha=cfg.mca.alpha, d=d)
+    # value projection of the tokens sorted by their block budget: each
+    # 128-row tile takes the largest budget of its rows
+    r_blk = schedule.r_blocks_from_cols(r_cols, block).reshape(-1)
+    order = torch.argsort(r_blk, descending=True, stable=True)
+    xs = h.reshape(b * s, d)[order].contiguous()
+    r_tile = r_blk[order].reshape(-1, block).amax(dim=1).clamp(
+        max=k_blocks).to(torch.int32).contiguous()
+    idx, _ = amm.draw_block_samples(gen, probs, r_tile.numel() * k_blocks)
+    idx = idx.reshape(-1, k_blocks).contiguous()
+    inv_rp = (1.0 / (r_tile[:, None] * probs[idx.long()])).float().contiguous()
+    yv = kernels.mca_matmul_ragged(xs, p0["wv"], r_tile, idx, inv_rp,
+                                   block=block)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    log(f"[entry] launches {launches}")
+    for name in ENTRY_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"entry path: {name} never launched")
+
+    chunk = attn.pick_chunk(s, cfg.attn_chunk)
+    qg = q.reshape(b, s, hkv, g, dh)
+    o_m, _, lse_m = attn.onepass_attention(qg, k, v, scale=scale,
+                                           causal=True, window=0, chunk=chunk)
+    o_m = o_m.reshape(b, s, hq, dh).permute(0, 2, 1, 3)
+    _held("[entry] flash_attention out vs onepass_attention", out, o_m,
+          2e-2 * float(o_m.float().abs().max()))
+    _held("[entry] flash_attention lse vs onepass_attention", lse,
+          lse_m.reshape(b, hq, s), 1e-3)
+    cm_m = attn.chunked_colmax(qg, k, lse.reshape(b, hkv, g, s), scale=scale,
+                               causal=True, window=0, chunk=chunk)
+    _held("[entry] attn_colmax vs chunked_colmax", cm, cm_m, 1e-3)
+    if not bool(((r_cols >= 1.0) & (r_cols <= d)).all()):
+        raise AssertionError("Eq. 9 budgets outside [1, d]")
+    want = ref.ref_mca_matmul_ragged(xs, p0["wv"], r_tile, idx, inv_rp,
+                                     block)
+    _held("[entry] mca_matmul_ragged v_proj vs plain", yv, want,
+          1e-2 * float(want.float().abs().max()))
+    rt = r_tile.tolist()
+    log(f"[entry] v_proj r_tile {rt}: {sum(rt)} of {len(rt) * k_blocks} "
+        f"sampled blocks; colmax range [{float(cm.min()):.3e}, "
+        f"{float(cm.max()):.3e}]")
+    return {k: launches[k] for k in ENTRY_KERNELS}
 
 
 def _leaves(tree):
@@ -446,6 +647,114 @@ def _bound_ms(n_bytes, flops):
         else "operations")
 
 
+def _visible_pairs(sq, skv, causal):
+    """(query, key) pairs a mask lets through: the work this call needs."""
+    if not causal:
+        return sq * skv
+    return sum(min(skv, max(0, i + skv - sq + 1)) for i in range(sq))
+
+
+def _sdpa(q, k, v, scale, causal):
+    """One PyTorch call computing the same attention (the yardstick only;
+    its causal mask is top-left aligned, so sq == skv)."""
+    import torch.nn.functional as F
+    try:
+        F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                       scale=scale, enable_gqa=True)
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, scale=scale, enable_gqa=True)
+    except TypeError:                  # older PyTorch: KV repeated first
+        g = q.shape[1] // k.shape[1]
+        kr, vr = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+        return lambda: F.scaled_dot_product_attention(
+            q, kr, vr, is_causal=causal, scale=scale)
+
+
+def _numbers_attention(out):
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.attn_colmax import attn_colmax
+    from repro_torch.kernels.flash_attention import flash_attention
+    b, hq, hkv, sq, skv, dh, causal, dtn = ATTN_TIMED
+    q, k, v = _attn_inputs(b, hq, hkv, sq, skv, dh, getattr(torch, dtn),
+                           seed=200)
+    scale = dh ** -0.5
+    pairs = _visible_pairs(sq, skv, causal)
+    qo, kv_ = b * hq * sq * dh * 2, b * hkv * skv * dh * 2
+    shape = f"[{b},{hq}/{hkv},{sq}x{skv},{dh}] {dtn}"
+    bound, by = _bound_ms(2 * qo + 2 * kv_ + 4 * b * hq * sq,
+                          4 * b * hq * pairs * dh)
+    ms = cuda_time_ms(lambda: flash_attention(q, k, v, scale=scale,
+                                              causal=causal))
+    plain = cuda_time_ms(lambda: ref.ref_attention(q, k, v, scale=scale,
+                                                   causal=causal))
+    lib = cuda_time_ms(_sdpa(q, k, v, scale, causal))
+    dev_us = _device_us(lambda: flash_attention(q, k, v, scale=scale,
+                                                causal=causal),
+                        "flash_fwd_bf16_kernel")
+    log(f"[numbers] flash_attention {shape} causal: kernel {ms * 1e3:.2f} "
+        f"us per call (device {dev_us:.2f} us), plain {plain * 1e3:.2f} us, "
+        f"scaled_dot_product_attention {lib * 1e3:.2f} us, bound "
+        f"{bound * 1e3:.2f} us ({by})")
+    out["flash_attention"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                                  bound_by=by, library_ms=lib)
+    _, lse = flash_attention(q, k, v, scale=scale, causal=causal)
+    bound, by = _bound_ms(qo + kv_ + 4 * b * hq * sq + 4 * b * hq * skv,
+                          2 * b * hq * pairs * dh)
+    ms = cuda_time_ms(lambda: attn_colmax(q, k, lse, scale=scale,
+                                          causal=causal))
+    plain = cuda_time_ms(lambda: ref.ref_colmax(q, k, lse, scale=scale,
+                                                causal=causal))
+    dev_us = _device_us(lambda: attn_colmax(q, k, lse, scale=scale,
+                                            causal=causal),
+                        "colmax_bf16_kernel")
+    log(f"[numbers] attn_colmax {shape} causal: kernel {ms * 1e3:.2f} us "
+        f"per call (device {dev_us:.2f} us), plain {plain * 1e3:.2f} us, "
+        f"no single PyTorch call, bound {bound * 1e3:.2f} us ({by})")
+    out["attn_colmax"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                              bound_by=by, library_ms=None)
+
+
+def _numbers_ragged(out):
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mca_matmul import mca_matmul_ragged
+    m, d, f, r_tile, r_max = RAGGED_CASES[0]
+    x, w, rt, idx, inv_rp = _ragged_inputs(m, d, f, r_tile, r_max, seed=300)
+    b, n_t = 128, len(r_tile)
+    bm, nb = m // n_t, d // b
+    live = [set(row[:r]) for row, r in zip(idx.tolist(), r_tile)]
+    used = set().union(*live)
+    n_bytes = (2 * (sum(bm * len(u) * b for u in live) + len(used) * b * f
+                    + m * f) + 4 * n_t + 8 * sum(r_tile))
+    bound, by = _bound_ms(n_bytes, sum(2 * bm * len(u) * b * f for u in live))
+    ms = cuda_time_ms(lambda: mca_matmul_ragged(x, w, rt, idx, inv_rp,
+                                                block=b))
+    plain = cuda_time_ms(lambda: ref.ref_mca_matmul_ragged(
+        x, w, rt, idx, inv_rp, b))
+    # yardstick: one bmm on per-tile blocks gathered in advance, weights
+    # zeroed past r_tile
+    il = idx.long()
+    wgt = torch.where(torch.arange(r_max, device="cuda")[None] < rt[:, None],
+                      inv_rp, 0.0)
+    tiles = torch.arange(n_t, device="cuda")[:, None]
+    xg = x.reshape(n_t, bm, nb, b)[tiles, :, il].permute(0, 2, 1, 3).reshape(
+        n_t, bm, r_max * b).contiguous()
+    wg = (w.reshape(nb, b, f)[il] * wgt[..., None, None].to(w.dtype)
+          ).reshape(n_t, r_max * b, f).contiguous()
+    lib = cuda_time_ms(lambda: torch.bmm(xg, wg))
+    dev_us = _device_us(lambda: mca_matmul_ragged(x, w, rt, idx, inv_rp,
+                                                  block=b),
+                        "mca_ragged_bf16_kernel")
+    log(f"[numbers] mca_matmul_ragged m={m} d={d} f={f} bm={bm} "
+        f"r_tile={r_tile} (unique blocks per tile "
+        f"{[len(u) for u in live]}): kernel {ms * 1e3:.2f} us per call "
+        f"(device {dev_us:.2f} us), plain {plain * 1e3:.2f} us, torch.bmm "
+        f"on gathered {lib * 1e3:.2f} us, bound {bound * 1e3:.2f} us ({by})")
+    out["mca_matmul_ragged"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                                    bound_by=by, library_ms=lib)
+
+
 def phase_numbers():
     import torch
     from repro_torch.kernels import cache_update, ref
@@ -500,6 +809,8 @@ def phase_numbers():
         f"{bound * 1e3:.4f} us ({by})")
     out["kv_slot_update"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
                                  bound_by=by, library_ms=lib)
+    _numbers_ragged(out)
+    _numbers_attention(out)
     return out
 
 
@@ -517,6 +828,7 @@ def main() -> int:
     errs = phase_kernels()
     phase_parity()
     launches, per, serve_nums, engine = phase_serve()
+    launches.update(phase_entry(engine))
     phase_profile(engine)
     del engine
     nums = phase_numbers()
@@ -525,7 +837,15 @@ def main() -> int:
                              "src/repro/kernels/mca_matmul.py:84"),
         "kv_slot_update": ("src/repro_torch/csrc/kv_slot_update.cu",
                            "src/repro/kernels/cache_update.py:48"),
+        "mca_matmul_ragged": ("src/repro_torch/csrc/mca_matmul.cu",
+                              "src/repro/kernels/mca_matmul.py:168"),
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:92"),
+        "attn_colmax": ("src/repro_torch/csrc/attn_colmax.cu",
+                        "src/repro/kernels/attn_colmax.py:74"),
     }
+    per.update({k: "on the entry-point path (phase 5b), once each"
+                for k in ENTRY_KERNELS})
     kernels = []
     for name, (source, replaces) in meta.items():
         kernels.append({"name": name, "route": "cuda", "source": source,

@@ -14,6 +14,8 @@ from typing import Any, Mapping, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch._device import resolve_device
+
 
 def _tensor(a, device, dtype) -> torch.Tensor:
     arr = np.asarray(a)
@@ -46,11 +48,13 @@ def _n_layers(tree) -> int:
 
 
 def params_from_jax(tree: Mapping[str, Any],
-                    device: Union[str, torch.device] = "cpu",
+                    device: Optional[Union[str, torch.device]] = None,
                     dtype: Optional[torch.dtype] = None) -> dict:
     """Reference LM params (nested dicts of numpy arrays, layer leaves
-    ``[L, ...]``) -> the port's params on ``device``.  ``dtype`` casts
-    floating leaves (``None`` keeps each leaf's own dtype)."""
+    ``[L, ...]``) -> the port's params on ``device`` (the card unless
+    ``"cpu"``; without a card ``None`` raises).  ``dtype`` casts floating
+    leaves (``None`` keeps each leaf's own dtype)."""
+    device = resolve_device(device)
     out = {k: _convert(v, device, dtype) for k, v in tree.items()
            if k != "layers"}
     layers = tree["layers"]

@@ -1,13 +1,17 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) replacing the reference's
 Pallas TPU kernels, with their plain PyTorch versions for CPU tensors:
 
-  mca_matmul      block-sampled matmul (fixed R), csrc/mca_matmul.cu
-  kv_slot_update  per-row KV-cache write, csrc/kv_slot_update.cu
+  mca_matmul         block-sampled matmul (fixed R), csrc/mca_matmul.cu
+  mca_matmul_ragged  block-sampled matmul, per-row-tile R, csrc/mca_matmul.cu
+  flash_attention    online-softmax forward + LSE, csrc/flash_attention.cu
+  attn_colmax        Eq. 9 r-driver max_i A[i, j], csrc/attn_colmax.cu
+  kv_slot_update     per-row KV-cache write, csrc/kv_slot_update.cu
 
-Not ported yet: mca_matmul_ragged, flash_attention, attn_colmax and the
-in-kernel telemetry buffer (see ROADMAP.md).
+Not ported yet: the in-kernel telemetry buffer (see ROADMAP.md).
 """
-from .ops import kv_slot_update, launch_counts, mca_matmul, reset_launch_counts
+from .ops import (attn_colmax, flash_attention, kv_slot_update, launch_counts,
+                  mca_matmul, mca_matmul_ragged, reset_launch_counts)
 
-__all__ = ["kv_slot_update", "launch_counts", "mca_matmul",
+__all__ = ["attn_colmax", "flash_attention", "kv_slot_update",
+           "launch_counts", "mca_matmul", "mca_matmul_ragged",
            "reset_launch_counts"]

@@ -2,11 +2,12 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``build/kernels/lib<name>-<hash>.so`` at the repository root
-(``.gitignore`` lists ``build/``); the hash covers the source and the
-flags, so an edited source rebuilds and an unchanged one loads the
-existing library.  Nothing here runs at import time: the first call of a
-kernel wrapper builds its library, and ``build_all`` compiles every
-source in parallel (one ``nvcc`` each, all started together).
+(``.gitignore`` lists ``build/``); the hash covers the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source rebuilds and
+an unchanged one loads the existing library.  Nothing here runs at
+import time: the first call of a kernel wrapper builds its library, and
+``build_all`` compiles every source in parallel (one ``nvcc`` each, all
+started together).
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("kv_slot_update", "mca_matmul")
+SOURCES = ("attn_colmax", "flash_attention", "kv_slot_update", "mca_matmul")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"   # the CUDA toolkit's own place
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -45,7 +46,10 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Tuple[pathlib.Path, pathlib.Path]:
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 

@@ -1,0 +1,43 @@
+"""CUDA kernel launcher: attention column max from (q, k, lse).
+
+    colmax[b, h, j] = max_i exp(q_i . k_j * scale - lse[b, h, i])
+
+Port of ``repro/kernels/attn_colmax.py``: the Eq. 9 r-schedule driver of
+MCA, in O(n) memory (A is never materialised).  The CUDA kernel
+(``csrc/attn_colmax.cu``) runs one block per (64-key tile, query head,
+batch), loads the K tile once and loops over the q tiles from the offset
+causal diagonal down, recomputing each score exactly as
+``csrc/flash_attention.cu`` does (shared ``csrc/attn_tile.cuh``) and
+folding the column max in f32.  The output is per query head; the ops
+wrapper reduces over heads.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .flash_attention import _fn, check_qk, suffix
+
+
+def attn_colmax(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor, *,
+                scale: float, causal: bool = True) -> torch.Tensor:
+    """q: [B, Hq, Sq, dh]; k: [B, Hkv, Skv, dh] (both bf16 or both f32);
+    lse: [B, Hq, Sq] f32 (from flash_attention); contiguous, one CUDA
+    device.  Returns colmax [B, Hq, Skv] f32."""
+    b, hq, hkv, sq, skv, dh = check_qk("attn_colmax", q, k, lse)
+    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"attn_colmax: lse {tuple(lse.shape)} {lse.dtype} "
+                         f"must be [{b}, {hq}, {sq}] float32")
+    out = torch.empty((b, hq, skv), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out
+    fn = _fn("attn_colmax", f"attn_colmax_{suffix(q.dtype)}", 4)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _build.check(fn(q.data_ptr(), k.data_ptr(), lse.data_ptr(),
+                    out.data_ptr(), b, hq, hkv, sq, skv, dh, float(scale),
+                    int(bool(causal)), stream), "attn_colmax")
+    attn_colmax.launches += 1
+    return out
+
+
+attn_colmax.launches = 0

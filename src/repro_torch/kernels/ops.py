@@ -3,7 +3,11 @@
 One rule for every wrapper: a CPU tensor takes the kernel's plain PyTorch
 version (``kernels/ref.py``, the role interpret mode plays in the
 reference), a CUDA tensor launches the CUDA kernel or raises.  There is
-no fallback on the card.
+no fallback on the card: the kernels mask ragged edges themselves, so the
+shapes for which the reference's wrappers fall back (``m``, ``sq`` or
+``skv`` not a multiple of the block) run the kernel there.  The
+``block_*`` arguments are accepted, as the reference accepts them, and do
+not change the result.
 
 Accounting keeps the reference's names: every call counts
 ``kernels.<op>.kernel_calls`` (CUDA kernel) or ``kernels.<op>.fallback_calls``
@@ -22,9 +26,18 @@ import torch
 
 from repro_torch import obs
 
+from . import attn_colmax as _colmax_mod
 from . import cache_update as _cache_mod
+from . import flash_attention as _flash_mod
 from . import mca_matmul as _mca_mod
 from . import ref as _ref
+
+#: the launchers whose ``launches`` counts ``launch_counts()`` reports
+_LAUNCHERS = {"mca_matmul_fixed": _mca_mod.mca_matmul_fixed,
+              "mca_matmul_ragged": _mca_mod.mca_matmul_ragged,
+              "kv_slot_update": _cache_mod.kv_slot_update,
+              "flash_attention": _flash_mod.flash_attention,
+              "attn_colmax": _colmax_mod.attn_colmax}
 
 
 def _count(op: str, used_kernel: bool) -> None:
@@ -33,7 +46,8 @@ def _count(op: str, used_kernel: bool) -> None:
 
 
 def mca_matmul(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
-               inv_rp: torch.Tensor, *, block: int = 128) -> torch.Tensor:
+               inv_rp: torch.Tensor, *, block: int = 128, block_m: int = 128,
+               block_f: int = 128) -> torch.Tensor:
     """Fixed-R Monte-Carlo block-sampled matmul (one precision tier).
 
     x: [m, d]; w: [d, f]; idx: [R] int32; inv_rp: [R] f32 -> [m, f].
@@ -44,6 +58,30 @@ def mca_matmul(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
     _count("mca_matmul", True)
     with obs.trace("mca_matmul"):
         return _mca_mod.mca_matmul_fixed(x, w, idx, inv_rp, block=block)
+
+
+def mca_matmul_ragged(x: torch.Tensor, w: torch.Tensor, r_tile: torch.Tensor,
+                      idx: torch.Tensor, inv_rp: torch.Tensor, *,
+                      block: int = 128, block_m: int = 128,
+                      block_f: int = 128) -> torch.Tensor:
+    """Per-row-tile-R Monte-Carlo matmul (sorted/ragged precision).
+
+    x: [m, d]; w: [d, f]; r_tile: [m_tiles] int32; idx: [m_tiles, R_max]
+    int32; inv_rp: [m_tiles, R_max] f32 -> [m, f].  Row tile t is
+    ``m // m_tiles`` rows (``r_tile``'s length pins the tile size, as in
+    the reference) and sums its first ``r_tile[t]`` samples.
+    """
+    m_tiles = r_tile.shape[0]
+    if m_tiles == 0 or x.shape[0] % m_tiles:
+        raise ValueError(f"x {tuple(x.shape)}: rows are not a multiple of "
+                         f"{m_tiles} row tiles")
+    if x.device.type == "cpu":
+        _count("mca_matmul_ragged", False)
+        return _ref.ref_mca_matmul_ragged(x, w, r_tile, idx, inv_rp, block)
+    _count("mca_matmul_ragged", True)
+    with obs.trace("mca_matmul_ragged"):
+        return _mca_mod.mca_matmul_ragged(x, w, r_tile, idx, inv_rp,
+                                          block=block)
 
 
 def kv_slot_update(cache: torch.Tensor, new: torch.Tensor,
@@ -62,12 +100,48 @@ def kv_slot_update(cache: torch.Tensor, new: torch.Tensor,
         return _cache_mod.kv_slot_update(cache, new, pos)
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float, causal: bool = True, block_q: int = 128,
+                    block_k: int = 128):
+    """Flash attention forward; returns (out, lse).
+
+    q: [B, Hq, Sq, dh]; k, v: [B, Hkv, Skv, dh]; Hq % Hkv == 0.  out is
+    [B, Hq, Sq, dh] in q.dtype, lse [B, Hq, Sq] f32.  Causal masking uses
+    the diagonal offset ``skv - sq`` (suffix queries).
+    """
+    if q.device.type == "cpu":
+        _count("flash_attention", False)
+        return _ref.ref_attention(q, k, v, scale=scale, causal=causal)
+    _count("flash_attention", True)
+    with obs.trace("flash_attention"):
+        return _flash_mod.flash_attention(q, k, v, scale=scale,
+                                          causal=causal)
+
+
+def attn_colmax(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor, *,
+                scale: float, causal: bool = True, block_q: int = 128,
+                block_k: int = 128, reduce_heads: bool = True
+                ) -> torch.Tensor:
+    """Column max of A from (q, k, lse): [B, Hq, Skv] f32, or [B, Skv]
+    reduced over heads (``reduce_heads``, the reference's default)."""
+    if q.device.type == "cpu":
+        _count("attn_colmax", False)
+        cm = _ref.ref_colmax(q, k, lse, scale=scale, causal=causal)
+    else:
+        _count("attn_colmax", True)
+        with obs.trace("attn_colmax"):
+            cm = _colmax_mod.attn_colmax(q, k, lse, scale=scale,
+                                         causal=causal)
+    if reduce_heads:
+        cm = torch.amax(cm, dim=1)        # [B, Skv]
+    return cm
+
+
 def launch_counts() -> Dict[str, int]:
     """CUDA launches of each kernel since the last reset."""
-    return {"mca_matmul_fixed": _mca_mod.mca_matmul_fixed.launches,
-            "kv_slot_update": _cache_mod.kv_slot_update.launches}
+    return {name: fn.launches for name, fn in _LAUNCHERS.items()}
 
 
 def reset_launch_counts() -> None:
-    _mca_mod.mca_matmul_fixed.launches = 0
-    _cache_mod.kv_slot_update.launches = 0
+    for fn in _LAUNCHERS.values():
+        fn.launches = 0

@@ -35,7 +35,7 @@ def model_pair(arch="starcoder2-3b", j_mca=None, t_mca=None, seed=0, **kw):
     jm = j_build_model(jcfg)
     jp = jm.init(jax.random.PRNGKey(seed))
     tm = build_model(tcfg, device="cpu")
-    tp = params_from_jax(jax.tree.map(np.asarray, jp))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     return jm, jp, tm, tp
 
 

@@ -7,10 +7,13 @@ a reason.  On the GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerances: a bf16 ``mca_matmul_fixed`` output is within 1e-2 of the
-output's max magnitude of the plain version (both sum in f32, in another
-order, and round to bf16 at the end); f32 within 1e-5 of it;
-``kv_slot_update`` is a copy, so it is bitwise.
+Tolerances: a bf16 ``mca_matmul_fixed`` or ``mca_matmul_ragged`` output
+is within 1e-2 of the output's max magnitude of the plain version (both
+sum in f32, in another order, and round to bf16 at the end); f32 within
+1e-5 of it; ``kv_slot_update`` is a copy, so it is bitwise.
+``flash_attention`` out within 2e-2 of max|out| in bf16 (the kernel rounds
+P to bf16 for PV; the reference's bf16 tolerance) and 2e-4 of it in f32,
+lse within 1e-3; ``attn_colmax`` within 1e-3 (its values lie in [0, 1]).
 """
 import numpy as np
 import pytest
@@ -115,16 +118,145 @@ def test_wrappers_count_launches_and_refuse_bad_inputs(cuda):
         c = reg.snapshot()["counters"]
     assert c == {"kernels.mca_matmul.kernel_calls": 1.0,
                  "kernels.kv_slot_update.kernel_calls": 1.0}
-    assert ops.launch_counts() == {"mca_matmul_fixed": 1,
-                                   "kv_slot_update": 1}
+    want = {"mca_matmul_fixed": 1, "mca_matmul_ragged": 0,
+            "kv_slot_update": 1, "flash_attention": 0, "attn_colmax": 0}
+    assert ops.launch_counts() == want
     with pytest.raises(ValueError):
         ops.mca_matmul(x, w.float(), idx, inv_rp)
     with pytest.raises(ValueError):
         ops.kv_slot_update(torch.zeros(2, 4, 8, device="cuda"),
                            torch.ones(2, 1, 8, device="cuda"),
                            torch.zeros(2, dtype=torch.int64, device="cuda"))
-    assert ops.launch_counts() == {"mca_matmul_fixed": 1,
-                                   "kv_slot_update": 1}
+    q = torch.zeros(1, 2, 64, 48, device="cuda")          # dh 48: refused
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q, q, scale=1.0)
+    assert ops.launch_counts() == want
+
+
+def test_launchers_raise_on_cpu_tensors(cuda):
+    """On a machine with a card too, a launcher given a CPU tensor raises
+    (only the ops wrappers route CPU tensors to the plain versions)."""
+    from repro_torch.kernels.attn_colmax import attn_colmax
+    from repro_torch.kernels.cache_update import kv_slot_update
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mca_matmul import (mca_matmul_fixed,
+                                                mca_matmul_ragged)
+    x, w = torch.ones(4, 256), torch.ones(256, 8)
+    i32 = dict(dtype=torch.int32)
+    q = torch.zeros(1, 2, 64, 64)
+    calls = [
+        lambda: mca_matmul_fixed(x, w, torch.zeros(1, **i32), torch.ones(1)),
+        lambda: mca_matmul_ragged(x, w, torch.ones(2, **i32),
+                                  torch.zeros(2, 1, **i32), torch.ones(2, 1)),
+        lambda: kv_slot_update(torch.zeros(2, 4, 8), torch.ones(2, 1, 8),
+                               torch.zeros(2, **i32)),
+        lambda: flash_attention(q, q, q, scale=1.0),
+        lambda: attn_colmax(q, q, torch.zeros(1, 2, 64), scale=1.0),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+
+
+RAGGED_CASES = [
+    # (m, d, f, block, r_tile, R_max): o_proj and v_proj of a 512-token
+    # bucket at bm 128, then the reference's bm 64 / 32 shapes
+    (512, 3072, 3072, 128, (4, 2, 1, 0), 4),
+    (512, 3072, 256, 128, (4, 2, 1, 0), 4),
+    (192, 256, 128, 64, (1, 3, 2), 3),
+    (96, 128, 64, 32, (1, 2, 2), 2),
+    (100, 256, 264, 128, (2, 1), 2),        # bm 50, f not a multiple of 64
+]
+
+
+@pytest.mark.parametrize("m,d,f,block,r_tile,rmax", RAGGED_CASES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_mca_matmul_ragged_kernel_matches_plain(cuda, m, d, f, block, r_tile,
+                                                rmax, dtype):
+    from repro_torch.core import amm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mca_matmul import mca_matmul_ragged
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(m + f)
+    x = torch.randn((m, d), generator=g, device="cuda").to(dt)
+    w = (torch.randn((d, f), generator=g, device="cuda") / d ** 0.5).to(dt)
+    m_tiles = len(r_tile)
+    rt = torch.tensor(r_tile, dtype=torch.int32, device="cuda")
+    idx, inv_rp = amm.draw_block_samples(g, amm.block_probs(w, block),
+                                         m_tiles * rmax)
+    idx = idx.reshape(m_tiles, rmax).contiguous()
+    inv_rp = inv_rp.reshape(m_tiles, rmax).contiguous()
+    got = mca_matmul_ragged(x, w, rt, idx, inv_rp, block=block)
+    want = ref.ref_mca_matmul_ragged(x, w, rt, idx, inv_rp, block)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == (m, f)
+    tol = (1e-2 if dt == torch.bfloat16 else 1e-5) * float(
+        want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    bm = m // m_tiles
+    for t, r in enumerate(r_tile):
+        if r == 0:
+            assert not bool(got[t * bm:(t + 1) * bm].any())
+
+
+def test_mca_matmul_ragged_kernel_exact_mode_is_dense(cuda):
+    """Every block once per tile with unit weights: the dense product."""
+    from repro_torch.kernels.mca_matmul import mca_matmul_ragged
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((512, 3072), generator=g, device="cuda").bfloat16()
+    w = (torch.randn((3072, 3072), generator=g, device="cuda")
+         / 3072 ** 0.5).bfloat16()
+    idx = torch.arange(24, dtype=torch.int32, device="cuda").repeat(4, 1)
+    got = mca_matmul_ragged(x, w, torch.full((4,), 24, dtype=torch.int32,
+                                             device="cuda"),
+                            idx.contiguous(), torch.ones((4, 24),
+                                                         device="cuda"))
+    want = x.float() @ w.float()
+    assert float((got.float() - want).abs().max()) <= \
+        1e-2 * float(want.abs().max())
+
+
+ATTN_CASES = [
+    # (b, hq, hkv, sq, skv, dh, causal)
+    (4, 24, 2, 512, 512, 128, True),     # starcoder2-3b prefill
+    (1, 24, 2, 256, 512, 128, True),     # suffix queries
+    (4, 12, 12, 512, 512, 64, False),    # bert-base
+    (1, 4, 2, 200, 200, 64, True),       # ragged edges
+    (2, 2, 2, 64, 192, 32, True),
+    (1, 2, 1, 130, 70, 32, False),
+]
+
+
+def _attn_inputs(b, hq, hkv, sq, skv, dh, dt, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=g, device="cuda").to(dt)
+            for shape in ((b, hq, sq, dh), (b, hkv, skv, dh),
+                          (b, hkv, skv, dh))]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,dh,causal", ATTN_CASES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_and_colmax_kernels_match_plain(cuda, b, hq, hkv, sq, skv, dh,
+                                              causal, dtype):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.attn_colmax import attn_colmax
+    from repro_torch.kernels.flash_attention import flash_attention
+    dt = getattr(torch, dtype)
+    q, k, v = _attn_inputs(b, hq, hkv, sq, skv, dh, dt, seed=sq + skv + dh)
+    scale = dh ** -0.5
+    out, lse = flash_attention(q, k, v, scale=scale, causal=causal)
+    want_out, want_lse = ref.ref_attention(q, k, v, scale=scale,
+                                           causal=causal)
+    cm = attn_colmax(q, k, lse, scale=scale, causal=causal)
+    want_cm = ref.ref_colmax(q, k, lse, scale=scale, causal=causal)
+    torch.cuda.synchronize()
+    assert out.dtype == dt and lse.dtype == cm.dtype == torch.float32
+    assert cm.shape == (b, hq, skv)
+    tol = (2e-2 if dt == torch.bfloat16 else 2e-4) * float(
+        want_out.float().abs().max())
+    assert float((out.float() - want_out.float()).abs().max()) <= tol
+    assert float((lse - want_lse).abs().max()) <= 1e-3
+    assert float((cm - want_cm).abs().max()) <= 1e-3
 
 
 def _reduced_pair(**kw):

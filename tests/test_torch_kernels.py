@@ -14,10 +14,15 @@ import jax.numpy as jnp  # noqa: E402
 from repro import obs as jobs  # noqa: E402
 from repro.kernels import kv_slot_update as j_kv_slot_update  # noqa: E402
 from repro.kernels import mca_matmul as j_mca_matmul  # noqa: E402
+from repro.kernels import mca_matmul_ragged as j_ragged  # noqa: E402
+from repro.kernels import ref as kref  # noqa: E402
 from repro.kernels.mca_matmul import mca_matmul_fixed as j_fixed  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.kernels import _build, cache_update, ops, ref  # noqa: E402
-from repro_torch.kernels.mca_matmul import mca_matmul_fixed  # noqa: E402
+from repro_torch.kernels.attn_colmax import attn_colmax  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.mca_matmul import (  # noqa: E402
+    mca_matmul_fixed, mca_matmul_ragged)
 
 
 def _mca_inputs(m, d, f, r, seed, mode, block=128):
@@ -111,6 +116,96 @@ def test_kv_slot_update_layer_view_of_stacked_cache():
     np.testing.assert_array_equal(t_stack.numpy(), want)
 
 
+def _ragged_inputs(m, d, f, block, m_tiles, rmax, seed, r_tile=None):
+    """Seeded numpy inputs in the reference's form: per-tile sample lists
+    drawn from block probabilities, weights 1 / (r_tile * p)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, d)).astype(np.float32)
+    w = rng.standard_normal((d, f)).astype(np.float32)
+    if r_tile is None:
+        r_tile = rng.integers(1, rmax + 1, m_tiles)
+    r_tile = np.asarray(r_tile, np.int32)
+    k = d // block
+    p = rng.dirichlet(np.ones(k)).astype(np.float32)
+    idx = rng.choice(k, size=(m_tiles, rmax), p=p).astype(np.int32)
+    inv_rp = (1.0 / (np.maximum(r_tile, 1)[:, None] * p[idx])).astype(
+        np.float32)
+    return x, w, r_tile, idx, inv_rp
+
+
+RAGGED_CASES = [
+    # tests/test_kernels.py:55-58 (bm = block_m = 128)
+    (256, 512, 128, 128, 2, 4, None),
+    (512, 1024, 256, 128, 4, 8, None),
+    # tests/test_kernel_dispatch.py:67-105 (bm 64 and 32, below block_m)
+    (192, 256, 128, 64, 3, 3, None),
+    (96, 128, 64, 32, 3, 2, (1, 2, 2)),
+    # a tile with no samples gives zero rows
+    (256, 512, 128, 128, 4, 4, (4, 2, 1, 0)),
+]
+
+
+@pytest.mark.parametrize("m,d,f,block,m_tiles,rmax,r_tile", RAGGED_CASES)
+def test_plain_mca_matmul_ragged_matches_pallas(m, d, f, block, m_tiles,
+                                                rmax, r_tile):
+    """The port's masked-gather plain version equals the reference's
+    wrapper (Pallas interpret at bm = 128, its traceable fallback below)
+    and its eager per-tile oracle, within 2e-4."""
+    x, w, r_tile, idx, inv_rp = _ragged_inputs(m, d, f, block, m_tiles,
+                                               rmax, seed=m + d + rmax,
+                                               r_tile=r_tile)
+    want = np.asarray(j_ragged(jnp.asarray(x), jnp.asarray(w),
+                               jnp.asarray(r_tile), jnp.asarray(idx),
+                               jnp.asarray(inv_rp), block=block,
+                               block_m=128))
+    oracle = np.asarray(kref.ref_mca_matmul_ragged(
+        jnp.asarray(x), jnp.asarray(w), r_tile, jnp.asarray(idx),
+        jnp.asarray(inv_rp), block, m // m_tiles))
+    got = ops.mca_matmul_ragged(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(r_tile),
+        torch.from_numpy(idx), torch.from_numpy(inv_rp), block=block,
+        block_m=128).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got, oracle, rtol=2e-4, atol=2e-4)
+    bm = m // m_tiles
+    for t in np.flatnonzero(r_tile == 0):
+        assert not got[t * bm:(t + 1) * bm].any()
+
+
+def test_plain_mca_matmul_ragged_exact_mode_is_dense():
+    """Every block once per tile with unit weights: the dense product."""
+    m, d, f, block, m_tiles = 256, 512, 128, 128, 2
+    x, w, _, _, _ = _ragged_inputs(m, d, f, block, m_tiles, 4, seed=1)
+    k = d // block
+    idx = np.tile(np.arange(k, dtype=np.int32), (m_tiles, 1))
+    got = ref.ref_mca_matmul_ragged(
+        torch.from_numpy(x), torch.from_numpy(w),
+        torch.full((m_tiles,), k, dtype=torch.int32), torch.from_numpy(idx),
+        torch.ones((m_tiles, k)), block).numpy()
+    np.testing.assert_allclose(got, x @ w, rtol=1e-4, atol=1e-4)
+
+
+def test_ops_mca_matmul_ragged_counts_like_the_reference():
+    """One dispatch per call under the reference's counter name; the
+    port's CPU path counts a fallback and launches nothing."""
+    x, w, r_tile, idx, inv_rp = _ragged_inputs(256, 512, 128, 128, 2, 4,
+                                               seed=3)
+    ops.reset_launch_counts()
+    with jobs.scoped() as jreg:
+        j_ragged(jnp.asarray(x), jnp.asarray(w), jnp.asarray(r_tile),
+                 jnp.asarray(idx), jnp.asarray(inv_rp), block=128)
+        jc = jreg.snapshot()["counters"]
+    with obs.scoped() as reg:
+        ops.mca_matmul_ragged(torch.from_numpy(x), torch.from_numpy(w),
+                              torch.from_numpy(r_tile),
+                              torch.from_numpy(idx),
+                              torch.from_numpy(inv_rp), block=128)
+        c = reg.snapshot()["counters"]
+    assert jc["kernels.mca_matmul_ragged.kernel_calls"] == 1
+    assert c == {"kernels.mca_matmul_ragged.fallback_calls": 1.0}
+    assert ops.launch_counts()["mca_matmul_ragged"] == 0
+
+
 def test_cpu_tensors_never_launch():
     """On CPU tensors the wrappers take the plain versions: fallback calls
     count, the CUDA launch counters do not move."""
@@ -124,18 +219,31 @@ def test_cpu_tensors_never_launch():
         c = reg.snapshot()["counters"]
     assert c == {"kernels.mca_matmul.fallback_calls": 1.0,
                  "kernels.kv_slot_update.fallback_calls": 1.0}
-    assert ops.launch_counts() == {"mca_matmul_fixed": 0,
-                                   "kv_slot_update": 0}
+    assert ops.launch_counts() == {
+        "mca_matmul_fixed": 0, "mca_matmul_ragged": 0, "kv_slot_update": 0,
+        "flash_attention": 0, "attn_colmax": 0}
 
 
-@pytest.mark.parametrize("launcher", ["mca_matmul", "kv_slot_update"])
+@pytest.mark.parametrize("launcher", ["mca_matmul", "kv_slot_update",
+                                      "mca_matmul_ragged", "flash_attention",
+                                      "attn_colmax"])
 def test_kernel_launchers_refuse_cpu_tensors(launcher):
     """The CUDA launchers check their inputs before touching a pointer."""
+    q = torch.zeros(1, 2, 64, 64)
     with pytest.raises(ValueError, match="CUDA"):
         if launcher == "mca_matmul":
             mca_matmul_fixed(
                 torch.ones(4, 256), torch.ones(256, 8),
                 torch.zeros(1, dtype=torch.int32), torch.ones(1))
+        elif launcher == "mca_matmul_ragged":
+            mca_matmul_ragged(
+                torch.ones(4, 256), torch.ones(256, 8),
+                torch.ones(2, dtype=torch.int32),
+                torch.zeros(2, 1, dtype=torch.int32), torch.ones(2, 1))
+        elif launcher == "flash_attention":
+            flash_attention(q, q, q, scale=1.0)
+        elif launcher == "attn_colmax":
+            attn_colmax(q, q, torch.zeros(1, 2, 64), scale=1.0)
         else:
             cache_update.kv_slot_update(
                 torch.zeros(2, 4, 8), torch.ones(2, 1, 8),

@@ -312,7 +312,7 @@ def test_params_from_jax_bf16_bitwise_and_unstacked():
     ones = np.ones((3, 5), np.float32)
     tree = {"embed": {"table": w[0]},
             "layers": {"mixer": {"wq": w}, "ln": {"scale": ones}}}
-    out = params_from_jax(tree)
+    out = params_from_jax(tree, device="cpu")
     assert len(out["layers"]) == 3
     assert out["layers"][2]["mixer"]["wq"].dtype == torch.bfloat16
     for i in range(3):
@@ -320,8 +320,21 @@ def test_params_from_jax_bf16_bitwise_and_unstacked():
             out["layers"][i]["mixer"]["wq"].view(torch.int16).numpy(),
             w[i].view(np.int16))
     assert out["layers"][1]["ln"]["scale"].dtype == torch.float32
-    assert params_from_jax(tree, dtype=torch.float32)["embed"][
-        "table"].dtype == torch.float32
+    assert params_from_jax(tree, device="cpu", dtype=torch.float32)[
+        "embed"]["table"].dtype == torch.float32
+
+
+def test_params_from_jax_needs_a_card_unless_cpu_is_asked():
+    """Like every entry point, the conversion resolves a missing device to
+    the card and raises without one, instead of making CPU tensors."""
+    tree = {"embed": {"table": np.ones((4, 2), np.float32)},
+            "layers": {"ln": {"scale": np.ones((3, 2), np.float32)}}}
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            params_from_jax(tree)
+    out = params_from_jax(tree, device="cpu")
+    assert out["embed"]["table"].device.type == "cpu"
+    assert len(out["layers"]) == 3
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked():
