@@ -9,7 +9,8 @@ Phases, each of which must pass:
 
 1. device  — the card's name and power limit (``nvidia-smi``).
 2. build   — compile every CUDA kernel from ``src/repro_torch/csrc`` in
-             parallel (``nvcc -Xptxas -v`` lines printed).
+             parallel (``nvcc -Xptxas -v`` lines printed: registers,
+             spills, static shared memory).
 3. kernels — each kernel against its plain PyTorch version on the card,
              at the serve path's shapes, in bf16: ``mca_matmul_fixed``
              and ``mca_matmul_ragged`` within 1e-2 of the output's max
@@ -19,8 +20,11 @@ Phases, each of which must pass:
              of max|out| in bf16 (P is rounded to bf16 for PV) and 2e-4 in
              f32, lse within 1e-3, ``attn_colmax`` within 1e-3, at
              starcoder2-3b (24/2 heads, dh 128, causal, also suffix
-             queries and a ragged 200), bert-base (12 heads, dh 64, full)
-             and one f32 shape.
+             queries and a ragged 200), bert-base (12 heads, dh 64, full),
+             causal sq > skv (the rows that see no key must give out 0
+             and lse -1e30; the others are compared), dh 32, a GQA group
+             of 1, one query, and one f32 shape; an empty side (skv 0:
+             out 0, lse -1e30; sq 0: colmax 0).
 4. parity  — a reduced starcoder2-3b (f32, 2 layers) served on the card
              gives the same tokens as on the CPU and logits within 1e-4.
 5. serve   — starcoder2-3b at full width (30 layers, d_model 3072, bf16,
@@ -42,9 +46,12 @@ Phases, each of which must pass:
              8-step decode burst: device busy share, kernel launches, the
              largest device kernels and host ops.
 7. numbers — each kernel's time (CUDA events, 100 launches after warm-up;
-             and its device time from the profiler), its bound, its plain
-             version's and one library call's time; prefill / decode-step
-             p50, tokens/s, peak memory.
+             and its device time from the profiler; for the attention
+             kernels also the host time to issue a call), its bound, its plain
+             version's and one library call's time (for
+             ``scaled_dot_product_attention`` also its device time, summed
+             over the kernels it launches, whose names are printed);
+             prefill / decode-step p50, tokens/s, peak memory.
 
 Builds four sources (one ``nvcc`` each, in parallel).  Ends with a
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
@@ -74,6 +81,10 @@ ATTN_CASES = [(4, 24, 2, 512, 512, 128, True, "bfloat16"),   # starcoder2-3b
               (1, 24, 2, 256, 512, 128, True, "bfloat16"),   # suffix queries
               (4, 12, 12, 512, 512, 64, False, "bfloat16"),  # bert-base
               (1, 24, 2, 200, 200, 128, True, "bfloat16"),   # ragged edges
+              (1, 4, 2, 192, 64, 128, True, "bfloat16"),     # sq > skv
+              (2, 2, 2, 64, 192, 32, True, "bfloat16"),      # dh 32
+              (2, 8, 8, 384, 384, 128, True, "bfloat16"),    # GQA group 1
+              (1, 2, 1, 1, 5, 64, True, "bfloat16"),         # one query
               (2, 24, 2, 256, 256, 128, True, "float32")]
 ATTN_TIMED = ATTN_CASES[0]
 SERVE_KERNELS = ("mca_matmul_fixed", "kv_slot_update")
@@ -110,6 +121,22 @@ def cuda_time_ms(fn, n: int = 100, warmup: int = 10) -> float:
     return start.elapsed_time(end) / n
 
 
+def host_us(fn, n: int = 100, warmup: int = 10) -> float:
+    """Mean host time of issuing ``fn()`` over ``n`` calls without waiting
+    for the card: what one call costs the CPU.  Back-to-back calls take
+    the larger of this and the device time."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    issued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return issued / n * 1e6
+
+
 # ------------------------------------------------------------- phase 2
 def phase_build():
     from repro_torch.kernels import _build
@@ -119,7 +146,7 @@ def phase_build():
         f"{time.perf_counter() - t0:.1f}s ({_build.BUILD_DIR})")
     for name, report in sorted(_build.ptxas_report.items()):
         for line in report.splitlines():
-            if "ptxas" in line:
+            if "ptxas" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
 
@@ -278,13 +305,38 @@ def _check_attention():
         shape = (f"[{b},{hq}/{hkv},{sq}x{skv},{dh}] "
                  f"{'causal' if causal else 'full'} {dtn}")
         rel = 2e-2 if dt == torch.bfloat16 else 2e-4
+        # causal rows i < sq - skv see no key: out 0, lse -1e30 (the plain
+        # version averages V there, ROADMAP Queue 3)
+        seen = max(0, sq - skv) if causal else 0
+        if seen:
+            if out[:, :, :seen].any() or \
+                    not (lse[:, :, :seen] == -1e30).all():
+                raise AssertionError(f"flash_attention {shape}: rows that "
+                                     "see no key are not out 0, lse -1e30")
+            log(f"[kernels] flash_attention {shape}: the {seen} rows that "
+                "see no key give out 0, lse -1e30")
+        out, want_out = out[:, :, seen:], want_out[:, :, seen:]
         e_out = _held(f"[kernels] flash_attention out {shape}", out, want_out,
                       rel * float(want_out.float().abs().max()))
-        _held(f"[kernels] flash_attention lse {shape}", lse, want_lse, 1e-3)
+        _held(f"[kernels] flash_attention lse {shape}", lse[:, :, seen:],
+              want_lse[:, :, seen:], 1e-3)
         e_cm = _held(f"[kernels] attn_colmax {shape}", cm, want_cm, 1e-3)
         if dt == torch.bfloat16:
             errs["flash_attention"] = max(errs["flash_attention"], e_out)
             errs["attn_colmax"] = max(errs["attn_colmax"], e_cm)
+    # an empty side: skv = 0 (flash: no row sees a key) and sq = 0 (colmax 0)
+    q, k, v = _attn_inputs(2, 4, 2, 96, 0, 128, torch.bfloat16, seed=12)
+    out, lse = flash_attention(q, k, v, scale=128 ** -0.5, causal=True)
+    q0, k0, _ = _attn_inputs(2, 4, 2, 0, 96, 128, torch.bfloat16, seed=13)
+    cm = attn_colmax(q0, k0, torch.empty((2, 4, 0), device="cuda"),
+                     scale=128 ** -0.5, causal=True)
+    torch.cuda.synchronize()
+    if out.any() or not (lse == -1e30).all() or cm.shape != (2, 4, 96) \
+            or cm.any():
+        raise AssertionError("flash_attention with skv 0 is not out 0, lse "
+                             "-1e30, or attn_colmax with sq 0 is not 0")
+    log("[kernels] bf16 flash_attention [2,4/2,96x0,128]: out 0, lse -1e30; "
+        "attn_colmax [2,4/2,0x96,128]: 0")
     return errs
 
 
@@ -592,6 +644,20 @@ def _device_us(fn, kernel: str, n: int = 20) -> float:
         e.count for e in hits)
 
 
+def _device_all_us(fn, n: int = 20):
+    """Mean device time per call of ``fn`` summed over every device kernel
+    it launches, and those kernels' names, from the profiler's trace."""
+    def run():
+        for _ in range(n):
+            fn()
+    _, avgs = _profile(run)
+    dev = _device_items(avgs)
+    if not dev:
+        raise AssertionError("profiler saw no device time")
+    return (sum(e.self_device_time_total for e in dev) / n,
+            sorted({e.key for e in dev}))
+
+
 def phase_profile(engine):
     """Where one full-width prefill (256-token bucket) and one decode
     burst (8 steps, 4 live slots) spend their time: device busy share,
@@ -688,16 +754,23 @@ def _numbers_attention(out):
                                               causal=causal))
     plain = cuda_time_ms(lambda: ref.ref_attention(q, k, v, scale=scale,
                                                    causal=causal))
-    lib = cuda_time_ms(_sdpa(q, k, v, scale, causal))
+    sdpa = _sdpa(q, k, v, scale, causal)
+    lib = cuda_time_ms(sdpa)
+    lib_dev_us, lib_names = _device_all_us(sdpa)
     dev_us = _device_us(lambda: flash_attention(q, k, v, scale=scale,
                                                 causal=causal),
                         "flash_fwd_bf16_kernel")
+    host = host_us(lambda: flash_attention(q, k, v, scale=scale,
+                                           causal=causal))
     log(f"[numbers] flash_attention {shape} causal: kernel {ms * 1e3:.2f} "
-        f"us per call (device {dev_us:.2f} us), plain {plain * 1e3:.2f} us, "
-        f"scaled_dot_product_attention {lib * 1e3:.2f} us, bound "
-        f"{bound * 1e3:.2f} us ({by})")
+        f"us per call (device {dev_us:.2f} us, host {host:.2f} us to "
+        f"issue), plain {plain * 1e3:.2f} us, "
+        f"scaled_dot_product_attention {lib * 1e3:.2f} us per call (device "
+        f"{lib_dev_us:.2f} us), bound {bound * 1e3:.2f} us ({by})")
+    log(f"[numbers] scaled_dot_product_attention device kernels: {lib_names}")
     out["flash_attention"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
-                                  bound_by=by, library_ms=lib)
+                                  bound_by=by, library_ms=lib,
+                                  library_device_us=lib_dev_us)
     _, lse = flash_attention(q, k, v, scale=scale, causal=causal)
     bound, by = _bound_ms(qo + kv_ + 4 * b * hq * sq + 4 * b * hq * skv,
                           2 * b * hq * pairs * dh)
@@ -708,8 +781,11 @@ def _numbers_attention(out):
     dev_us = _device_us(lambda: attn_colmax(q, k, lse, scale=scale,
                                             causal=causal),
                         "colmax_bf16_kernel")
+    host = host_us(lambda: attn_colmax(q, k, lse, scale=scale,
+                                       causal=causal))
     log(f"[numbers] attn_colmax {shape} causal: kernel {ms * 1e3:.2f} us "
-        f"per call (device {dev_us:.2f} us), plain {plain * 1e3:.2f} us, "
+        f"per call (device {dev_us:.2f} us, host {host:.2f} us to issue), "
+        f"plain {plain * 1e3:.2f} us, "
         f"no single PyTorch call, bound {bound * 1e3:.2f} us ({by})")
     out["attn_colmax"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
                               bound_by=by, library_ms=None)

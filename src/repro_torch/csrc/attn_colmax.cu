@@ -15,86 +15,156 @@
 // TB/s), against about 3.2 GFLOP for the causal half of QK^T (3.3 us at 989
 // TFLOP/s).
 //
-// What the design does about it:
-//   * One block per (64-key tile, query head, batch).  The K tile is loaded
-//     once; the TPU grid's sequential q axis becomes a loop inside the block
-//     over 64-row q tiles, starting at the first tile that the offset
-//     diagonal lets see any key of this tile.  The column max is folded in
-//     registers, in f32, and written once.
-//   * Scores come from attn_tile.cuh, the code flash_attention.cu uses: the
-//     same bf16 WMMA product (or f32 FMA), scaled in f32 afterwards, so
-//     exp(s - lse) is taken on the score whose logsumexp flash wrote.
-//   * bf16: the score tile goes through shared memory (WMMA fragments are
-//     opaque); 128 threads each own one key column and half the q rows of
-//     the tile.  f32: 256 threads keep the tile in registers and reduce
-//     their column maxima through shared memory at the end.
-//   * Ragged edges: q rows past sq and keys past skv are masked.
-//   * dh in {32, 64, 128}; dynamic shared memory (53 KB at dh 128, bf16).
-// Not yet done (later work): mma.sync fragments with the max in registers,
-// cp.async double buffering of the q tiles, fusing into flash's pass.
-#include "attn_tile.cuh"
+// What the bf16 design does about it (Hopper, sm_90a; attn_tile.cuh): the
+// flash kernel's machinery with the roles of Q and K swapped.
+//   * One block per (64-key tile, query head, batch): one consumer
+//     warpgroup owns the 64 keys, one producer warp feeds it.  The key
+//     tiles that see the most q tiles (the first ones, under a causal
+//     mask) are launched first.
+//   * The producer loads the K tile once by TMA, then streams the q tiles,
+//     from the first one that the offset diagonal lets see the key tile
+//     down to the last, through a ring of two stages: each Q tile by TMA,
+//     its 64 lse values (times log2 e) stored by the producer's lanes
+//     beside it, one mbarrier pair per stage (empty: one arrival per
+//     consumer warp).
+//   * S^T = K Q^T runs as wgmma m64n64k16, K the shared A operand and the Q
+//     tile the shared B operand, the f32 accumulator in registers: each
+//     thread holds 2 keys x 16 queries.  The column max over queries is a
+//     row max of that accumulator: exp_score (exp2 of the score scaled by
+//     scale * log2 e, minus lse * log2 e; the contract flash shares) on
+//     every element, zeroed by a select where the query does not see the
+//     key or lies past sq, folded into a running f32 max in registers,
+//     one quad shuffle at the end, written once.
+//   * wgmma does not specify its summation order, so this S^T and flash's
+//     S may differ in the last bits of a product: within the 1e-3
+//     tolerance of a value in [0, 1].
+//   * f32 inputs take the FMA path (attn_f32.cuh; 256 threads keep the
+//     tile in registers and reduce their column maxima through shared
+//     memory at the end).
+//   * dh in {32, 64, 128}; swizzles as in flash_attention.cu.
+#include "attn_f32.cuh"
 
 namespace {
 
 using namespace attn;
 
-template <int DH> struct ColmaxBf16 {
-  static constexpr int LD = Dims<DH>::LD;
+template <int DH> struct ColmaxCfg {
+  static constexpr int BKEY = 64;           // keys per block
+  static constexpr int BQ = 64;             // query rows per streamed tile
+  static constexpr int STAGES = 2;
+  static constexpr int THREADS = 128 + 32;
+  static constexpr int K_BYTES = Tile<DH>::rows_bytes(BKEY);
+  static constexpr int Q_BYTES = Tile<DH>::rows_bytes(BQ);
   static constexpr size_t smem() {
-    return 2 * (size_t)BQ * LD * 2 + (size_t)BQ * SLD * 4 +
-           (size_t)BQ * 4 + 2 * (size_t)BK * 4;
+    return 1024 + K_BYTES + (size_t)STAGES * Q_BYTES + STAGES * BQ * 4 +
+           (1 + 2 * STAGES) * 8;
   }
 };
 
 template <int DH>
-__global__ void __launch_bounds__(128)
-colmax_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
+__global__ void __launch_bounds__(ColmaxCfg<DH>::THREADS)
+colmax_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
                    const float* __restrict__ lse, float* __restrict__ out,
-                   int hq, int hkv, int sq, int skv, float scale,
+                   int hq, int hkv, int sq, int skv, float scale_log2,
                    int causal) {
-  constexpr int LD = ColmaxBf16<DH>::LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* qs = ks + BK * LD;
-  float* ss = reinterpret_cast<float*>(qs + BQ * LD);
-  float* lse_s = ss + BQ * SLD;
-  float* red = lse_s + BQ;         // [2][BK]
+  using C = ColmaxCfg<DH>;
+  constexpr int ST = C::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ks = align_1024(smem_raw);
+  unsigned char* qs = ks + C::K_BYTES;      // stage s at qs + s Q_BYTES
+  float* lse_s = reinterpret_cast<float*>(qs + ST * C::Q_BYTES);
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(lse_s + ST * C::BQ);
+  uint64_t* full = k_full + 1;
+  uint64_t* empty = full + ST;
 
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (hq / hkv);
+  const int k0 = blockIdx.z * C::BKEY, h = blockIdx.x, b = blockIdx.y;
+  const int qh = b * hq + h, kh = b * hkv + h / (hq / hkv);
   const int off = skv - sq;
-  const long long qbase = ((long long)b * hq + h) * sq;
-  const long long kbase = ((long long)b * hkv + hk) * skv;
-
-  load_tile_bf16<DH>(ks, k + (kbase + k0) * DH, BK, skv - k0);
-  const int col = tid % BK, half = tid / BK;   // 2 halves of the q rows
-  const int kcol = k0 + col;
-  float cm = 0.0f;
   // rows i >= k0 - off are the first to see any key of this tile
-  const int first = causal ? max(0, k0 - off) / BQ : 0;
-  const int n_qt = (sq + BQ - 1) / BQ;
-  for (int it = first; it < n_qt; ++it) {
-    const int q0 = it * BQ;
-    __syncthreads();               // the last tile's readers are done
-    load_tile_bf16<DH>(qs, q + (qbase + q0) * DH, BQ, sq - q0);
-    if (tid < BQ) lse_s[tid] = q0 + tid < sq ? lse[qbase + q0 + tid] : 0.0f;
-    __syncthreads();
-    scores_bf16_warp<DH>(qs, ks, ss, warp);
-    __syncthreads();
-    for (int rr = 0; rr < BQ / 2; ++rr) {
-      const int r = half * (BQ / 2) + rr, qrow = q0 + r;
-      if (qrow < sq && visible(qrow, kcol, skv, off, causal))
-        cm = fmaxf(cm, expf(__fmul_rn(ss[r * SLD + col], scale) - lse_s[r]));
+  const int first = causal ? max(0, k0 - off) / C::BQ : 0;
+  const int n_qt = (sq + C::BQ - 1) / C::BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(k_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 2);               // Q bytes + the lse stores
+      mbar_init(&empty[s], 4);              // one arrival per warp
     }
+    fence_barrier_init();
   }
-  red[half * BK + col] = cm;
   __syncthreads();
-  if (tid < BK && k0 + tid < skv)
-    out[((long long)b * hq + h) * skv + k0 + tid] =
-        fmaxf(red[tid], red[BK + tid]);
+
+  if (warp == 4) {                          // producer warp
+    if (lane == 0) {
+      mbar_expect_tx(k_full, C::K_BYTES);
+      tma_tile<DH>(ks, &tm_k, k_full, C::BKEY, k0, kh);
+    }
+    for (int it = first, n = 0; it < n_qt; ++it, ++n) {
+      const int s = n % ST, q0 = it * C::BQ;
+      if (n >= ST) mbar_wait(&empty[s], ((n / ST) - 1) & 1);
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], C::Q_BYTES);
+        tma_tile<DH>(qs + s * C::Q_BYTES, &tm_q, &full[s], C::BQ, q0, qh);
+      }
+      for (int i = lane; i < C::BQ; i += 32)
+        lse_s[s * C::BQ + i] =
+            q0 + i < sq ? lse[(long long)qh * sq + q0 + i] * LOG2E : 0.0f;
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&full[s]);
+    }
+    return;
+  }
+
+  // this thread's accumulator rows are keys k0 + r0 and k0 + r0 + 8, its
+  // columns queries q0 + 8 j + c0 (+1)
+  const int r0 = 16 * warp + lane / 4, c0 = 2 * (lane % 4);
+  const uint32_t kb = smem_u32(ks);
+  // the first query each of this thread's two keys is seen by
+  int lo[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) lo[r] = causal ? k0 + r0 + 8 * r - off : 0;
+  float acc[32], cm[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+
+  mbar_wait(k_full, 0);
+  for (int it = first, n = 0; it < n_qt; ++it, ++n) {
+    const int st = n % ST, q0 = it * C::BQ;
+    mbar_wait(&full[st], (n / ST) & 1);
+    const uint32_t qb = smem_u32(qs + st * C::Q_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < Tile<DH>::KSTEPS; ++kk)
+      wgmma_ss_n64(acc, desc_kmajor<DH>(kb, C::BKEY, kk),
+                   desc_kmajor<DH>(qb, C::BQ, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(acc);
+
+    const float* ls = lse_s + st * C::BQ;
+    // no branch per element: query q0 + col counts for key row r when
+    // lo[r] <= q0 + col < sq
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1, col = (i >> 2) * 8 + c0 + (i & 1);
+      const float e = exp_score(acc[i], scale_log2, ls[col]);
+      cm[r] = fmaxf(cm[r], q0 + col >= lo[r] && q0 + col < sq ? e : 0.0f);
+    }
+    warp_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    cm[r] = fmaxf(cm[r], __shfl_xor_sync(0xffffffffu, cm[r], 1));
+    cm[r] = fmaxf(cm[r], __shfl_xor_sync(0xffffffffu, cm[r], 2));
+    const int key = k0 + r0 + 8 * r;
+    if (lane % 4 == 0 && key < skv) out[(long long)qh * skv + key] = cm[r];
+  }
 }
+
+using namespace attn_f32;
 
 template <int DH> struct ColmaxF32 {
   static constexpr int FLD = Dims<DH>::FLD;
@@ -157,15 +227,26 @@ colmax_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int DH>
 int colmax_bf16(const void* q, const void* k, const void* lse, void* out,
-                dim3 grid, int hq, int hkv, int sq, int skv, float scale,
+                int b, int hq, int hkv, int sq, int skv, float scale,
                 int causal, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      colmax_bf16_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)ColmaxBf16<DH>::smem());
-  if (e != cudaSuccess) return (int)e;
-  colmax_bf16_kernel<DH><<<grid, 128, ColmaxBf16<DH>::smem(), stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const float*)lse,
-      (float*)out, hq, hkv, sq, skv, scale, causal);
+  using C = ColmaxCfg<DH>;
+  // sq == 0: no query sees any key, so colmax is 0; no Q tensor map can be
+  // encoded over a dimension of 0
+  if (sq == 0)
+    return (int)cudaMemsetAsync(out, 0, (size_t)b * hq * skv * sizeof(float),
+                                stream);
+  CUtensorMap tq, tk;
+  int e = make_map<DH>(&tq, q, (long long)b * hq, sq, C::BQ);
+  if (!e) e = make_map<DH>(&tk, k, (long long)b * hkv, skv, C::BKEY);
+  if (!e)
+    e = (int)cudaFuncSetAttribute(colmax_bf16_kernel<DH>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)C::smem());
+  if (e) return e;
+  const dim3 grid(hq, b, (skv + C::BKEY - 1) / C::BKEY);
+  colmax_bf16_kernel<DH><<<grid, C::THREADS, C::smem(), stream>>>(
+      tq, tk, (const float*)lse, (float*)out, hq, hkv, sq, skv,
+      log2_scale(scale), causal);
   return (int)cudaGetLastError();
 }
 
@@ -187,19 +268,18 @@ int colmax_f32(const void* q, const void* k, const void* lse, void* out,
 
 // q: [B, Hq, Sq, dh], k: [B, Hkv, Skv, dh] (both bf16 or both f32), lse:
 // [B, Hq, Sq] f32, out: [B, Hq, Skv] f32; all contiguous on the device,
-// Hq % Hkv == 0, dh in {32, 64, 128}, Skv >= 1, bf16 pointers 16-byte
-// aligned (the wrapper checks).  Launches on `stream`, allocates nothing,
+// Hq % Hkv == 0, dh in {32, 64, 128}, Skv >= 1 (Sq may be 0: colmax 0),
+// bf16 pointers 16-byte aligned (the wrapper checks).  Launches on `stream`, allocates nothing,
 // returns a cudaError_t.
 extern "C" int attn_colmax_bf16(const void* q, const void* k, const void* lse,
                                 void* out, int b, int hq, int hkv, int sq,
                                 int skv, int dh, float scale, int causal,
                                 void* stream) {
-  const dim3 grid((skv + BK - 1) / BK, hq, b);
   cudaStream_t st = (cudaStream_t)stream;
   switch (dh) {
-    case 32: return colmax_bf16<32>(q, k, lse, out, grid, hq, hkv, sq, skv, scale, causal, st);
-    case 64: return colmax_bf16<64>(q, k, lse, out, grid, hq, hkv, sq, skv, scale, causal, st);
-    case 128: return colmax_bf16<128>(q, k, lse, out, grid, hq, hkv, sq, skv, scale, causal, st);
+    case 32: return colmax_bf16<32>(q, k, lse, out, b, hq, hkv, sq, skv, scale, causal, st);
+    case 64: return colmax_bf16<64>(q, k, lse, out, b, hq, hkv, sq, skv, scale, causal, st);
+    case 128: return colmax_bf16<128>(q, k, lse, out, b, hq, hkv, sq, skv, scale, causal, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,118 +1,375 @@
-// Tile loads and score tiles shared by flash_attention.cu and
-// attn_colmax.cu, so that both kernels compute each score the same way:
+// Hopper (sm_90a) machinery shared by flash_attention.cu and
+// attn_colmax.cu: TMA tensor maps and loads, mbarriers, wgmma descriptors
+// and products, and the one score function both kernels use.
 //
-//   s[i, j] = (q_i . k_j) * scale      (product summed in f32, then scaled
-//                                        in f32; q is never rounded scaled)
+// The score contract.  Both kernels take the f32 product acc = q . k from
+// wgmma and exponentiate
 //
-// bf16: S = Q K^T on the tensor cores (WMMA 16x16x16, f32 accumulate), one
-// warp per 16 query rows, written to shared memory as f32.  f32: FMA, each
-// of 256 threads owning rows ty + 16 i and columns tx + 16 j (i, j < 4) of
-// the 64 x 64 tile, held in registers.
+//   exp_score(acc, shift) = exp_shifted(score_log2(acc), shift)
+//                         = exp2f(acc * (scale * log2 e) - shift)
+//
+// (one f32 multiply by the constant log2_scale(scale), one subtraction,
+// exp2f): flash with shift = the row's running max m2 (log2 units), in two
+// steps since its row max needs the scaled score first; colmax with shift
+// = lse * log2 e, lse = (m2 + log2 l) * ln 2 being what flash wrote.
+// So colmax's exp(s - lse) is taken on the score whose logsumexp flash
+// wrote, scaled by the same f32 constant.  __fmul_rn keeps the compiler
+// from fusing the multiply into a neighbouring add in one kernel and not
+// the other.  wgmma does not specify its summation order, so flash's S and
+// colmax's S^T may differ in the last bits of acc: within the 1e-3
+// tolerance of a value in [0, 1].
+//
+// Tiles in shared memory.  A [rows, DH] bf16 tile arrives by TMA as DH/PC
+// panels of PC = min(DH, 64) columns, each panel `rows` rows of 2 PC bytes,
+// swizzled 128 bytes (DH 64, 128) or 64 bytes (DH 32) as the wgmma
+// descriptors name it.  A 3-D tensor map over [B*H, S, DH] zero-fills rows
+// past S inside one head.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace attn {
 
-using namespace nvcuda;
+constexpr float NEG_INF = -1e30f;          // lse of a row that sees no key
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-constexpr int BQ = 64;           // query rows per tile
-constexpr int BK = 64;           // keys per tile
-constexpr int SLD = BK + 4;      // f32 score tile leading dim
-constexpr float NEG_INF = -1e30f;
+__device__ __forceinline__ float score_log2(float acc, float scale_log2) {
+  return __fmul_rn(acc, scale_log2);
+}
 
-// Padded leading dims: bf16 rows stay 32-byte aligned for WMMA (DH + 8 is
-// a multiple of 8 elements), f32 rows are odd to spread banks.
-template <int DH> struct Dims {
-  static constexpr int LD = DH + 8;    // bf16 Q/K/V tiles
-  static constexpr int FLD = DH + 1;   // f32 Q/K tiles
+__device__ __forceinline__ float exp_shifted(float score, float shift) {
+  return exp2f(score - shift);
+}
+
+__device__ __forceinline__ float exp_score(float acc, float scale_log2,
+                                           float shift) {
+  return exp_shifted(score_log2(acc, scale_log2), shift);
+}
+
+// ---------------------------------------------------------------- tiles
+template <int DH> struct Tile {
+  static constexpr int PC = DH < 64 ? DH : 64;      // columns per panel
+  static constexpr int ROW = PC * 2;                // bytes per panel row
+  static constexpr int NP = DH / PC;                // panels
+  static constexpr uint64_t LAYOUT = ROW == 128 ? 1 : 2;   // B128 / B64
+  static constexpr int KSTEPS = DH / 16;            // k16 steps over DH
+  static constexpr int rows_bytes(int rows) { return rows * DH * 2; }
 };
 
-// rows x DH bf16 from src (row stride DH) into dst (row stride LD); rows
-// at or past `valid` are zero.  Needs 16-byte aligned src rows.
-template <int DH>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               int rows, int valid) {
-  constexpr int V = DH / 8;
-  for (int v = threadIdx.x; v < rows * V; v += blockDim.x) {
-    const int row = v / V, c8 = (v % V) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < valid)
-      val = *reinterpret_cast<const uint4*>(src + (long long)row * DH + c8);
-    *reinterpret_cast<uint4*>(dst + row * Dims<DH>::LD + c8) = val;
-  }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int DH>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              int rows, int valid, int ld) {
-  for (int v = threadIdx.x; v < rows * DH; v += blockDim.x) {
-    const int row = v / DH, c = v % DH;
-    dst[row * ld + c] = row < valid ? src[(long long)row * DH + c] : 0.0f;
-  }
+// The first 1024-byte aligned address at or after p (what the 128-byte
+// swizzle needs of a tile's base).
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
 }
 
-// Unscaled S = Q K^T for this warp's 16 query rows against the 64 keys of
-// the tile, stored f32 at ss[(warp*16 + i) * SLD + j].
-template <int DH>
-__device__ __forceinline__ void scores_bf16_warp(const __nv_bfloat16* qs,
-                                                 const __nv_bfloat16* ks,
-                                                 float* ss, int warp) {
-  constexpr int LD = Dims<DH>::LD;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf[BK / 16];
-#pragma unroll
-  for (int j = 0; j < BK / 16; ++j) wmma::fill_fragment(sf[j], 0.0f);
-#pragma unroll
-  for (int kk = 0; kk < DH; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                   wmma::row_major> a;
-    wmma::load_matrix_sync(a, qs + warp * 16 * LD + kk, LD);
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      // K^T as a column-major B operand: element (dim, key) at ks[key*LD+dim]
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> b;
-      wmma::load_matrix_sync(b, ks + j * 16 * LD + kk, LD);
-      wmma::mma_sync(sf[j], a, b, sf[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < BK / 16; ++j)
-    wmma::store_matrix_sync(ss + warp * 16 * SLD + j * 16, sf[j], SLD,
-                            wmma::mem_row_major);
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle layout (1 = 128 B, 2 = 64 B).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
 }
 
-// Unscaled s[i][j] = Q[ty + 16 i] . K[tx + 16 j] in f32 (FMA over DH).
+// K-major operand (DH contiguous: Q, K) of a tile starting at `base` with
+// `rows` rows, at k16 step `kk`: panel kk / (PC/16), then 32 bytes per step
+// inside the swizzled row; 8-row groups 8 ROW bytes apart.
 template <int DH>
-__device__ __forceinline__ void scores_f32(const float* qs, const float* ks,
-                                           int ty, int tx, float s[4][4]) {
-  constexpr int LD = Dims<DH>::FLD;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 8
-  for (int kk = 0; kk < DH; ++kk) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * LD + kk];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = ks[(tx + 16 * j) * LD + kk];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-  }
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t base, int rows,
+                                                int kk) {
+  using T = Tile<DH>;
+  constexpr int per = T::PC / 16;
+  const uint32_t addr = base + (kk / per) * rows * T::ROW + (kk % per) * 32;
+  return make_desc(addr, 16, 8 * T::ROW, T::LAYOUT);
 }
 
-// Query row `qrow` sees key `kcol` (offset diagonal: key j <= i + skv - sq).
-__device__ __forceinline__ bool visible(int qrow, int kcol, int skv, int off,
-                                        int causal) {
-  return kcol < skv && (!causal || kcol <= qrow + off);
+// N-major B operand (V: [keys, DH], DH contiguous) for keys 16 kk..16 kk+15
+// of a tile of `rows` keys: 8-key groups 8 ROW bytes apart (SBO), DH
+// panels `rows` ROW bytes apart (LBO).
+template <int DH>
+__device__ __forceinline__ uint64_t desc_nmajor(uint32_t base, int rows,
+                                                int kk) {
+  using T = Tile<DH>;
+  return make_desc(base + kk * 16 * T::ROW, rows * T::ROW, 8 * T::ROW,
+                   T::LAYOUT);
+}
+
+// ------------------------------------------------------------- mbarrier
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// One arrival for the calling warp, once all its lanes got here (a
+// consumer warp's share of releasing a stage).
+__device__ __forceinline__ void warp_arrive(uint64_t* bar) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(bar);
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// ------------------------------------------------------------------ TMA
+// One box of `map` at (c0 column, c1 row, c2 head) into shared memory at
+// `dst`, completing its bytes on `bar`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// All DH/PC panels of `rows` rows starting at row `row` of head `head`.
+template <int DH>
+__device__ __forceinline__ void tma_tile(unsigned char* dst,
+                                         const CUtensorMap* map, uint64_t* bar,
+                                         int rows, int row, int head) {
+  using T = Tile<DH>;
+#pragma unroll
+  for (int p = 0; p < T::NP; ++p)
+    tma_load_3d(dst + p * rows * T::ROW, map, bar, p * T::PC, row, head);
+}
+
+// ---------------------------------------------------------------- wgmma
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving accumulator reads and writes across the
+// asynchronous products.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D[64 x 64] (+)= A B; A and B in shared memory (descriptors, K-major)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 32] (+)= A B; A in registers (bf16 pairs, the accumulator's own
+// layout), B in shared memory with N contiguous (transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n32_tb(float (&d)[16],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A B; A in registers (bf16 pairs, the accumulator's own
+// layout), B in shared memory with N contiguous (transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// D[64 x 128] (+)= A B; A in registers (bf16 pairs, the accumulator's own
+// layout), B in shared memory with N contiguous (transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+template <int N> struct RsN;
+template <> struct RsN<32> {
+  static __device__ __forceinline__ void run(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int acc) {
+    wgmma_rs_n32_tb(d, a, db, acc);
+  }
+};
+template <> struct RsN<64> {
+  static __device__ __forceinline__ void run(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int acc) {
+    wgmma_rs_n64_tb(d, a, db, acc);
+  }
+};
+template <> struct RsN<128> {
+  static __device__ __forceinline__ void run(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int acc) {
+    wgmma_rs_n128_tb(d, a, db, acc);
+  }
+};
+
+// ----------------------------------------------------------------- host
+// The f32 constant both kernels scale the product by (score_log2).
+inline float log2_scale(float scale) { return scale * LOG2E; }
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, found through the runtime's entry-point query so
+// that the library needs no -lcuda.  Null where it is missing.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &q) != cudaSuccess)
+      p = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess)
+      p = nullptr;
+#endif
+    return q == cudaDriverEntryPointSuccess ? (EncodeTiled)p : nullptr;
+  }();
+  return fn;
+}
+
+// Tensor map over a contiguous bf16 [heads, rows, DH] array, boxes of PC
+// columns x `box_rows` rows x 1 head, swizzled as Tile<DH> says; rows past
+// `rows` read as zeros.  Returns a cudaError_t.
+template <int DH>
+int make_map(CUtensorMap* map, const void* ptr, long long heads,
+             long long rows, int box_rows) {
+  using T = Tile<DH>;
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)DH, (cuuint64_t)rows,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)DH * 2,
+                                 (cuuint64_t)rows * DH * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)T::PC, (cuuint32_t)box_rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r = enc(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      T::ROW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 }  // namespace attn

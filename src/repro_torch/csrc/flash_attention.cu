@@ -17,161 +17,251 @@
 // about 6.4 GFLOP for the causal half of QK^T and PV (6.5 us at 989
 // TFLOP/s dense bf16).
 //
-// What the design does about it:
-//   * One block per (64-row q tile, query head, batch).  The TPU grid's
-//     sequential kv axis becomes a loop inside the block over 64-key tiles;
-//     with causal masking the loop stops at the last tile the offset
-//     diagonal reaches.  The Q tile is loaded once, each K/V tile once per
-//     block (GQA heads of one group read the same K/V, mostly from L2).
-//   * bf16: QK^T and PV on the tensor cores (WMMA 16x16x16, f32
-//     accumulate), one warp per 16 query rows.  The online-softmax state
-//     (m, l) and the output accumulator stay in f32 (O in shared memory,
-//     rescaled by each row's correction before PV is added to it).  Scores
-//     are scaled in f32 after the f32 product; q is never rounded scaled,
-//     so attn_colmax.cu (same score code, attn_tile.cuh) sees the same s.
+// What the bf16 design does about it (Hopper, sm_90a; attn_tile.cuh):
+//   * One block per (64-row q tile, query head, batch), heaviest q tiles
+//     launched first (the q tile is the slowest grid axis, reversed), so
+//     the causal tail does not set the time: one consumer warpgroup and
+//     one producer warp, two blocks per SM (80 KB of shared memory each at
+//     dh 128).  128-row blocks of two consumer warpgroups were timed too
+//     and were slower (PERF.md).
+//   * The producer warp loads the Q tile once and streams K and V tiles of
+//     64 keys by TMA (3-D tensor maps over [B*H, S, dh], rows past S zero
+//     inside one head) into two rings of two stages, K and V apart, one
+//     mbarrier pair per stage (full: bytes landed; empty: one arrival per
+//     consumer warp).  K is released as soon as S is done, so the next K
+//     loads during the softmax and P V.  The loop stops at the last tile
+//     the offset causal diagonal reaches.
+//   * S = Q K^T runs as wgmma m64n64k16, Q and K from the swizzled shared
+//     tiles, the f32 accumulator in registers.  The softmax runs on those
+//     registers with no branch per element: each thread holds 2 rows x 16
+//     keys, scales them to log2 units (score_log2, the contract
+//     attn_colmax.cu shares), sets masked keys to -inf, takes each row's
+//     max from its own elements plus two quad shuffles and exp2 of the
+//     shifted score; m in log2 units and the thread's partial l in f32, l
+//     summed over the quad once at the end.  P is converted to bf16 in
+//     place into the A-operand layout of O += P V, a wgmma with A in
+//     registers and V the shared B operand read with the transpose bit (V
+//     is [keys, dh], dh contiguous).  O stays in registers for the whole
+//     loop; no S, P or O tile touches shared memory.
+//     lse = (m + log2 l) * ln 2.
 //   * P is rounded to bf16 for the PV product, where the Pallas kernel keeps
 //     it in f32 (the port's onepass_attention rounds it to V's dtype too);
 //     the row sum l is taken over the unrounded f32 P.  This is the one
 //     rounding that the bf16 tolerance must cover.
-//   * f32 inputs take an FMA path (256 threads, each owning 4 rows x 4
-//     keys of S and 4 rows x dh/16 columns of O in registers).
-//   * Ragged edges are masked: q rows past sq load zeros and are not
-//     stored; keys past skv get p = 0.  A masked key always gets p = 0
-//     exactly, so a row that sees no key at all (causal with sq > skv)
+//   * Ragged edges and the causal mask are applied to the register tile,
+//     only on tiles that cross an edge.  A masked key gets p = exp2(-inf)
+//     = 0 exactly, so a row that sees no key at all (causal with sq > skv)
 //     writes out = 0 and lse = -1e30; the Pallas kernel differs there.
-//   * dh in {32, 64, 128}; shared memory is dynamic (113 KB per block at
-//     dh 128, bf16), set with cudaFuncSetAttribute before each launch.
-// Not yet done (later work): mma.sync/wgmma fragments with the softmax in
-// registers, cp.async/TMA double buffering of K/V, larger q tiles.
-#include "attn_tile.cuh"
+//   * No atomics: every output element is written once by one thread, so
+//     repeated runs are bitwise equal.
+//   * f32 inputs take the FMA path (attn_f32.cuh; 256 threads, each owning
+//     4 rows x 4 keys of S and 4 rows x dh/16 columns of O in registers).
+//   * dh in {32, 64, 128}; 128-byte swizzle in 64-column panels (dh 64,
+//     128), 64-byte swizzle for dh 32's 64-byte rows.
+// Tried and not kept, as neither ran faster at the phase-7 shape (PERF.md):
+// issuing the next tile's S before this tile's softmax, so that it
+// overlaps P V (FlashAttention-3's intra-warpgroup pipelining), and a
+// persistent grid of two blocks per SM that loads the next work item's Q
+// during the current one.
+#include "attn_f32.cuh"
 
 namespace {
 
 using namespace attn;
 
-template <int DH> struct FlashBf16 {
-  static constexpr int LD = Dims<DH>::LD;
-  static constexpr int OLD = DH + 4;   // f32 O accumulator
-  static constexpr int PLD = BK + 8;   // bf16 P tile
+template <int DH> struct FlashCfg {
+  static constexpr int BQ = 64;             // query rows per block
+  static constexpr int BKV = 64;            // keys per tile
+  static constexpr int STAGES = 2;
+  static constexpr int THREADS = 128 + 32;  // consumer warpgroup + producer
+  static constexpr int Q_BYTES = Tile<DH>::rows_bytes(BQ);
+  static constexpr int KV_BYTES = Tile<DH>::rows_bytes(BKV);   // K or V
   static constexpr size_t smem() {
-    return (size_t)BQ * LD * 2 + 2 * (size_t)BK * LD * 2 +
-           (size_t)BQ * SLD * 4 + (size_t)BQ * PLD * 2 +
-           (size_t)BQ * OLD * 4 + 2 * (size_t)BQ * 4;
+    return 1024 + Q_BYTES + (size_t)STAGES * 2 * KV_BYTES +
+           (1 + 4 * STAGES) * 8;
   }
 };
 
+// One online-softmax step on a 64 x 64 score tile in registers (this
+// thread: rows r and r + 8 of its accumulator, keys k0 + 8 j + c0 (+1)):
+// scales it to log2 units, sets keys past each row's last visible key
+// lim[r] to -inf on a tile that crosses an edge (so exp2 gives p = 0
+// exactly), updates m and the thread's partial l, returns each row's
+// correction for O in corr and leaves P (f32) in s.  No branch depends on
+// an element.
+__device__ __forceinline__ void softmax_step(float (&s)[32], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             const int (&lim)[2], int k0,
+                                             int c0, bool edge,
+                                             float scale_log2) {
+  float mx[2] = {-INFINITY, -INFINITY}, m_use[2];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = score_log2(s[i], scale_log2);
+  if (edge) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if (k0 + (i >> 2) * 8 + c0 + (i & 1) > lim[(i >> 1) & 1])
+        s[i] = -INFINITY;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    m_use[r] = m_new == -INFINITY ? 0.0f : m_new;     // nothing seen yet
+    corr[r] = exp2f(m[r] - m_use[r]);
+    m[r] = m_new;
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] = exp_shifted(s[i], m_use[(i >> 1) & 1]);
+    l[(i >> 1) & 1] += s[i];
+  }
+}
+
+// P (f32, the S accumulator's layout) as the bf16 A operand of P V: k16
+// step kk holds keys 16 kk .. 16 kk + 15.
+__device__ __forceinline__ void pack_p(const float (&s)[32],
+                                       uint32_t (&pa)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      pa[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+}
+
 template <int DH>
-__global__ void __launch_bounds__(128)
-flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
+__global__ void __launch_bounds__(FlashCfg<DH>::THREADS, 2)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
                       __nv_bfloat16* __restrict__ out,
                       float* __restrict__ lse, int hq, int hkv, int sq,
-                      int skv, float scale, int causal) {
-  using T = FlashBf16<DH>;
-  constexpr int LD = T::LD, OLD = T::OLD, PLD = T::PLD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ks = qs + BQ * LD;
-  __nv_bfloat16* vs = ks + BK * LD;
-  float* ss = reinterpret_cast<float*>(vs + BK * LD);
-  __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(ss + BQ * SLD);
-  float* os = reinterpret_cast<float*>(ps + BQ * PLD);
-  float* m_s = os + BQ * OLD;
-  float* l_s = m_s + BQ;
+                      int skv, float scale_log2, int causal) {
+  using C = FlashCfg<DH>;
+  constexpr int ST = C::STAGES, NO = DH / 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = align_1024(smem_raw);
+  unsigned char* ks = qs + C::Q_BYTES;      // K ring, then V ring
+  unsigned char* vs = ks + ST * C::KV_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + ST * C::KV_BYTES);
+  uint64_t* k_full = q_full + 1;            // [ST] each
+  uint64_t* k_empty = k_full + ST;
+  uint64_t* v_full = k_empty + ST;
+  uint64_t* v_empty = v_full + ST;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (hq / hkv);
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * C::BQ;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qh = b * hq + h, kh = b * hkv + h / (hq / hkv);
   const int off = skv - sq;
-  const long long qbase = ((long long)b * hq + h) * sq;
-  const long long kbase = ((long long)b * hkv + hk) * skv;
-  const int q_valid = min(BQ, sq - q0);
-
-  load_tile_bf16<DH>(qs, q + (qbase + q0) * DH, BQ, q_valid);
-  for (int i = threadIdx.x; i < BQ * OLD; i += blockDim.x) os[i] = 0.0f;
-  if (threadIdx.x < BQ) {
-    m_s[threadIdx.x] = NEG_INF;
-    l_s[threadIdx.x] = 0.0f;
-  }
-  // the tile's last real row, q0 + q_valid - 1, sees keys up to it + off
+  const int q_valid = min(C::BQ, sq - q0);
+  // the block's last real row, q0 + q_valid - 1, sees keys up to it + off
   const int kv_end = causal ? min(skv, q0 + q_valid + off) : skv;
-  const int n_kt = kv_end > 0 ? (kv_end + BK - 1) / BK : 0;
+  const int n_kt = kv_end > 0 ? (kv_end + C::BKV - 1) / C::BKV : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  // this lane's row (two lanes per row) and its half of the columns
-  const int r = warp * 16 + lane / 2, half = lane % 2;
-  const int qrow = q0 + r;
-
-  for (int jt = 0; jt < n_kt; ++jt) {
-    const int k0 = jt * BK;
-    __syncthreads();               // the last tile's readers are done
-    load_tile_bf16<DH>(ks, k + (kbase + k0) * DH, BK, skv - k0);
-    load_tile_bf16<DH>(vs, v + (kbase + k0) * DH, BK, skv - k0);
-    __syncthreads();
-    scores_bf16_warp<DH>(qs, ks, ss, warp);
-    __syncwarp();
-
-    float* srow = ss + r * SLD;
-    const float m_prev = m_s[r];
-    float mx = NEG_INF;
-    for (int c = half; c < BK; c += 2) {
-      const float sv = visible(qrow, k0 + c, skv, off, causal)
-                           ? __fmul_rn(srow[c], scale) : NEG_INF;
-      srow[c] = sv;
-      mx = fmaxf(mx, sv);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], 4);            // one arrival per consumer warp
+      mbar_init(&v_empty[s], 4);
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_prev, mx);
-    float sum = 0.0f;
-    __nv_bfloat16* prow = ps + r * PLD;
-    for (int c = half; c < BK; c += 2) {
-      const float sv = srow[c];
-      const float p = sv == NEG_INF ? 0.0f : expf(sv - m_new);
-      prow[c] = __float2bfloat16(p);
-      sum += p;
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    const float corr = expf(m_prev - m_new);
-    if (half == 0) {
-      m_s[r] = m_new;
-      l_s[r] = l_s[r] * corr + sum;
-    }
-    float* orow = os + r * OLD;
-    for (int c = half; c < DH; c += 2) orow[c] *= corr;
-    __syncwarp();
-
-    // O[warp's rows] += P V
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                   wmma::row_major> pa[BK / 16];
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16)
-      wmma::load_matrix_sync(pa[kk / 16], ps + warp * 16 * PLD + kk, PLD);
-#pragma unroll
-    for (int j = 0; j < DH / 16; ++j) {
-      float* ot = os + warp * 16 * OLD + j * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> of;
-      wmma::load_matrix_sync(of, ot, OLD, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> vb;
-        wmma::load_matrix_sync(vb, vs + kk * LD + j * 16, LD);
-        wmma::mma_sync(of, pa[kk / 16], vb, of);
-      }
-      wmma::store_matrix_sync(ot, of, OLD, wmma::mem_row_major);
-    }
+    fence_barrier_init();
   }
   __syncthreads();
 
-  if (qrow < sq) {
-    const float l = l_s[r];
-    const float safe = l == 0.0f ? 1.0f : l;
-    const float* orow = os + r * OLD;
-    __nv_bfloat16* dst = out + (qbase + qrow) * DH;
-    for (int c = half; c < DH; c += 2) dst[c] = __float2bfloat16(orow[c] / safe);
-    if (half == 0) lse[qbase + qrow] = m_s[r] + logf(safe);
+  if (warp == 4) {                          // producer warp
+    if (lane == 0) {
+      mbar_expect_tx(q_full, C::Q_BYTES);
+      tma_tile<DH>(qs, &tm_q, q_full, C::BQ, q0, qh);
+      for (int jt = 0; jt < n_kt; ++jt) {
+        const int s = jt % ST, k0 = jt * C::BKV;
+        if (jt >= ST) mbar_wait(&k_empty[s], ((jt / ST) - 1) & 1);
+        mbar_expect_tx(&k_full[s], C::KV_BYTES);
+        tma_tile<DH>(ks + s * C::KV_BYTES, &tm_k, &k_full[s], C::BKV, k0, kh);
+        if (jt >= ST) mbar_wait(&v_empty[s], ((jt / ST) - 1) & 1);
+        mbar_expect_tx(&v_full[s], C::KV_BYTES);
+        tma_tile<DH>(vs + s * C::KV_BYTES, &tm_v, &v_full[s], C::BKV, k0, kh);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: query rows q0 + r0 and q0 + r0 + 8 in this
+  // thread's accumulator rows, key columns 8 j + c0 (+1)
+  const int r0 = 16 * warp + lane / 4, c0 = 2 * (lane % 4);
+  const uint32_t q_base = smem_u32(qs);
+  float o[NO], s[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  float corr[2];
+  uint32_t pa[4][4];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+
+  // the last key each of this thread's two rows sees
+  int lim[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    lim[r] = causal ? min(skv - 1, q0 + r0 + 8 * r + off) : skv - 1;
+
+  mbar_wait(q_full, 0);
+  for (int jt = 0; jt < n_kt; ++jt) {
+    const int st = jt % ST, k0 = jt * C::BKV;
+    mbar_wait(&k_full[st], (jt / ST) & 1);
+    const uint32_t kb = smem_u32(ks + st * C::KV_BYTES);
+    wgmma_fence();                          // S = Q K^T
+#pragma unroll
+    for (int kk = 0; kk < Tile<DH>::KSTEPS; ++kk)
+      wgmma_ss_n64(s, desc_kmajor<DH>(q_base, C::BQ, kk),
+                   desc_kmajor<DH>(kb, C::BKV, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(s);
+    warp_arrive(&k_empty[st]);              // the next K loads meanwhile
+    softmax_step(s, m, l, corr, lim, k0, c0,
+                 k0 + C::BKV > skv || (causal && k0 + C::BKV - 1 > q0 + off),
+                 scale_log2);
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] *= corr[(i >> 1) & 1];
+    pack_p(s, pa);
+    mbar_wait(&v_full[st], (jt / ST) & 1);
+    const uint32_t vb = smem_u32(vs + st * C::KV_BYTES);
+    wgmma_fence();                          // O += P V
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      RsN<DH>::run(o, pa[kk], desc_nmajor<DH>(vb, C::BKV, kk), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(o);
+    warp_arrive(&v_empty[st]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = q0 + r0 + 8 * r;
+    if (row >= sq) continue;
+    const float inv = l[r] > 0.0f ? 1.0f / l[r] : 0.0f;
+    __nv_bfloat16* dst = out + ((long long)qh * sq + row) * DH + c0;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+          pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    if (lane % 4 == 0)
+      lse[(long long)qh * sq + row] =
+          l[r] > 0.0f ? (m[r] + log2f(l[r])) * LN2 : NEG_INF;
   }
 }
+
+using namespace attn_f32;
 
 template <int DH> struct FlashF32 {
   static constexpr int FLD = Dims<DH>::FLD;
@@ -282,18 +372,44 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+__global__ void fill_no_key_lse_kernel(float* lse, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) lse[i] = NEG_INF;
+}
+
+// skv == 0: every row sees no key, so out 0 and lse -1e30, as the kernel
+// writes such rows.  No K or V tensor map can be encoded over a dimension
+// of 0, so these are written without the kernel.
+int flash_no_keys(void* out, void* lse, long long rows, int dh,
+                  cudaStream_t stream) {
+  const cudaError_t e = cudaMemsetAsync(
+      out, 0, (size_t)rows * dh * sizeof(__nv_bfloat16), stream);
+  if (e != cudaSuccess) return (int)e;
+  fill_no_key_lse_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(
+      (float*)lse, rows);
+  return (int)cudaGetLastError();
+}
+
 template <int DH>
 int flash_bf16(const void* q, const void* k, const void* v, void* out,
-               void* lse, dim3 grid, int hq, int hkv, int sq, int skv,
+               void* lse, int b, int hq, int hkv, int sq, int skv,
                float scale, int causal, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)FlashBf16<DH>::smem());
-  if (e != cudaSuccess) return (int)e;
-  flash_fwd_bf16_kernel<DH><<<grid, 128, FlashBf16<DH>::smem(), stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, (float*)lse, hq, hkv, sq,
-      skv, scale, causal);
+  using C = FlashCfg<DH>;
+  if (skv == 0)
+    return flash_no_keys(out, lse, (long long)b * hq * sq, DH, stream);
+  CUtensorMap tq, tk, tv;
+  int e = make_map<DH>(&tq, q, (long long)b * hq, sq, C::BQ);
+  if (!e) e = make_map<DH>(&tk, k, (long long)b * hkv, skv, C::BKV);
+  if (!e) e = make_map<DH>(&tv, v, (long long)b * hkv, skv, C::BKV);
+  if (!e)
+    e = (int)cudaFuncSetAttribute(flash_fwd_bf16_kernel<DH>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)C::smem());
+  if (e) return e;
+  const dim3 grid(hq, b, (sq + C::BQ - 1) / C::BQ);
+  flash_fwd_bf16_kernel<DH><<<grid, C::THREADS, C::smem(), stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)out, (float*)lse, hq, hkv, sq, skv,
+      log2_scale(scale), causal);
   return (int)cudaGetLastError();
 }
 
@@ -315,19 +431,18 @@ int flash_f32(const void* q, const void* k, const void* v, void* out,
 
 // q: [B, Hq, Sq, dh], k/v: [B, Hkv, Skv, dh], out: [B, Hq, Sq, dh] (q's
 // dtype), lse: [B, Hq, Sq] f32; all contiguous on the device, Hq % Hkv == 0,
-// dh in {32, 64, 128}, Sq >= 1, bf16 pointers 16-byte aligned (the wrapper
-// checks).  Launches on `stream`, allocates nothing, returns a cudaError_t.
+// dh in {32, 64, 128}, Sq >= 1 (Skv may be 0: every row then sees no key),
+// bf16 pointers 16-byte aligned (the wrapper checks).  Launches on `stream`, allocates nothing, returns a cudaError_t.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* out, void* lse,
                                     int b, int hq, int hkv, int sq, int skv,
                                     int dh, float scale, int causal,
                                     void* stream) {
-  const dim3 grid((sq + BQ - 1) / BQ, hq, b);
   cudaStream_t st = (cudaStream_t)stream;
   switch (dh) {
-    case 32: return flash_bf16<32>(q, k, v, out, lse, grid, hq, hkv, sq, skv, scale, causal, st);
-    case 64: return flash_bf16<64>(q, k, v, out, lse, grid, hq, hkv, sq, skv, scale, causal, st);
-    case 128: return flash_bf16<128>(q, k, v, out, lse, grid, hq, hkv, sq, skv, scale, causal, st);
+    case 32: return flash_bf16<32>(q, k, v, out, lse, b, hq, hkv, sq, skv, scale, causal, st);
+    case 64: return flash_bf16<64>(q, k, v, out, lse, b, hq, hkv, sq, skv, scale, causal, st);
+    case 128: return flash_bf16<128>(q, k, v, out, lse, b, hq, hkv, sq, skv, scale, causal, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -5,10 +5,11 @@
 Port of ``repro/kernels/attn_colmax.py``: the Eq. 9 r-schedule driver of
 MCA, in O(n) memory (A is never materialised).  The CUDA kernel
 (``csrc/attn_colmax.cu``) runs one block per (64-key tile, query head,
-batch), loads the K tile once and loops over the q tiles from the offset
-causal diagonal down, recomputing each score exactly as
-``csrc/flash_attention.cu`` does (shared ``csrc/attn_tile.cuh``) and
-folding the column max in f32.  The output is per query head; the ops
+batch), loads the K tile once and streams the q tiles from the offset
+causal diagonal down through a TMA ring, recomputing each score with
+``wgmma`` and exponentiating it through the score function it shares
+with ``csrc/flash_attention.cu`` (``csrc/attn_tile.cuh``), folding the
+column max in f32 registers.  The output is per query head; the ops
 wrapper reduces over heads.
 """
 from __future__ import annotations

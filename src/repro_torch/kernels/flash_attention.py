@@ -4,14 +4,14 @@ Port of ``repro/kernels/flash_attention.py``.  The LSE (per-row
 logsumexp, f32) output is what lets ``attn_colmax`` recover the attention
 column max from (q, k, lse) without materialising A.
 
-The CUDA kernel (``csrc/flash_attention.cu``) runs one block per (64-row
-q tile, query head, batch) and loops over 64-key tiles inside the block,
-stopping at the offset causal diagonal (query i sees keys j <= i + skv -
-sq).  GQA maps query head h to KV head ``h // (Hq // Hkv)``; KV is never
-repeated.  bf16 products run on the tensor cores with f32 accumulation
-and f32 softmax state; f32 inputs take an FMA path.  Any ``sq`` and
-``skv`` are taken (ragged edges are masked in the kernel); ``dh`` must be
-32, 64 or 128.
+The CUDA kernel (``csrc/flash_attention.cu``) runs one block per (q
+tile, query head, batch), heaviest q tiles first, and loops over 64-key
+tiles, stopping at the offset causal diagonal (query i sees keys j <= i +
+skv - sq).  GQA maps query head h to KV head ``h // (Hq // Hkv)``; KV is
+never repeated.  bf16 runs on Hopper's ``wgmma`` with the softmax and the
+output in registers, K and V streamed by TMA through two-stage rings;
+f32 inputs take an FMA path.  Any ``sq`` and ``skv`` are taken (ragged
+edges are masked in the kernel); ``dh`` must be 32, 64 or 128.
 """
 from __future__ import annotations
 

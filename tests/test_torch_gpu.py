@@ -14,6 +14,9 @@ sum in f32, in another order, and round to bf16 at the end); f32 within
 ``flash_attention`` out within 2e-2 of max|out| in bf16 (the kernel rounds
 P to bf16 for PV; the reference's bf16 tolerance) and 2e-4 of it in f32,
 lse within 1e-3; ``attn_colmax`` within 1e-3 (its values lie in [0, 1]).
+Causal rows that see no key (sq > skv) are pinned to out = 0 and lse =
+-1e30 and left out of the comparison with the plain version, which
+averages V there.
 """
 import numpy as np
 import pytest
@@ -224,6 +227,10 @@ ATTN_CASES = [
     (1, 4, 2, 200, 200, 64, True),       # ragged edges
     (2, 2, 2, 64, 192, 32, True),
     (1, 2, 1, 130, 70, 32, False),
+    (1, 4, 2, 192, 64, 128, True),       # causal sq > skv: rows see no key
+    (2, 2, 2, 64, 192, 32, False),       # dh 32, full
+    (2, 8, 8, 384, 384, 128, True),      # GQA group of 1
+    (1, 2, 1, 1, 5, 64, True),           # one query, sides under one tile
 ]
 
 
@@ -252,11 +259,61 @@ def test_flash_and_colmax_kernels_match_plain(cuda, b, hq, hkv, sq, skv, dh,
     torch.cuda.synchronize()
     assert out.dtype == dt and lse.dtype == cm.dtype == torch.float32
     assert cm.shape == (b, hq, skv)
+    # causal rows i < sq - skv see no key: pinned by the test below
+    seen = max(0, sq - skv) if causal else 0
+    out, want_out = out[:, :, seen:], want_out[:, :, seen:]
     tol = (2e-2 if dt == torch.bfloat16 else 2e-4) * float(
         want_out.float().abs().max())
     assert float((out.float() - want_out.float()).abs().max()) <= tol
-    assert float((lse - want_lse).abs().max()) <= 1e-3
+    assert float((lse[:, :, seen:] - want_lse[:, :, seen:]).abs().max()) \
+        <= 1e-3
     assert float((cm - want_cm).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_kernel_rows_without_visible_keys(cuda, dtype):
+    """Causal sq > skv: query i < sq - skv sees no key, so the kernel gives
+    p = 0 for every key there: out = 0 and lse = -1e30 (ROADMAP Queue 3:
+    the reference's kernel and oracle disagree on these rows)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v = _attn_inputs(1, 4, 2, 192, 64, 128, getattr(torch, dtype),
+                           seed=11)
+    out, lse = flash_attention(q, k, v, scale=128 ** -0.5, causal=True)
+    torch.cuda.synchronize()
+    assert not bool(out[:, :, :128].any())
+    assert bool((lse[:, :, :128] == -1e30).all())
+    assert bool(out[:, :, 128:].any())
+    assert bool((lse[:, :, 128:] > -1e29).all())
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_attention_kernels_take_an_empty_side(cuda, dtype):
+    """skv = 0: every row sees no key, so flash gives out = 0 and lse =
+    -1e30; sq = 0: no query sees a key, so colmax is 0.  Neither raises."""
+    from repro_torch.kernels.attn_colmax import attn_colmax
+    from repro_torch.kernels.flash_attention import flash_attention
+    dt = getattr(torch, dtype)
+    q, k, v = _attn_inputs(2, 4, 2, 96, 0, 128, dt, seed=12)
+    out, lse = flash_attention(q, k, v, scale=128 ** -0.5, causal=True)
+    q0, k0, _ = _attn_inputs(2, 4, 2, 0, 96, 128, dt, seed=13)
+    cm = attn_colmax(q0, k0, torch.empty((2, 4, 0), device="cuda"),
+                     scale=128 ** -0.5, causal=True)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and not bool(out.any())
+    assert lse.shape == (2, 4, 96) and bool((lse == -1e30).all())
+    assert cm.shape == (2, 4, 96) and not bool(cm.any())
+
+
+def test_flash_kernel_is_deterministic(cuda):
+    """Three runs on the same inputs give bitwise-equal out and lse: no
+    result depends on the order of atomics."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v = _attn_inputs(4, 24, 2, 512, 512, 128, torch.bfloat16, seed=3)
+    runs = [flash_attention(q, k, v, scale=128 ** -0.5, causal=True)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for out, lse in runs[1:]:
+        assert torch.equal(out, runs[0][0]) and torch.equal(lse, runs[0][1])
 
 
 def _reduced_pair(**kw):
