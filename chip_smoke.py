@@ -44,14 +44,16 @@ Phases, each of which must pass:
              reset just before and read just after.
 6. profile — ``torch.profiler`` over one full-width prefill and one
              8-step decode burst: device busy share, kernel launches, the
-             largest device kernels and host ops.
+             largest device kernels and host ops, and the device time of
+             the port's two serve-path kernels.
 7. numbers — each kernel's time (CUDA events, 100 launches after warm-up;
-             and its device time from the profiler; for the attention
-             kernels also the host time to issue a call), its bound, its plain
-             version's and one library call's time (for
-             ``scaled_dot_product_attention`` also its device time, summed
-             over the kernels it launches, whose names are printed);
-             prefill / decode-step p50, tokens/s, peak memory.
+             its device time from the profiler; the host time to issue a
+             call), its bound, its plain version's and one library call's
+             time, per call and on the device (summed over the kernels the
+             call launches); ``mca_matmul_fixed`` at every serve-path shape
+             (``SERVE_MR`` at f = 256 and 3072) and at ``MCA_TIMED`` also
+             with cold weights (``COLD_COPIES`` copies of w in turn), both
+             ``RAGGED_CASES``.
 
 Builds four sources (one ``nvcc`` each, in parallel).  Ends with a
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
@@ -73,6 +75,13 @@ BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor-core peak
 MCA_CASES = [(64, 3072, 256, 1), (128, 3072, 256, 4), (24, 3072, 3072, 2),
              (128, 3072, 3072, 4), (256, 3072, 3072, 4)]
 MCA_TIMED = (128, 3072, 3072, 4)  # o_proj: 128 rows at the 4-block rung
+# (m, R) of every sampled tier of the serve path: a prefill bucket of n
+# tokens (16..256) fills the 1-, 2- and 4-block tiers up to n, n/2, 3n/8
+SERVE_MR = [(6, 4), (8, 2), (12, 4), (16, 1), (16, 2), (24, 4), (32, 1),
+            (32, 2), (48, 4), (64, 1), (64, 2), (96, 4), (128, 1), (128, 2),
+            (256, 1)]
+MCA_KERNEL = "mca_"               # in the name of the bf16 matmul kernel
+COLD_COPIES = 24                  # 24 x 3.1 MB of sampled w > the 50 MB L2
 # (m, d, f, r_tile, R_max): 128-row tiles of a 512-token bucket
 RAGGED_CASES = [(512, 3072, 3072, (4, 2, 1, 0), 4),      # o_proj
                 (512, 3072, 256, (4, 2, 1, 0), 4)]       # v_proj
@@ -630,32 +639,59 @@ def _device_items(avgs):
             and e.key not in host]
 
 
-def _device_us(fn, kernel: str, n: int = 20) -> float:
-    """Mean device time of the kernel whose name contains ``kernel`` over
-    ``n`` calls of ``fn``, from the profiler's trace."""
+def _traced(fns, n: int = 20):
+    """Device items of one trace of ``n`` calls of each of ``fns`` in turn.
+    A trace that records no device item is taken again, up to three
+    times: the profiler now and then drops a window.  [] if all three did
+    (the caller then reports the device time as not measured)."""
     def run():
-        for _ in range(n):
-            fn()
-    _, avgs = _profile(run)
-    hits = [e for e in _device_items(avgs) if kernel in e.key]
-    if not hits:
-        raise AssertionError(f"profiler saw no device time for {kernel}")
-    return sum(e.self_device_time_total for e in hits) / sum(
-        e.count for e in hits)
+        for fn in fns:
+            for _ in range(n):
+                fn()
+    for _ in range(3):
+        _, avgs = _profile(run)
+        items = _device_items(avgs)
+        if items:
+            return items
+    log("[numbers] the profiler recorded no device time in three traces")
+    return []
+
+
+def _per_call(items, n: int = 20):
+    """Device µs per call over ``items`` (None if there are none): each
+    item's mean time per recorded launch times its launches per call.
+    The profiler may drop some launches of a window; a mean over the ones
+    it kept does not move with that."""
+    if not items:
+        return None
+    return sum(e.self_device_time_total / e.count * max(1, round(e.count / n))
+               for e in items)
+
+
+def _device_us(fn, kernel: str, n: int = 20):
+    """Mean device time of the kernel whose name contains ``kernel`` over
+    ``n`` calls of ``fn``, from the profiler's trace (None if not seen)."""
+    return _per_call([e for e in _traced([fn], n) if kernel in e.key], n)
 
 
 def _device_all_us(fn, n: int = 20):
     """Mean device time per call of ``fn`` summed over every device kernel
     it launches, and those kernels' names, from the profiler's trace."""
-    def run():
-        for _ in range(n):
-            fn()
-    _, avgs = _profile(run)
-    dev = _device_items(avgs)
-    if not dev:
-        raise AssertionError("profiler saw no device time")
-    return (sum(e.self_device_time_total for e in dev) / n,
-            sorted({e.key for e in dev}))
+    dev = _traced([fn], n)
+    return _per_call(dev, n), sorted({e.key for e in dev})
+
+
+def _device_pair_us(fn, kernel: str, lib_fn, n: int = 20):
+    """One trace of ``fn`` (its kernel's name contains ``kernel``) and then
+    ``lib_fn``: the kernel's device µs per call, and that of every device
+    item ``lib_fn`` launches."""
+    dev = _traced([fn, lib_fn], n)
+    return (_per_call([e for e in dev if kernel in e.key], n),
+            _per_call([e for e in dev if kernel not in e.key], n))
+
+
+def _us(x) -> str:
+    return "not measured" if x is None else f"{x:.2f} us"
 
 
 def phase_profile(engine):
@@ -701,6 +737,12 @@ def phase_profile(engine):
             log(f"[profile]   device {ms:8.3f} ms  x{count:<5d} {key}")
         for key, ms, count in out[name]["top_host"]:
             log(f"[profile]   host   {ms:8.3f} ms  x{count:<5d} {key}")
+        for kern in (MCA_KERNEL, "kv_slot_update_kernel"):
+            hits = [e for e in dev if kern in e.key]
+            log(f"[profile]   port kernel {kern!r}: "
+                f"{sum(e.self_device_time_total for e in hits) / 1e3:.3f} "
+                f"ms of device time in {sum(e.count for e in hits)} "
+                "launches")
     log("[profile] " + json.dumps(
         {k: {kk: v[kk] for kk in ("wall_ms", "device_busy_ms",
                                   "device_busy_share", "kernel_launches")}
@@ -763,10 +805,10 @@ def _numbers_attention(out):
     host = host_us(lambda: flash_attention(q, k, v, scale=scale,
                                            causal=causal))
     log(f"[numbers] flash_attention {shape} causal: kernel {ms * 1e3:.2f} "
-        f"us per call (device {dev_us:.2f} us, host {host:.2f} us to "
+        f"us per call (device {_us(dev_us)}, host {host:.2f} us to "
         f"issue), plain {plain * 1e3:.2f} us, "
         f"scaled_dot_product_attention {lib * 1e3:.2f} us per call (device "
-        f"{lib_dev_us:.2f} us), bound {bound * 1e3:.2f} us ({by})")
+        f"{_us(lib_dev_us)}), bound {bound * 1e3:.2f} us ({by})")
     log(f"[numbers] scaled_dot_product_attention device kernels: {lib_names}")
     out["flash_attention"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
                                   bound_by=by, library_ms=lib,
@@ -784,7 +826,7 @@ def _numbers_attention(out):
     host = host_us(lambda: attn_colmax(q, k, lse, scale=scale,
                                        causal=causal))
     log(f"[numbers] attn_colmax {shape} causal: kernel {ms * 1e3:.2f} us "
-        f"per call (device {dev_us:.2f} us, host {host:.2f} us to issue), "
+        f"per call (device {_us(dev_us)}, host {host:.2f} us to issue), "
         f"plain {plain * 1e3:.2f} us, "
         f"no single PyTorch call, bound {bound * 1e3:.2f} us ({by})")
     out["attn_colmax"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
@@ -795,74 +837,125 @@ def _numbers_ragged(out):
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.mca_matmul import mca_matmul_ragged
-    m, d, f, r_tile, r_max = RAGGED_CASES[0]
-    x, w, rt, idx, inv_rp = _ragged_inputs(m, d, f, r_tile, r_max, seed=300)
-    b, n_t = 128, len(r_tile)
-    bm, nb = m // n_t, d // b
-    live = [set(row[:r]) for row, r in zip(idx.tolist(), r_tile)]
-    used = set().union(*live)
-    n_bytes = (2 * (sum(bm * len(u) * b for u in live) + len(used) * b * f
-                    + m * f) + 4 * n_t + 8 * sum(r_tile))
-    bound, by = _bound_ms(n_bytes, sum(2 * bm * len(u) * b * f for u in live))
-    ms = cuda_time_ms(lambda: mca_matmul_ragged(x, w, rt, idx, inv_rp,
-                                                block=b))
-    plain = cuda_time_ms(lambda: ref.ref_mca_matmul_ragged(
-        x, w, rt, idx, inv_rp, b))
-    # yardstick: one bmm on per-tile blocks gathered in advance, weights
-    # zeroed past r_tile
+    for case in RAGGED_CASES:
+        m, d, f, r_tile, r_max = case
+        x, w, rt, idx, inv_rp = _ragged_inputs(m, d, f, r_tile, r_max,
+                                               seed=300 + f)
+        b, n_t = 128, len(r_tile)
+        bm, nb = m // n_t, d // b
+        live = [set(row[:r]) for row, r in zip(idx.tolist(), r_tile)]
+        used = set().union(*live)
+        n_bytes = (2 * (sum(bm * len(u) * b for u in live) + len(used) * b * f
+                        + m * f) + 4 * n_t + 8 * sum(r_tile))
+        bound, by = _bound_ms(n_bytes,
+                              sum(2 * bm * len(u) * b * f for u in live))
+
+        def call():
+            return mca_matmul_ragged(x, w, rt, idx, inv_rp, block=b)
+
+        ms = cuda_time_ms(call)
+        plain = cuda_time_ms(lambda: ref.ref_mca_matmul_ragged(
+            x, w, rt, idx, inv_rp, b))
+        # yardstick: one bmm on per-tile blocks gathered in advance, weights
+        # zeroed past r_tile
+        il = idx.long()
+        wgt = torch.where(torch.arange(r_max, device="cuda")[None]
+                          < rt[:, None], inv_rp, 0.0)
+        tiles = torch.arange(n_t, device="cuda")[:, None]
+        xg = x.reshape(n_t, bm, nb, b)[tiles, :, il].permute(
+            0, 2, 1, 3).reshape(n_t, bm, r_max * b).contiguous()
+        wg = (w.reshape(nb, b, f)[il] * wgt[..., None, None].to(w.dtype)
+              ).reshape(n_t, r_max * b, f).contiguous()
+        lib = cuda_time_ms(lambda: torch.bmm(xg, wg))
+        dev_us, lib_dev = _device_pair_us(call, MCA_KERNEL,
+                                          lambda: torch.bmm(xg, wg))
+        host = host_us(call)
+        log(f"[numbers] mca_matmul_ragged m={m} d={d} f={f} bm={bm} "
+            f"r_tile={r_tile} (unique blocks per tile "
+            f"{[len(u) for u in live]}): kernel {ms * 1e3:.2f} us per call "
+            f"(device {_us(dev_us)}, host {host:.2f} us to issue), plain "
+            f"{plain * 1e3:.2f} us, torch.bmm on gathered {lib * 1e3:.2f} us "
+            f"(device {_us(lib_dev)}), bound {bound * 1e3:.2f} us ({by})")
+        if case == RAGGED_CASES[0]:
+            out["mca_matmul_ragged"] = dict(
+                ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=lib, library_device_us=lib_dev)
+
+
+def _numbers_fixed(case, plain_too):
+    """One mca_matmul_fixed shape: per-call, device and host time, bound,
+    and torch.matmul on the pre-gathered blocks (per call and device)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mca_matmul import mca_matmul_fixed
+    m, d, f, r = case
+    b = 128
+    x, w, idx, inv_rp = _mca_inputs(m, d, f, r, seed=100 + m + f + r)
+    uniq = int(torch.unique(idx).numel())
+    n_bytes = 2 * (m * uniq * b + uniq * b * f + m * f) + 8 * r
+    bound, by = _bound_ms(n_bytes, 2 * m * uniq * b * f)
+
+    def call():
+        return mca_matmul_fixed(x, w, idx, inv_rp, block=b)
+
+    ms = cuda_time_ms(call)
+    plain = cuda_time_ms(lambda: ref.ref_mca_matmul_fixed(
+        x, w, idx, inv_rp, b)) if plain_too else None
     il = idx.long()
-    wgt = torch.where(torch.arange(r_max, device="cuda")[None] < rt[:, None],
-                      inv_rp, 0.0)
-    tiles = torch.arange(n_t, device="cuda")[:, None]
-    xg = x.reshape(n_t, bm, nb, b)[tiles, :, il].permute(0, 2, 1, 3).reshape(
-        n_t, bm, r_max * b).contiguous()
-    wg = (w.reshape(nb, b, f)[il] * wgt[..., None, None].to(w.dtype)
-          ).reshape(n_t, r_max * b, f).contiguous()
-    lib = cuda_time_ms(lambda: torch.bmm(xg, wg))
-    dev_us = _device_us(lambda: mca_matmul_ragged(x, w, rt, idx, inv_rp,
-                                                  block=b),
-                        "mca_ragged_bf16_kernel")
-    log(f"[numbers] mca_matmul_ragged m={m} d={d} f={f} bm={bm} "
-        f"r_tile={r_tile} (unique blocks per tile "
-        f"{[len(u) for u in live]}): kernel {ms * 1e3:.2f} us per call "
-        f"(device {dev_us:.2f} us), plain {plain * 1e3:.2f} us, torch.bmm "
-        f"on gathered {lib * 1e3:.2f} us, bound {bound * 1e3:.2f} us ({by})")
-    out["mca_matmul_ragged"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
-                                    bound_by=by, library_ms=lib)
+    xg = x.reshape(m, d // b, b)[:, il].reshape(m, r * b).contiguous()
+    wg = (w.reshape(d // b, b, f)[il] * inv_rp[:, None, None].to(w.dtype)
+          ).reshape(r * b, f).contiguous()
+    lib = cuda_time_ms(lambda: torch.matmul(xg, wg))
+    dev_us, lib_dev = _device_pair_us(call, MCA_KERNEL,
+                                      lambda: torch.matmul(xg, wg))
+    host = host_us(call)
+    plain_s = f"plain {plain * 1e3:.2f} us, " if plain_too else ""
+    log(f"[numbers] mca_matmul_fixed m={m} d={d} f={f} R={r} "
+        f"(unique blocks {uniq}): kernel {ms * 1e3:.2f} us per call "
+        f"(device {_us(dev_us)}, host {host:.2f} us to issue), {plain_s}"
+        f"torch.matmul on gathered {lib * 1e3:.2f} us (device "
+        f"{_us(lib_dev)}), bound {bound * 1e3:.2f} us ({by})")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=lib, library_device_us=lib_dev)
+
+
+def _numbers_fixed_cold(case):
+    """mca_matmul_fixed with its weights cold: each call takes the next of
+    COLD_COPIES copies of w, whose sampled blocks together exceed the 50 MB
+    L2, as the serve path meets each layer's weight once per prefill."""
+    from repro_torch.kernels.mca_matmul import mca_matmul_fixed
+    m, d, f, r = case
+    x, w, idx, inv_rp = _mca_inputs(m, d, f, r, seed=100 + m + f + r)
+    ws = [w.clone() for _ in range(COLD_COPIES)]
+    turn = [0]
+
+    def call():
+        turn[0] = (turn[0] + 1) % COLD_COPIES
+        return mca_matmul_fixed(x, ws[turn[0]], idx, inv_rp, block=128)
+
+    ms = cuda_time_ms(call)
+    dev_us = _device_us(call, MCA_KERNEL, n=2 * COLD_COPIES)
+    sampled_mb = COLD_COPIES * r * 128 * f * 2 / 1e6
+    log(f"[numbers] mca_matmul_fixed m={m} d={d} f={f} R={r} cold weights "
+        f"({COLD_COPIES} copies of w in turn, {sampled_mb:.1f} MB of "
+        f"sampled blocks): kernel {ms * 1e3:.2f} us per call (device "
+        f"{_us(dev_us)})")
 
 
 def phase_numbers():
     import torch
     from repro_torch.kernels import cache_update, ref
-    from repro_torch.kernels.mca_matmul import mca_matmul_fixed
     out = {}
-    for case in MCA_CASES:
-        m, d, f, r = case
-        x, w, idx, inv_rp = _mca_inputs(m, d, f, r, seed=100 + m + f + r)
-        uniq = int(torch.unique(idx).numel())
-        b = 128
-        n_bytes = 2 * (m * uniq * b + uniq * b * f + m * f) + 8 * r
-        bound, by = _bound_ms(n_bytes, 2 * m * uniq * b * f)
-        ms = cuda_time_ms(lambda: mca_matmul_fixed(
-            x, w, idx, inv_rp, block=b))
-        plain = cuda_time_ms(lambda: ref.ref_mca_matmul_fixed(
-            x, w, idx, inv_rp, b))
-        il = idx.long()
-        xg = x.reshape(m, d // b, b)[:, il].reshape(m, r * b).contiguous()
-        wg = (w.reshape(d // b, b, f)[il] * inv_rp[:, None, None].to(w.dtype)
-              ).reshape(r * b, f).contiguous()
-        lib = cuda_time_ms(lambda: torch.matmul(xg, wg))
-        dev_us = _device_us(lambda: mca_matmul_fixed(
-            x, w, idx, inv_rp, block=b), "mca_fixed_bf16_kernel")
-        log(f"[numbers] mca_matmul_fixed m={m} d={d} f={f} R={r} "
-            f"(unique blocks {uniq}): kernel {ms * 1e3:.2f} us per call "
-            f"(device {dev_us:.2f} us), plain {plain * 1e3:.2f} us, "
-            f"torch.matmul on gathered {lib * 1e3:.2f} us, bound "
-            f"{bound * 1e3:.2f} us ({by})")
+    shapes = list(MCA_CASES)
+    for m, r in SERVE_MR:
+        for f in (256, 3072):
+            if (m, 3072, f, r) not in shapes:
+                shapes.append((m, 3072, f, r))
+    for case in shapes:
+        nums = _numbers_fixed(case, plain_too=case in MCA_CASES)
         if case == MCA_TIMED:
-            out["mca_matmul_fixed"] = dict(ms=ms, plain_ms=plain,
-                                           bound_ms=bound, bound_by=by,
-                                           library_ms=lib)
+            out["mca_matmul_fixed"] = nums
+    _numbers_fixed_cold(MCA_TIMED)
     g = torch.Generator(device="cuda").manual_seed(3)
     bsz, s, f = KV_SHAPE
     cache = torch.randn(KV_SHAPE, generator=g, device="cuda").bfloat16()
@@ -873,18 +966,27 @@ def phase_numbers():
     pos_l = pos.long()
     n_bytes = 2 * bsz * f * 2 + 4 * bsz
     bound, by = _bound_ms(n_bytes, 0)
-    ms = cuda_time_ms(lambda: cache_update.kv_slot_update(cache, new, pos))
+
+    def call():
+        return cache_update.kv_slot_update(cache, new, pos)
+
+    def lib_call():
+        return cache.index_put_((rows_idx, pos_l), new[:, 0])
+
+    ms = cuda_time_ms(call)
     plain = cuda_time_ms(lambda: ref.ref_kv_slot_update(cache, new, pos))
-    lib = cuda_time_ms(lambda: cache.index_put_((rows_idx, pos_l),
-                                                new[:, 0]))
-    dev_us = _device_us(lambda: cache_update.kv_slot_update(cache, new, pos),
-                        "kv_slot_update_kernel")
+    lib = cuda_time_ms(lib_call)
+    dev_us, lib_dev = _device_pair_us(call, "kv_slot_update_kernel",
+                                      lib_call)
+    host = host_us(call)
     log(f"[numbers] kv_slot_update {list(KV_SHAPE)} bf16: kernel "
-        f"{ms * 1e3:.2f} us per call (device {dev_us:.2f} us), plain "
-        f"{plain * 1e3:.2f} us, index_put_ {lib * 1e3:.2f} us, bound "
+        f"{ms * 1e3:.2f} us per call (device {_us(dev_us)}, host "
+        f"{host:.2f} us to issue), plain {plain * 1e3:.2f} us, index_put_ "
+        f"{lib * 1e3:.2f} us (device {_us(lib_dev)}), bound "
         f"{bound * 1e3:.4f} us ({by})")
     out["kv_slot_update"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
-                                 bound_by=by, library_ms=lib)
+                                 bound_by=by, library_ms=lib,
+                                 library_device_us=lib_dev)
     _numbers_ragged(out)
     _numbers_attention(out)
     return out

@@ -5,13 +5,17 @@ Computes   o = sum_k inv_rp[k] * x[:, s[k]*B:(s[k]+1)*B] @ w[s[k]*B:(s[k]+1)*B, 
 Port of ``repro/kernels/mca_matmul.py``: ``mca_matmul_fixed`` (one sample
 list for all rows, one precision tier) and ``mca_matmul_ragged`` (row tile
 ``t`` of ``m // m_tiles`` rows sums only the first ``r_tile[t]`` entries of
-its own list).  The CUDA kernels (``csrc/mca_matmul.cu``) tile the
-output, read the sample ids and weights from device memory inside each
-block (no host sync), stage only the sampled x column-block and w
-row-block in shared memory, and accumulate in f32 (WMMA tensor cores for
-bf16, FMA for f32).  Ragged row and column edges are masked, so any ``m``
-and ``f`` are taken; a ragged block never spans two row tiles and skips
-the samples past its tile's count.
+its own list).  The CUDA kernels (``csrc/mca_matmul.cu``) read the sample
+ids and weights from device memory inside each block (no host sync) and
+accumulate in f32.  In bf16 (Hopper): the sampled x column-block and w
+row-block arrive by TMA, the sample id being the box coordinate, through
+a ring of mbarrier-guarded stages; the products run on ``wgmma``; the
+samples are split over the blocks of a thread block cluster, whose f32
+partial tiles are summed in a fixed order through distributed shared
+memory, so repeated calls give the same bits.  f32 takes a plain FMA
+path.  Ragged row and column edges are masked, so any ``m`` and ``f`` are
+taken; a ragged block never spans two row tiles and skips the samples
+past its tile's count.
 """
 from __future__ import annotations
 

@@ -72,6 +72,114 @@ def test_mca_matmul_kernel_matches_plain(cuda, m, d, f, r, dtype):
     assert float((got.float() - want.float()).abs().max()) <= tol
 
 
+# (m, R) of every sampled tier the serve path gives mca_matmul_fixed: a
+# prefill bucket of n tokens (16..256) fills tiers of 1, 2 and 4 blocks up
+# to n, n/2 and 3n/8 rows
+SERVE_MR = [(6, 4), (8, 2), (12, 4), (16, 1), (16, 2), (24, 4), (32, 1),
+            (32, 2), (48, 4), (64, 1), (64, 2), (96, 4), (128, 1), (128, 2),
+            (256, 1)]
+
+
+@pytest.mark.parametrize("m,r", SERVE_MR)
+@pytest.mark.parametrize("f", [256, 3072])
+def test_mca_matmul_kernel_serve_shapes(cuda, m, r, f):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mca_matmul import mca_matmul_fixed
+    x, w, idx, inv_rp = _mca_inputs(m, 3072, f, r, torch.bfloat16,
+                                    seed=m + r + f)
+    got = mca_matmul_fixed(x, w, idx, inv_rp, block=128)
+    want = ref.ref_mca_matmul_fixed(x, w, idx, inv_rp, 128)
+    torch.cuda.synchronize()
+    assert got.shape == (m, f)
+    assert float((got.float() - want.float()).abs().max()) <= \
+        1e-2 * float(want.float().abs().max())
+
+
+@pytest.mark.parametrize("m,d,f,r,block", [(48, 3072, 256, 3, 64),
+                                           (130, 1024, 3072, 5, 64),
+                                           (100, 256, 264, 2, 32),
+                                           (64, 512, 128, 6, 32)])
+def test_mca_matmul_kernel_small_blocks(cuda, m, d, f, r, block):
+    """block 64 and 32 in bf16 (32: 64-byte rows, the 64-byte swizzle)."""
+    from repro_torch.core import amm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mca_matmul import mca_matmul_fixed
+    g = torch.Generator(device="cuda").manual_seed(m + block)
+    x = torch.randn((m, d), generator=g, device="cuda").bfloat16()
+    w = (torch.randn((d, f), generator=g, device="cuda") / d ** 0.5
+         ).bfloat16()
+    idx, inv_rp = amm.draw_block_samples(g, amm.block_probs(w, block), r)
+    got = mca_matmul_fixed(x, w, idx, inv_rp, block=block)
+    want = ref.ref_mca_matmul_fixed(x, w, idx, inv_rp, block)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) <= \
+        1e-2 * float(want.float().abs().max())
+
+
+@pytest.mark.parametrize("m", [1, 128])
+def test_mca_matmul_kernel_duplicate_and_out_of_range_ids(cuda, m):
+    """A duplicate id counts each time; ids outside [0, d/B) are skipped."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mca_matmul import mca_matmul_fixed
+    x, w, _, _ = _mca_inputs(m, 3072, 3072, 1, torch.bfloat16, seed=m)
+    idx = torch.tensor([5, 24, 5, -1, 17], dtype=torch.int32, device="cuda")
+    inv_rp = torch.tensor([2.0, 7.0, 3.0, 9.0, 1.5], device="cuda")
+    got = mca_matmul_fixed(x, w, idx, inv_rp, block=128)
+    keep = torch.tensor([0, 2, 4], device="cuda")
+    want = ref.ref_mca_matmul_fixed(x, w, idx[keep], inv_rp[keep], 128)
+    torch.cuda.synchronize()
+    assert got.shape == (m, 3072)
+    assert float((got.float() - want.float()).abs().max()) <= \
+        1e-2 * float(want.float().abs().max())
+
+
+def test_mca_matmul_ragged_kernel_clamps_r_tile(cuda):
+    """Full width: r_tile above R_max is clamped to R_max, and a tile of 0
+    samples among live ones gives zero rows."""
+    from repro_torch.core import amm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mca_matmul import mca_matmul_ragged
+    g = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn((512, 3072), generator=g, device="cuda").bfloat16()
+    w = (torch.randn((3072, 3072), generator=g, device="cuda")
+         / 3072 ** 0.5).bfloat16()
+    idx, inv_rp = amm.draw_block_samples(g, amm.block_probs(w, 128), 16)
+    idx, inv_rp = idx.reshape(4, 4).contiguous(), \
+        inv_rp.reshape(4, 4).contiguous()
+    rt = torch.tensor([9, 0, 2, 4], dtype=torch.int32, device="cuda")
+    got = mca_matmul_ragged(x, w, rt, idx, inv_rp, block=128)
+    want = ref.ref_mca_matmul_ragged(x, w, rt.clamp(max=4), idx, inv_rp, 128)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) <= \
+        1e-2 * float(want.float().abs().max())
+    assert not bool(got[128:256].any())
+    assert bool(got[:128].any()) and bool(got[256:].any())
+
+
+@pytest.mark.parametrize("variant", ["fixed_split", "fixed_r1", "ragged"])
+def test_mca_matmul_kernels_are_deterministic(cuda, variant):
+    """Three launches on the same inputs give bitwise-equal outputs: the
+    cluster's partial tiles are summed in a fixed order, not by atomics."""
+    from repro_torch.kernels.mca_matmul import (mca_matmul_fixed,
+                                                mca_matmul_ragged)
+    m, r = {"fixed_split": (128, 4), "fixed_r1": (256, 1),
+            "ragged": (512, 4)}[variant]
+    x, w, idx, inv_rp = _mca_inputs(m, 3072, 3072, 4 * r, torch.bfloat16,
+                                    seed=31)
+    if variant == "ragged":
+        rt = torch.tensor([4, 2, 1, 0], dtype=torch.int32, device="cuda")
+        i2, w2 = idx.reshape(4, 4).contiguous(), \
+            inv_rp.reshape(4, 4).contiguous()
+        runs = [mca_matmul_ragged(x, w, rt, i2, w2) for _ in range(3)]
+    else:
+        runs = [mca_matmul_fixed(x, w, idx[:r].contiguous(),
+                                 inv_rp[:r].contiguous()) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert bool(runs[0].any())
+    for out in runs[1:]:
+        assert torch.equal(out, runs[0])
+
+
 def test_mca_matmul_kernel_exact_mode_is_dense(cuda):
     """Every block once with unit weights: the dense product."""
     from repro_torch.kernels.mca_matmul import mca_matmul_fixed
