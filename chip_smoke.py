@@ -16,7 +16,10 @@ Phases, each of which must pass:
              and ``mca_matmul_ragged`` within 1e-2 of the output's max
              magnitude (the output is rounded to bf16 after an f32 sum
              taken in another order), ``kv_slot_update`` bitwise,
-             untouched rows included; ``flash_attention`` out within 2e-2
+             untouched rows included, both its entry point (one cache) and
+             its layer write (K, V and slot_pos in one launch: per-row t,
+             a host-int t, a window's wrap, layer 7 of the stacked cache);
+             ``flash_attention`` out within 2e-2
              of max|out| in bf16 (P is rounded to bf16 for PV) and 2e-4 in
              f32, lse within 1e-3, ``attn_colmax`` within 1e-3, at
              starcoder2-3b (24/2 heads, dh 128, causal, also suffix
@@ -32,7 +35,8 @@ Phases, each of which must pass:
              (alpha=0.2, block=128, use_kernel=True) through both batchers;
              kernel launch counts are reset just before each batcher runs
              and read just after (flash, colmax and the ragged matmul are
-             not on this path: their counts print as 0).
+             not on this path: their counts print as 0); ``kv_slot_update``
+             must launch exactly once per layer per decode step.
 5b. entry  — this slice's path, ``repro_torch.kernels`` at full width on
              layer 0 of that model (4 prompts of 512 tokens): q, k, v from
              the port's own layer code; ``flash_attention`` -> (out, lse)
@@ -44,8 +48,10 @@ Phases, each of which must pass:
              reset just before and read just after.
 6. profile — ``torch.profiler`` over one full-width prefill and one
              8-step decode burst: device busy share, kernel launches, the
-             largest device kernels and host ops, and the device time of
-             the port's two serve-path kernels.
+             largest device kernels and host ops, the device time of the
+             port's two serve-path kernels, the host time of the
+             ``kv_slot_update`` span and the ``index_put_``, ``arange`` and
+             ``remainder`` host ops.
 7. numbers — each kernel's time (CUDA events, 100 launches after warm-up;
              its device time from the profiler; the host time to issue a
              call), its bound, its plain version's and one library call's
@@ -53,7 +59,11 @@ Phases, each of which must pass:
              call launches); ``mca_matmul_fixed`` at every serve-path shape
              (``SERVE_MR`` at f = 256 and 3072) and at ``MCA_TIMED`` also
              with cold weights (``COLD_COPIES`` copies of w in turn), both
-             ``RAGGED_CASES``.
+             ``RAGGED_CASES``; ``kv_slot_update`` at ``KV_SHAPE`` (entry
+             point), its layer write at the serve shape beside three
+             ``index_put_`` and the two-call writes of one layer,
+             its floor (B = 1, one 16-byte row), and where the host time of
+             one call goes (each piece of the issue path timed alone).
 
 Builds four sources (one ``nvcc`` each, in parallel).  Ends with a
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
@@ -226,9 +236,62 @@ def phase_kernels():
                              "!= plain version")
     log("[kernels] kv_slot_update [4,512,256] and layer 7 of "
         "[30,4,512,2,128]: bitwise equal to the plain version")
+    _check_layer_write(g)
     errs["mca_matmul_ragged"] = _check_ragged()
     errs.update(_check_attention())
     return errs
+
+
+def _layer_inputs(g, lead=(), b=KV_STACK[1], s=KV_STACK[2],
+                  tail=KV_STACK[3:], t_lo=0, t_hi=None):
+    """K and V caches of ``lead + (b, s) + tail`` bf16, their new rows,
+    slot_pos (``lead + (b, s)`` int32) and a per-row t in [t_lo, t_hi)."""
+    import torch
+
+    def rand(shape):
+        return torch.randn(shape, generator=g, device="cuda").bfloat16()
+
+    k, v = rand(lead + (b, s) + tail), rand(lead + (b, s) + tail)
+    kn, vn = rand((b, 1) + tail), rand((b, 1) + tail)
+    spos = torch.randint(-1, s, lead + (b, s), generator=g, device="cuda",
+                         dtype=torch.int32)
+    t = torch.randint(t_lo, s if t_hi is None else t_hi, (b,), generator=g,
+                      device="cuda", dtype=torch.int32)
+    return k, v, kn, vn, spos, t
+
+
+def _check_layer_write(g):
+    """The layer write (K, V and slot_pos in one launch) against its plain
+    version, bitwise, whole tensors compared (untouched rows included): the
+    serve shape with per-row t, a host-int t, a window's wrap (t >= S), and
+    layer 7 of the layer-stacked cache."""
+    import torch
+    from repro_torch.kernels import cache_update, ref
+    b, s = KV_STACK[1], KV_STACK[2]
+    cases = [("[4,512,2,128] per-row t", (), 0, 0, None, False),
+             ("[4,512,2,128] host-int t", (), 0, 0, None, True),
+             ("[4,512,2,128] window 512, t in [512, 2048)", (), 512, s,
+              4 * s, False),
+             ("layer 7 of [30,4,512,2,128]", KV_STACK[:1], 0, 0, None, False)]
+    for what, lead, window, t_lo, t_hi, host_int in cases:
+        k, v, kn, vn, spos, t = _layer_inputs(g, lead, t_lo=t_lo, t_hi=t_hi)
+        if host_int:
+            t = s // 3
+        got, want = [k.clone(), v.clone(), spos.clone()], [k, v, spos]
+        gl = [x[7] for x in got] if lead else got
+        wl = [x[7] for x in want] if lead else want
+        cache_update.kv_slot_update_layer(gl[0], kn, gl[1], vn, gl[2], t,
+                                          window=window)
+        ref.ref_kv_slot_update_layer(wl[0], kn, wl[1], vn, wl[2], t,
+                                     window=window)
+        torch.cuda.synchronize()
+        for name, a, w in zip(("K", "V", "slot_pos"), got, want):
+            if not torch.equal(a, w):
+                raise AssertionError(f"kv_slot_update_layer {what}: {name} "
+                                     "!= plain version")
+    log("[kernels] kv_slot_update_layer (K, V, slot_pos in one launch) at "
+        f"{'; '.join(c[0] for c in cases)}: bitwise equal to the plain "
+        "version, untouched rows included")
 
 
 def _held(what, got, want, tol):
@@ -397,7 +460,7 @@ def _kernel_counts(snap):
             for op in ("mca_matmul", "kv_slot_update")}
 
 
-def _check_path(name, snap, launches, decode_steps):
+def _check_path(name, snap, launches, decode_steps, n_layers):
     counts = _kernel_counts(snap)
     log(f"[serve] {name}: launches {launches}, "
         f"(kernel_calls, fallback_calls) {counts}, "
@@ -410,10 +473,12 @@ def _check_path(name, snap, launches, decode_steps):
         n = launches[kern]
         if n <= 0:
             raise AssertionError(f"{name}: {kern} never launched")
-    if launches["kv_slot_update"] < 60 * decode_steps:
+    # one layer write (K, V and slot_pos) per layer per decode step
+    want = n_layers * decode_steps
+    if launches["kv_slot_update"] != want:
         raise AssertionError(f"{name}: kv_slot_update launched "
-                             f"{launches['kv_slot_update']} < 60 x "
-                             f"{decode_steps} decode steps")
+                             f"{launches['kv_slot_update']} != {n_layers} x "
+                             f"{decode_steps} decode steps = {want}")
 
 
 def _check_requests(name, reqs, vocab, max_new):
@@ -469,7 +534,7 @@ def phase_serve():
     _check_requests("SlotBatcher", reqs, cfg.vocab_size, max_new)
     hists = snap["histograms"]
     steps = hists["serve.decode_step_seconds"]["count"] * 8
-    _check_path("SlotBatcher", snap, launches["slot"], steps)
+    _check_path("SlotBatcher", snap, launches["slot"], steps, cfg.n_layers)
     c = snap["counters"]
     occ = sum(v for k, v in c.items() if k.startswith("serve.tier_occupancy"))
     want_occ = cfg.n_layers * 2 * c["serve.prefill_tokens"]
@@ -501,7 +566,8 @@ def phase_serve():
         launches["wave"] = ops.launch_counts()
         wsnap = reg.snapshot()
     _check_requests("ContinuousBatcher", wreqs, cfg.vocab_size, max_new)
-    _check_path("ContinuousBatcher", wsnap, launches["wave"], max_new - 1)
+    _check_path("ContinuousBatcher", wsnap, launches["wave"], max_new - 1,
+                cfg.n_layers)
     serve_nums["wave_prefill_s"] = \
         wsnap["histograms"]["serve.prefill_seconds"]["p50"]
     serve_nums["wave_decode_step_p50_s"] = \
@@ -514,7 +580,8 @@ def phase_serve():
         f"{ {k: total[k] for k in ENTRY_KERNELS} }")
     per = {"mca_matmul_fixed": "per prefill: 30 layers x 2 sites x 3 "
                                "sampled tiers = 180",
-           "kv_slot_update": "per decode step: 30 layers x (K, V) = 60"}
+           "kv_slot_update": "per decode step: 30 layers x 1 layer "
+                             "write (K, V, slot_pos) = 30"}
     return total, per, serve_nums, engine
 
 
@@ -743,9 +810,23 @@ def phase_profile(engine):
                 f"{sum(e.self_device_time_total for e in hits) / 1e3:.3f} "
                 f"ms of device time in {sum(e.count for e in hits)} "
                 "launches")
+        # the kv_slot_update wrapper's span (host time, launch included)
+        # and the host ops the layer's cache writes used to issue
+        span = [e for e in host if e.key == "kv_slot_update"]
+        out[name]["kv_span_host_ms"] = sum(e.cpu_time_total
+                                           for e in span) / 1e3
+        out[name]["kv_span_calls"] = sum(e.count for e in span)
+        log(f"[profile]   span 'kv_slot_update': "
+            f"{out[name]['kv_span_host_ms']:.3f} ms of host time over "
+            f"{out[name]['kv_span_calls']} calls")
+        for op in ("aten::index_put_", "aten::arange", "aten::remainder"):
+            hits = [e for e in host if e.key == op]
+            log(f"[profile]   host op {op}: {sum(e.count for e in hits)} "
+                f"calls, {sum(e.cpu_time_total for e in hits) / 1e3:.3f} ms")
     log("[profile] " + json.dumps(
         {k: {kk: v[kk] for kk in ("wall_ms", "device_busy_ms",
-                                  "device_busy_share", "kernel_launches")}
+                                  "device_busy_share", "kernel_launches",
+                                  "kv_span_host_ms", "kv_span_calls")}
          for k, v in out.items()}))
 
 
@@ -942,20 +1023,11 @@ def _numbers_fixed_cold(case):
         f"{_us(dev_us)})")
 
 
-def phase_numbers():
+def _numbers_kv_entry():
+    """The reference's entry point (one cache) at ``KV_SHAPE``: kernel,
+    plain version and ``index_put_``."""
     import torch
     from repro_torch.kernels import cache_update, ref
-    out = {}
-    shapes = list(MCA_CASES)
-    for m, r in SERVE_MR:
-        for f in (256, 3072):
-            if (m, 3072, f, r) not in shapes:
-                shapes.append((m, 3072, f, r))
-    for case in shapes:
-        nums = _numbers_fixed(case, plain_too=case in MCA_CASES)
-        if case == MCA_TIMED:
-            out["mca_matmul_fixed"] = nums
-    _numbers_fixed_cold(MCA_TIMED)
     g = torch.Generator(device="cuda").manual_seed(3)
     bsz, s, f = KV_SHAPE
     cache = torch.randn(KV_SHAPE, generator=g, device="cuda").bfloat16()
@@ -964,8 +1036,7 @@ def phase_numbers():
                         dtype=torch.int32)
     rows_idx = torch.arange(bsz, device="cuda")
     pos_l = pos.long()
-    n_bytes = 2 * bsz * f * 2 + 4 * bsz
-    bound, by = _bound_ms(n_bytes, 0)
+    bound, by = _bound_ms(2 * bsz * f * 2 + 4 * bsz, 0)
 
     def call():
         return cache_update.kv_slot_update(cache, new, pos)
@@ -979,14 +1050,200 @@ def phase_numbers():
     dev_us, lib_dev = _device_pair_us(call, "kv_slot_update_kernel",
                                       lib_call)
     host = host_us(call)
-    log(f"[numbers] kv_slot_update {list(KV_SHAPE)} bf16: kernel "
-        f"{ms * 1e3:.2f} us per call (device {_us(dev_us)}, host "
-        f"{host:.2f} us to issue), plain {plain * 1e3:.2f} us, index_put_ "
-        f"{lib * 1e3:.2f} us (device {_us(lib_dev)}), bound "
+    log(f"[numbers] kv_slot_update {list(KV_SHAPE)} bf16 (reference entry "
+        f"point): kernel {ms * 1e3:.2f} us per call (device {_us(dev_us)}, "
+        f"host {host:.2f} us to issue), plain {plain * 1e3:.2f} us, "
+        f"index_put_ {lib * 1e3:.2f} us (device {_us(lib_dev)}), bound "
         f"{bound * 1e3:.4f} us ({by})")
+    return host
+
+
+def _host_breakdown(entry_host):
+    """Where the host time of one kv_slot_update call goes: each piece of
+    the issue path timed alone (host_us, 100 calls), the former launcher's
+    pieces (``current_stream`` object, ``record_function`` without a
+    profiler, a registry counter fetched with ``setdefault``, the
+    f-string name, tuple shape compares, ``new[0]``) beside this one's."""
+    import threading
+    import torch
+    from repro_torch import obs
+    from repro_torch.kernels import cache_update
+    from repro_torch.kernels.ops import kv_slot_update_layer as ops_layer
+    from repro_torch.obs.registry import Counter
+    g = torch.Generator(device="cuda").manual_seed(4)
+    k, v, kn, vn, spos, t = _layer_inputs(g)
+    cache, new = k.reshape(KV_SHAPE), kn.reshape(KV_SHAPE[0], 1, -1)
+    lock = threading.Lock()
+    lib = cache_update._lib()
+    b, s = KV_SHAPE[:2]
+    row = kn[0].numel() * kn.element_size()
+    args = (k.data_ptr(), kn.data_ptr(), row, v.data_ptr(), vn.data_ptr(),
+            row, spos.data_ptr(), t.data_ptr(), 1, 0, b, s, 0,
+            torch._C._cuda_getCurrentRawStream(0))
+    empty = _layer_inputs(g, b=0)
+    op, which = "kv_slot_update", "kernel_calls"
+
+    def former_counter():
+        with lock:
+            obs.get_registry()._counters.setdefault(
+                f"kernels.{op}.{which}", Counter()).inc()
+
+    def former_checks():
+        return (cache.is_cuda and new.device == cache.device,
+                new.shape != (b, 1) + tuple(cache.shape[2:]),
+                new[0].numel() * new.element_size())
+
+    def with_record_function():
+        with torch.profiler.record_function("kv_slot_update"):
+            pass
+
+    def with_obs_trace():
+        with obs.trace("kv_slot_update"):
+            pass
+
+    pieces = [
+        ("former: torch.cuda.current_stream(dev).cuda_stream",
+         lambda: torch.cuda.current_stream(cache.device).cuda_stream),
+        ("former: record_function enter/exit, no profiler",
+         with_record_function),
+        ("former: registry counter (f-string, lock, setdefault)",
+         former_counter),
+        ("former: device/shape checks and new[0].numel()", former_checks),
+        ("now: torch._C._cuda_getCurrentRawStream(0)",
+         lambda: torch._C._cuda_getCurrentRawStream(0)),
+        ("now: obs.trace enter/exit, no profiler", with_obs_trace),
+        ("now: registry counter .inc(2)",
+         lambda: obs.get_registry().counter(
+             "kernels.kv_slot_update.kernel_calls").inc(2)),
+        ("now: layer write checks (B = 0: no launch)",
+         lambda: cache_update.kv_slot_update_layer(
+             empty[0], empty[2], empty[1], empty[3], empty[4], empty[5],
+             window=0)),
+        ("now: the ctypes call alone (launch + cudaGetLastError)",
+         lambda: lib.kv_slot_update_layer(*args)),
+        ("now: the ctypes call with B = 0 (argument conversion only)",
+         lambda: lib.kv_slot_update_layer(*args[:10], 0, *args[11:])),
+        ("one tensor method: x.is_contiguous()", k.is_contiguous),
+        ("one tensor method: x.get_device()", k.get_device),
+        ("one tensor method: x.data_ptr()", k.data_ptr),
+        ("one tensor method: x.stride(0)", lambda: t.stride(0)),
+        ("one tensor method: x.shape != tuple",
+         lambda: kn.shape != (b, 1, 2, 128)),
+        ("one tensor method: x.dtype != torch.int32",
+         lambda: t.dtype != torch.int32),
+        ("nothing: an empty Python call", lambda: None),
+    ]
+    with obs.scoped():
+        res = {what: host_us(fn) for what, fn in pieces}
+    for what, us in res.items():
+        log(f"[numbers] host breakdown: {what}: {us:.2f} us")
+    # the wrapper's span under the profiler, beside the launch it holds
+    _, avgs = _profile(lambda: [ops_layer(k, kn, v, vn, spos, t, window=0)
+                                for _ in range(20)])
+    for e in avgs:
+        if e.key in ("kv_slot_update", "cudaLaunchKernel") and \
+                not str(e.device_type).endswith("CUDA"):
+            log(f"[numbers] host breakdown, 20 wrapper calls profiled: "
+                f"{e.key} x{e.count}: {e.cpu_time_total / e.count:.2f} us "
+                "each")
+    log(f"[numbers] host breakdown: whole reference-entry launcher "
+        f"{entry_host:.2f} us")
+    return res
+
+
+def _numbers_kv(out):
+    """The layer write at the serve shape (B = 4, K and V rows of 2 x 128
+    bf16, slot_pos [4, 512], per-row t): kernel per call, device and host
+    time, its bound, the plain version, three ``index_put_`` (K, V,
+    slot_pos) as the library yardstick, the wrapper's host time beside the
+    two-call design's host calls for the same writes, and the kernel's floor
+    (B = 1, one 16-byte row, through the reference's entry point)."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.kernels import cache_update, ops, ref
+    entry_host = _numbers_kv_entry()
+    _host_breakdown(entry_host)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    k, v, kn, vn, spos, t = _layer_inputs(g)
+    b, s = KV_STACK[1], KV_STACK[2]
+    row = kn[0].numel() * kn.element_size()
+    # each input read once (new K and V rows, t), each output written once
+    # (the K and V rows, one slot_pos entry per row)
+    bound, by = _bound_ms(4 * b * row + 4 * b + 4 * b, 0)
+
+    def call():
+        cache_update.kv_slot_update_layer(k, kn, v, vn, spos, t, window=0)
+
+    rows_idx = torch.arange(b, device="cuda")
+    t_l = t.long()
+
+    def lib_call():
+        k.index_put_((rows_idx, t_l), kn[:, 0])
+        v.index_put_((rows_idx, t_l), vn[:, 0])
+        spos.index_put_((rows_idx, t_l), t)
+
+    def wrapper_call():
+        ops.kv_slot_update_layer(k, kn, v, vn, spos, t, window=0)
+
+    def two_call_writes():
+        # the former gqa_decode writes of one layer, through the
+        # reference-entry wrapper: two kernel calls, arange, cast, index_put_
+        slot = t.contiguous()
+        ops.kv_slot_update(k, kn.contiguous(), slot)
+        ops.kv_slot_update(v, vn.contiguous(), slot)
+        spos[torch.arange(b, device="cuda"), slot.long()] = t
+
+    ms = cuda_time_ms(call)
+    plain = cuda_time_ms(lambda: ref.ref_kv_slot_update_layer(
+        k, kn, v, vn, spos, t, window=0))
+    lib = cuda_time_ms(lib_call)
+    dev_us, lib_dev = _device_pair_us(call, "kv_slot_update_kernel",
+                                      lib_call)
+    host = host_us(call)
+    with obs.scoped():
+        wrap_host = host_us(wrapper_call)
+        two_call_host = host_us(two_call_writes)
+        two_call_ms = cuda_time_ms(two_call_writes)
+        two_call_dev, two_call_names = _device_all_us(two_call_writes)
+    log(f"[numbers] kv_slot_update_layer K, V [4,512,2,128] bf16 + slot_pos "
+        f"[4,512] (serve shape): kernel {ms * 1e3:.2f} us per call (device "
+        f"{_us(dev_us)}, host {host:.2f} us to issue; through ops "
+        f"{wrap_host:.2f} us), plain {plain * 1e3:.2f} us, 3 x index_put_ "
+        f"{lib * 1e3:.2f} us per call (device {_us(lib_dev)}), bound "
+        f"{bound * 1e3:.4f} us ({by})")
+    log(f"[numbers] the two-call writes of one layer (2 x "
+        f"ops.kv_slot_update + arange + cast + index_put_): "
+        f"{two_call_ms * 1e3:.2f} us per call, host {two_call_host:.2f} us "
+        f"to issue, device {_us(two_call_dev)} over "
+        f"{[n[:60] for n in two_call_names]}")
+    c1, _, n1, _, _, p1 = _layer_inputs(g, b=1, s=8, tail=(8,))
+
+    def floor_call():
+        cache_update.kv_slot_update(c1, n1, p1)
+
+    floor_ms = cuda_time_ms(floor_call)
+    floor_dev = _device_us(floor_call, "kv_slot_update_kernel")
+    log(f"[numbers] kv_slot_update floor (B = 1, one 16-byte bf16 row): "
+        f"{floor_ms * 1e3:.2f} us per call (device {_us(floor_dev)}), bound "
+        f"{_bound_ms(16 + 16 + 4, 0)[0] * 1e3:.5f} us")
     out["kv_slot_update"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
                                  bound_by=by, library_ms=lib,
                                  library_device_us=lib_dev)
+
+
+def phase_numbers():
+    out = {}
+    shapes = list(MCA_CASES)
+    for m, r in SERVE_MR:
+        for f in (256, 3072):
+            if (m, 3072, f, r) not in shapes:
+                shapes.append((m, 3072, f, r))
+    for case in shapes:
+        nums = _numbers_fixed(case, plain_too=case in MCA_CASES)
+        if case == MCA_TIMED:
+            out["mca_matmul_fixed"] = nums
+    _numbers_fixed_cold(MCA_TIMED)
+    _numbers_kv(out)
     _numbers_ragged(out)
     _numbers_attention(out)
     return out

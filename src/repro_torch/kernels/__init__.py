@@ -5,7 +5,9 @@ Pallas TPU kernels, with their plain PyTorch versions for CPU tensors:
   mca_matmul_ragged  block-sampled matmul, per-row-tile R, csrc/mca_matmul.cu
   flash_attention    online-softmax forward + LSE, csrc/flash_attention.cu
   attn_colmax        Eq. 9 r-driver max_i A[i, j], csrc/attn_colmax.cu
-  kv_slot_update     per-row KV-cache write, csrc/kv_slot_update.cu
+  kv_slot_update     per-row KV-cache write, csrc/kv_slot_update.cu (its
+                     layer form, ops.kv_slot_update_layer, writes a decode
+                     layer's K, V and slot_pos in one launch)
 
 Not ported yet: the in-kernel telemetry buffer (see ROADMAP.md).
 """

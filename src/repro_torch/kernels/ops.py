@@ -20,7 +20,7 @@ ported yet.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -40,9 +40,14 @@ _LAUNCHERS = {"mca_matmul_fixed": _mca_mod.mca_matmul_fixed,
               "attn_colmax": _colmax_mod.attn_colmax}
 
 
-def _count(op: str, used_kernel: bool) -> None:
-    which = "kernel_calls" if used_kernel else "fallback_calls"
-    obs.get_registry().counter(f"kernels.{op}.{which}").inc()
+#: each op's (fallback_calls, kernel_calls) counter names, indexed by bool
+_COUNTERS = {op: (f"kernels.{op}.fallback_calls", f"kernels.{op}.kernel_calls")
+             for op in ("mca_matmul", "mca_matmul_ragged", "kv_slot_update",
+                        "flash_attention", "attn_colmax")}
+
+
+def _count(op: str, used_kernel: bool, n: int = 1) -> None:
+    obs.get_registry().counter(_COUNTERS[op][used_kernel]).inc(n)
 
 
 def mca_matmul(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
@@ -98,6 +103,38 @@ def kv_slot_update(cache: torch.Tensor, new: torch.Tensor,
     _count("kv_slot_update", True)
     with obs.trace("kv_slot_update"):
         return _cache_mod.kv_slot_update(cache, new, pos)
+
+
+def kv_slot_update_layer(k_cache: torch.Tensor, k_new: torch.Tensor,
+                         v_cache: torch.Tensor, v_new: torch.Tensor,
+                         slot_pos: Optional[torch.Tensor],
+                         t: Union[int, torch.Tensor], *, window: int) -> None:
+    """A decode layer's cache writes, in place, in one kernel launch::
+
+        slot[b] = t[b] % S if window > 0 else t[b]
+        k_cache[b, slot[b]] = k_new[b, 0];  v_cache[b, slot[b]] = v_new[b, 0]
+        slot_pos[b, slot[b]] = t[b]          (unless slot_pos is None)
+
+    k_cache, v_cache: [B, S, ...] (row widths may differ); k_new, v_new:
+    [B, 1, ...]; slot_pos: [B, S] int32 or None; t: an int, or an int32
+    tensor of shape [] or [B].  Rows whose slot falls outside [0, S) are
+    left alone.
+
+    Counting: ``kernels.kv_slot_update.kernel_calls`` (or
+    ``fallback_calls``) counts one per cache written, two per call, as
+    the reference's two ``kv_slot_update`` calls count; the launcher's
+    ``launch_counts()["kv_slot_update"]`` counts device launches, one per
+    call.
+    """
+    if k_cache.device.type == "cpu":
+        _count("kv_slot_update", False, 2)
+        _ref.ref_kv_slot_update_layer(k_cache, k_new, v_cache, v_new,
+                                      slot_pos, t, window=window)
+        return
+    _count("kv_slot_update", True, 2)
+    with obs.trace("kv_slot_update"):
+        _cache_mod.kv_slot_update_layer(k_cache, k_new, v_cache, v_new,
+                                        slot_pos, t, window=window)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -107,3 +107,27 @@ def ref_kv_slot_update(cache: torch.Tensor, new: torch.Tensor,
     b = cache.shape[0]
     cache[torch.arange(b, device=cache.device), pos.long()] = new[:, 0]
     return cache
+
+
+def ref_kv_slot_update_layer(k_cache: torch.Tensor, k_new: torch.Tensor,
+                             v_cache: torch.Tensor, v_new: torch.Tensor,
+                             slot_pos, t, *, window: int) -> None:
+    """A decode layer's writes, IN PLACE: ``slot = t % S`` under a window
+    (else ``t``), then ``k_cache[b, slot[b]] = k_new[b, 0]``, the same for
+    V, and ``slot_pos[b, slot[b]] = t[b]`` unless ``slot_pos`` is None.
+
+    t: an int, or an integer tensor of shape [] or [B].  Rows whose slot
+    falls outside [0, S) are skipped, as in the CUDA kernel.
+    """
+    b, s = k_cache.shape[0], k_cache.shape[1]
+    if b == 0 or s == 0:
+        return
+    t_vec = torch.as_tensor(t, dtype=torch.int32,
+                            device=k_cache.device).expand(b)
+    slot = (t_vec % s if window > 0 else t_vec).long()
+    keep = (slot >= 0) & (slot < s)
+    rows, slot = torch.arange(b, device=k_cache.device)[keep], slot[keep]
+    k_cache[rows, slot] = k_new[keep, 0]
+    v_cache[rows, slot] = v_new[keep, 0]
+    if slot_pos is not None:
+        slot_pos[rows, slot] = t_vec[keep]

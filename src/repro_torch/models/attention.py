@@ -338,8 +338,10 @@ def gqa_decode(p, cfg, x, cache, *, t, pos_off=None):
     """Single-token decode. x: [B, 1, d]; t: int, 0-d or [B] int32 tensor.
 
     A scalar ``t`` is lockstep decode (one shared position); a per-row
-    ``t`` is the per-slot path, where K/V land at per-row cache slots
-    through ``kernels.kv_slot_update``.  pos_off: optional [B] int32
+    ``t`` is the per-slot path, where K/V land at per-row cache slots.
+    One ``kernels.ops.kv_slot_update_layer`` call (one launch on the card)
+    writes the K and V rows and ``slot_pos``, the slot wrapped to
+    ``t % slots`` under a sliding window.  pos_off: optional [B] int32
     left-padding offsets (RoPE positions shift to t - pos_off[b], slots
     before a row's first real token are masked).
 
@@ -356,9 +358,10 @@ def gqa_decode(p, cfg, x, cache, *, t, pos_off=None):
     off = (torch.zeros((b,), dtype=torch.int32, device=dev)
            if pos_off is None else pos_off)
     if isinstance(t, torch.Tensor):
-        t_vec = t.to(torch.int32).expand(b)
+        t_vec = t_kv = t.to(torch.int32).expand(b)
     else:                                  # host int: a fill, not a copy
-        t_vec = torch.full((b,), int(t), dtype=torch.int32, device=dev)
+        t_kv = int(t)                      # the cache write takes the int
+        t_vec = torch.full((b,), t_kv, dtype=torch.int32, device=dev)
 
     q = _split_heads(x @ p["wq"], cfg.n_heads, dh)
     k1 = _split_heads(x @ p["wk"], hkv, dh)
@@ -370,11 +373,9 @@ def gqa_decode(p, cfg, x, cache, *, t, pos_off=None):
     q = apply_rope(q, posb, cfg.rope_theta, cfg.rotary_pct)
     k1 = apply_rope(k1, posb, cfg.rope_theta, cfg.rotary_pct)
 
-    slot = (t_vec % slots if cfg.window > 0 else t_vec).contiguous()
-    kc = kernel_ops.kv_slot_update(cache["k"], k1.contiguous(), slot)
-    vc = kernel_ops.kv_slot_update(cache["v"], v1.contiguous(), slot)
-    spos = cache["slot_pos"]
-    spos[torch.arange(b, device=dev), slot.long()] = t_vec
+    kc, vc, spos = cache["k"], cache["v"], cache["slot_pos"]
+    kernel_ops.kv_slot_update_layer(kc, k1.contiguous(), vc, v1.contiguous(),
+                                    spos, t_kv, window=cfg.window)
 
     qg = q.reshape(b, 1, hkv, g, dh)
     # slot_pos are per-row global (pre-offset) positions, so the rolling-

@@ -125,8 +125,13 @@ class Registry:
         self.spans_dropped = 0
 
     def counter(self, name: str) -> Counter:
-        with self._lock:
-            return self._counters.setdefault(name, Counter())
+        # a hot path (every kernel call counts): a dict read is atomic, so
+        # only the first access of a name takes the lock and builds a Counter
+        c = self._counters.get(name)
+        if c is None:
+            with self._lock:
+                c = self._counters.setdefault(name, Counter())
+        return c
 
     def gauge(self, name: str) -> Gauge:
         with self._lock:

@@ -2,15 +2,23 @@
 
 Port of ``repro/obs/trace.py``: ``jax.profiler.TraceAnnotation`` becomes
 ``torch.profiler.record_function``, which labels a region of host time in
-a ``torch.profiler`` trace (and costs one small object when no profiler
-is running).  PyTorch runs eagerly, so a span brackets the enqueue of the
-region's kernels; synchronise inside it to bracket their device time.
+a ``torch.profiler`` trace.  PyTorch runs eagerly, so a span brackets the
+enqueue of the region's kernels; synchronise inside it to bracket their
+device time.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 def trace(name: str):
-    """Context manager emitting a named profiler span."""
+    """Context manager emitting a named profiler span while a profiler
+    runs.  Without one it is a shared no-op: ``record_function`` costs
+    microseconds of host time even then, on every kernel call."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
     return torch.profiler.record_function(name)

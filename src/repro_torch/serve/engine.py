@@ -11,7 +11,7 @@ Port of ``repro/serve/engine.py``.  The engine wraps ``Model.prefill`` /
   splices its K/V pages and position state into the shared decode cache
   at a fixed slot index (``models.api.cache_insert_slot``), while decode
   writes each step's K/V at per-row positions through
-  ``kernels.kv_slot_update``.  Per-row position, max-new countdown and
+  ``kernels.ops.kv_slot_update_layer`` (one launch per layer).  Per-row position, max-new countdown and
   finite flags live on the device; a burst of ``check_every`` decode
   steps is a Python loop of device steps that never synchronises, and the
   host reads the burst's results once (as the reference's ``lax.scan``

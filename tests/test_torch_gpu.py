@@ -216,6 +216,136 @@ def test_kv_slot_update_kernel_bitwise(cuda, shape, layer):
     assert torch.equal(got_all, want_all)
 
 
+# (case, B, S, K row, V row, dtype, t, window, slot_pos, stack layer)
+LAYER_CASES = [
+    ("serve", 4, 512, (2, 128), (2, 128), "bfloat16", "rows", 0, True, None),
+    ("stack_layer_7", 4, 512, (2, 128), (2, 128), "bfloat16", "rows", 0,
+     True, 7),
+    ("scalar_t", 4, 512, (2, 128), (2, 128), "bfloat16", "scalar", 0, True,
+     None),
+    ("host_int_t", 4, 512, (2, 128), (2, 128), "bfloat16", "int", 0, True,
+     None),
+    ("wrap", 4, 64, (2, 128), (2, 128), "bfloat16", "wrap", 64, True, None),
+    ("kv_widths", 3, 40, (1, 576), (1, 64), "bfloat16", "rows", 0, False,
+     None),
+    ("unaligned", 3, 16, (3,), (5,), "float32", "rows", 0, True, None),
+    ("b1", 1, 512, (2, 128), (2, 128), "bfloat16", "rows", 0, True, None),
+    ("b1_one_16B_row", 1, 8, (8,), (8,), "bfloat16", "rows", 0, True, None),
+    ("b0", 0, 512, (2, 128), (2, 128), "bfloat16", "rows", 0, True, None),
+]
+
+
+def _layer_inputs(b, s, k_tail, v_tail, dtype, t_kind, layer, seed=0):
+    """Caches (a stack of 30 layers when ``layer`` is set), new rows,
+    slot_pos and t on the card, from a seed."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    lead = (30,) if layer is not None else ()
+
+    def rand(shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dt)
+
+    k, v = rand(lead + (b, s) + k_tail), rand(lead + (b, s) + v_tail)
+    kn, vn = rand((b, 1) + k_tail), rand((b, 1) + v_tail)
+    spos = torch.randint(-1, s, lead + (b, s), generator=g, device="cuda",
+                         dtype=torch.int32)
+    if t_kind == "int":
+        t = s // 3
+    elif t_kind == "scalar":
+        t = torch.tensor(s // 2, dtype=torch.int32, device="cuda")
+    elif t_kind == "wrap":
+        t = torch.randint(s, 4 * s, (b,), generator=g, device="cuda",
+                          dtype=torch.int32)
+    else:
+        t = torch.randint(0, s, (b,), generator=g, device="cuda",
+                          dtype=torch.int32)
+    return k, v, kn, vn, spos, t
+
+
+@pytest.mark.parametrize("case,b,s,k_tail,v_tail,dtype,t_kind,window,"
+                         "with_spos,layer", LAYER_CASES,
+                         ids=[c[0] for c in LAYER_CASES])
+def test_kv_slot_update_layer_kernel_bitwise(cuda, case, b, s, k_tail, v_tail,
+                                             dtype, t_kind, window, with_spos,
+                                             layer):
+    """The layer write is bitwise its plain version (K, V, slot_pos,
+    untouched rows and layers included), and each call launches once
+    (B = 0: no launch)."""
+    from repro_torch.kernels import cache_update, ops, ref
+    k, v, kn, vn, spos, t = _layer_inputs(b, s, k_tail, v_tail, dtype,
+                                          t_kind, layer)
+    got, want = [k.clone(), v.clone(), spos.clone()], [k, v, spos]
+
+    def layer_of(xs):
+        return [x if layer is None else x[layer] for x in xs]
+
+    gk, gv, gs = layer_of(got)
+    wk, wv, ws = layer_of(want)
+    ops.reset_launch_counts()
+    cache_update.kv_slot_update_layer(gk, kn, gv, vn,
+                                      gs if with_spos else None, t,
+                                      window=window)
+    assert ops.launch_counts()["kv_slot_update"] == (1 if b else 0)
+    ref.ref_kv_slot_update_layer(wk, kn, wv, vn, ws if with_spos else None,
+                                 t, window=window)
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_, w_)
+
+
+def test_kv_slot_update_layer_skips_out_of_range(cuda):
+    """A row whose slot falls outside [0, S) keeps its K, V and slot_pos
+    rows; the in-range rows are written."""
+    from repro_torch.kernels import cache_update
+    k, v, kn, vn, spos, _ = _layer_inputs(4, 64, (2, 128), (2, 64),
+                                          "bfloat16", "rows", None, seed=3)
+    t = torch.tensor([-1, 64, 200, 5], dtype=torch.int32, device="cuda")
+    gk, gv, gs = k.clone(), v.clone(), spos.clone()
+    cache_update.kv_slot_update_layer(gk, kn, gv, vn, gs, t, window=0)
+    torch.cuda.synchronize()
+    assert torch.equal(gk[:3], k[:3]) and torch.equal(gv[:3], v[:3])
+    assert torch.equal(gs[:3], spos[:3])
+    assert torch.equal(gk[3, 5], kn[3, 0]) and torch.equal(gv[3, 5], vn[3, 0])
+    assert int(gs[3, 5]) == 5
+
+
+def test_kv_slot_update_layer_is_deterministic(cuda):
+    """Three launches on the same inputs give bitwise equal caches."""
+    from repro_torch.kernels import cache_update
+    k, v, kn, vn, spos, t = _layer_inputs(4, 512, (2, 128), (2, 128),
+                                          "bfloat16", "rows", None, seed=5)
+    outs = []
+    for _ in range(3):
+        gk, gv, gs = k.clone(), v.clone(), spos.clone()
+        cache_update.kv_slot_update_layer(gk, kn, gv, vn, gs, t, window=0)
+        outs.append((gk, gv, gs))
+    torch.cuda.synchronize()
+    for o in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(o, outs[0]))
+
+
+def test_kv_slot_update_layer_refuses_bad_inputs(cuda):
+    """CPU/CUDA mixes, wrong dtypes and wrong shapes raise before any
+    launch."""
+    from repro_torch.kernels import ops
+    k, v, kn, vn, spos, t = _layer_inputs(4, 64, (2, 128), (2, 128),
+                                          "bfloat16", "rows", None, seed=7)
+    good = dict(k_cache=k, k_new=kn, v_cache=v, v_new=vn, slot_pos=spos, t=t)
+    bad = [dict(k_new=kn.cpu()), dict(v_cache=v.cpu()), dict(t=t.cpu()),
+           dict(slot_pos=spos.cpu()), dict(k_new=kn.float()),
+           dict(t=t.long()), dict(slot_pos=spos.long()),
+           dict(v_new=vn[:3]), dict(k_new=kn[:, :, :1]),
+           dict(slot_pos=spos[:, :32]), dict(t=torch.zeros(
+               5, dtype=torch.int32, device="cuda")),
+           dict(v_cache=v.transpose(0, 1).contiguous().transpose(0, 1)),
+           dict(t=2 ** 31)]
+    ops.reset_launch_counts()
+    for change in bad:
+        with pytest.raises(ValueError):
+            ops.kv_slot_update_layer(**{**good, **change}, window=0)
+    assert ops.launch_counts()["kv_slot_update"] == 0
+
+
 def test_wrappers_count_launches_and_refuse_bad_inputs(cuda):
     from repro_torch import obs
     from repro_torch.kernels import ops
@@ -487,3 +617,27 @@ def test_mca_serving_on_card_takes_the_kernels(cuda):
     assert ops.launch_counts()["mca_matmul_fixed"] == \
         c["kernels.mca_matmul.kernel_calls"]
 
+
+def test_full_width_decode_launches_once_per_layer(cuda):
+    """starcoder2-3b at full width (30 layers): each decode step launches
+    the layer write once per layer, and nothing falls back."""
+    from repro_torch import obs, serve
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    cfg = get_config("starcoder2-3b")
+    model = build_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    eng = serve.Engine(model, params, batch_size=2, max_len=64)
+    prompts = np.random.default_rng(0).integers(1, cfg.vocab_size, (2, 16))
+    max_new = 4
+    ops.reset_launch_counts()
+    with obs.scoped() as reg:
+        out = eng.generate(prompts, max_new)
+        torch.cuda.synchronize()
+        c = reg.snapshot()["counters"]
+    steps = max_new - 1
+    assert np.asarray(out).shape == (2, max_new)
+    assert ops.launch_counts()["kv_slot_update"] == cfg.n_layers * steps
+    assert c["kernels.kv_slot_update.kernel_calls"] == 2 * cfg.n_layers * steps
+    assert c.get("kernels.kv_slot_update.fallback_calls", 0) == 0

@@ -116,6 +116,74 @@ def test_kv_slot_update_layer_view_of_stacked_cache():
     np.testing.assert_array_equal(t_stack.numpy(), want)
 
 
+LAYER_CASES = ["per_row_t", "host_int_t", "window_wrap", "stacked_layer_1",
+               "kv_widths_no_slot_pos"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", LAYER_CASES)
+def test_kv_slot_update_layer_matches_reference_writes(case, dtype):
+    """The port's layer write (one call: K, V and slot_pos) is bitwise the
+    reference's three writes in gqa_decode: ``kv_slot_update`` on K and on
+    V (Pallas, interpret mode) and ``slot_pos.at[arange(b), slot].set(t)``
+    with ``slot = t % S`` under a window; untouched rows and layers
+    included.  It counts one fallback call per cache written."""
+    rng = np.random.default_rng(LAYER_CASES.index(case))
+    b, s = 3, 8
+    k_tail = (2, 16)
+    v_tail = (1, 8) if case == "kv_widths_no_slot_pos" else k_tail
+    lead = (3,) if case == "stacked_layer_1" else ()
+    k = rng.standard_normal(lead + (b, s) + k_tail).astype(np.float32)
+    v = rng.standard_normal(lead + (b, s) + v_tail).astype(np.float32)
+    kn = rng.standard_normal((b, 1) + k_tail).astype(np.float32)
+    vn = rng.standard_normal((b, 1) + v_tail).astype(np.float32)
+    spos = rng.integers(-1, 2 * s, lead + (b, s)).astype(np.int32)
+    window = s if case == "window_wrap" else 0
+    if case == "host_int_t":
+        t = 5
+        t_vec = np.full(b, t, np.int32)
+    elif case == "window_wrap":
+        t_vec = np.asarray([9, 17, 3], np.int32)          # >= S wraps
+        t = torch.from_numpy(t_vec)
+    else:
+        t_vec = rng.integers(0, s, b).astype(np.int32)
+        t = torch.from_numpy(t_vec)
+    slot = t_vec % s if window else t_vec
+    with_spos = case != "kv_widths_no_slot_pos"
+    jdt = getattr(jnp, dtype)
+
+    def ref_write(cache, new):
+        out = j_kv_slot_update(jnp.asarray(cache).astype(jdt),
+                               jnp.asarray(new).astype(jdt), jnp.asarray(slot))
+        return np.asarray(out.astype(jnp.float32))
+
+    def rounded(a):                          # the cache as stored in dtype
+        return np.array(jnp.asarray(a).astype(jdt).astype(jnp.float32))
+
+    want_k, want_v, want_sp = rounded(k), rounded(v), spos.copy()
+    layer = (1,) if lead else ()
+    want_k[layer] = ref_write(k[layer], kn)
+    want_v[layer] = ref_write(v[layer], vn)
+    want_sp[layer] = np.asarray(jnp.asarray(spos[layer]).at[
+        jnp.arange(b), jnp.asarray(slot)].set(jnp.asarray(t_vec)))
+
+    tdt = getattr(torch, dtype)
+    tk = torch.from_numpy(k).to(tdt)
+    tv = torch.from_numpy(v).to(tdt)
+    tsp = torch.from_numpy(spos.copy())
+    with obs.scoped() as reg:
+        ops.kv_slot_update_layer(
+            tk[layer], torch.from_numpy(kn).to(tdt), tv[layer],
+            torch.from_numpy(vn).to(tdt), tsp[layer] if with_spos else None,
+            t, window=window)
+        c = reg.snapshot()["counters"]
+    assert c == {"kernels.kv_slot_update.fallback_calls": 2.0}
+    np.testing.assert_array_equal(tk.float().numpy(), want_k)
+    np.testing.assert_array_equal(tv.float().numpy(), want_v)
+    np.testing.assert_array_equal(tsp.numpy(),
+                                  want_sp if with_spos else spos)
+
+
 def _ragged_inputs(m, d, f, block, m_tiles, rmax, seed, r_tile=None):
     """Seeded numpy inputs in the reference's form: per-tile sample lists
     drawn from block probabilities, weights 1 / (r_tile * p)."""
@@ -226,7 +294,7 @@ def test_cpu_tensors_never_launch():
 
 @pytest.mark.parametrize("launcher", ["mca_matmul", "kv_slot_update",
                                       "mca_matmul_ragged", "flash_attention",
-                                      "attn_colmax"])
+                                      "attn_colmax", "kv_slot_update_layer"])
 def test_kernel_launchers_refuse_cpu_tensors(launcher):
     """The CUDA launchers check their inputs before touching a pointer."""
     q = torch.zeros(1, 2, 64, 64)
@@ -244,6 +312,11 @@ def test_kernel_launchers_refuse_cpu_tensors(launcher):
             flash_attention(q, q, q, scale=1.0)
         elif launcher == "attn_colmax":
             attn_colmax(q, q, torch.zeros(1, 2, 64), scale=1.0)
+        elif launcher == "kv_slot_update_layer":
+            cache_update.kv_slot_update_layer(
+                torch.zeros(2, 4, 8), torch.ones(2, 1, 8),
+                torch.zeros(2, 4, 8), torch.ones(2, 1, 8),
+                torch.zeros(2, 4, dtype=torch.int32), 1, window=0)
         else:
             cache_update.kv_slot_update(
                 torch.zeros(2, 4, 8), torch.ones(2, 1, 8),
