@@ -64,6 +64,30 @@ Phases, each of which must pass:
              ``index_put_`` and the two-call writes of one layer,
              its floor (B = 1, one 16-byte row), and where the host time of
              one call goes (each piece of the issue path timed alone).
+8. train   — the training path (``repro_torch.launch.train``), after the
+             serve engine is gone:
+             (a) starcoder2-3b at full width (bf16, random weights from
+             seed 0) through the launcher's own objects: SyntheticLM
+             batch 8 x seq 256, AdamW lr 3e-4 with cosine_schedule(1, 4),
+             MCA on v_proj (alpha 0.2, block 128, use_kernel off), finite
+             checks on (so the step does not donate), 4 steps; every
+             loss and grad norm finite, grad norms > 0, every parameter
+             leaf changed by step 1, train.flops_reduction > 1, tier
+             occupancy = layers x tokens x steps; step time p50, peak
+             memory, wall time, and one more step under the profiler;
+             kernel launches, reset before and read after, all 0;
+             (b) a reduced f32 starcoder2-3b (2 layers, MCA off, TF32
+             off) takes 3 steps on the card and on the CPU from the same
+             params and batches: losses within 1e-5 relative, every
+             parameter leaf within 1e-4 of its max magnitude;
+             (c) kill inside step 5 of 8 (ckpt_every 2) and resume, on
+             the reduced config with deterministic algorithms on: params
+             and per-step losses as an uninterrupted run's (rtol 1e-5,
+             atol 1e-6); then one flipped byte in the newest arrays.npz
+             and restore_latest_valid falls back past it (directory under
+             build/, removed afterwards);
+             (d) a train step with use_kernel=True raises the wrappers'
+             no-backward error and launches nothing.
 
 Builds four sources (one ``nvcc`` each, in parallel).  Ends with a
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
@@ -73,6 +97,7 @@ prints no result) on any failure or without a card.
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -1249,11 +1274,305 @@ def phase_numbers():
     return out
 
 
+# ------------------------------------------------------------- phase 8
+TRAIN_ARGS = ["--arch", "starcoder2-3b", "--steps", "4", "--mca",
+              "--alpha", "0.2"]      # the launcher's batch 8, seq 256
+RESUME_DIR = ROOT / "build" / "train_resume"
+
+
+def _reduced_train(n_layers=2, **kw):
+    from repro_torch.configs import get_config
+    from repro_torch.models import reduced
+    return reduced(get_config("starcoder2-3b"), n_layers=n_layers, **kw)
+
+
+def _train_full_width():
+    """(a) starcoder2-3b at full width through ``launch.train``'s own
+    objects: 4 steps, MCA on v_proj, finite checks on (so no donation)."""
+    import gc
+    import torch
+    from repro_torch import obs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import named_leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    args = train.parse_args(TRAIN_ARGS)
+    with obs.scoped() as reg:
+        trainer = train.build(args)
+        cfg = trainer.model.cfg
+        n_params = sum(p.numel() for _, p in named_leaves(trainer.params))
+        torch.cuda.synchronize()
+        log(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {n_params / 1e9:.3f} B params ({cfg.dtype}), "
+            f"batch {args.batch} x seq {args.seq}, MCA {cfg.mca.sites} "
+            f"alpha {cfg.mca.alpha} block {cfg.mca.block} use_kernel "
+            f"{cfg.mca.use_kernel}; set up in {time.perf_counter() - t0:.1f}s")
+        inner, gnorms, changed = trainer.train_step, [], []
+
+        def step(params, opt_state, batch):
+            out = inner(params, opt_state, batch)
+            gnorms.append(out[2]["grad_norm"])
+            if not changed:         # step 1: the step is out of place
+                pairs = list(zip(named_leaves(params), named_leaves(out[0])))
+                changed.extend(name for (name, a), (_, b) in pairs
+                               if not torch.equal(a, b))
+                if len(changed) != len(pairs):
+                    raise AssertionError(
+                        f"step 1 left {len(pairs) - len(changed)} of "
+                        f"{len(pairs)} parameter leaves unchanged")
+            return out
+
+        trainer.train_step = step
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        out = trainer.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+        launches = ops.launch_counts()
+        snap = reg.snapshot()
+    wall = time.perf_counter() - t0
+    prof = _profile_train_step(trainer, inner)
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    norms = [float(g) for g in gnorms]
+    c = snap["counters"]
+    occ = [c.get(f"train.tier_occupancy.t{i}", 0) for i in range(4)]
+    red = snap["gauges"]["train.flops_reduction"]
+    step_s = snap["histograms"]["train.step_seconds"]
+    nums = {"steps": out["steps"], "losses": losses, "grad_norms": norms,
+            "flops_reduction": red, "tier_occupancy": occ,
+            "step_p50_s": step_s["p50"], "step_s": [h["dt"] for h in hist],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "run_s": run_s, "wall_s": wall, "params": n_params,
+            "profiled_step": prof}
+    log("[train] full width: " + json.dumps(nums))
+    log(f"[train] every one of the {len(changed)} parameter leaves changed "
+        f"in step 1; statuses {[h['status'] for h in hist]}")
+    log(f"[train] kernel launches {launches}: all 0 - the launcher leaves "
+        "MCAConfig.use_kernel off (as the reference's does) and no kernel "
+        "has a backward, so training runs the plain PyTorch passes")
+    want_occ = cfg.n_layers * args.batch * args.seq * out["steps"]
+    if (out["steps"] != 4 or any(h["status"] != "ok" for h in hist)
+            or not all(map(math.isfinite, losses + norms))
+            or min(norms) <= 0 or not red > 1.0 or sum(occ) != want_occ
+            or any(launches.values())):
+        raise AssertionError(f"full-width training failed its checks "
+                             f"(tier occupancy {sum(occ)} != {want_occ}?)")
+    del trainer, inner, step
+    return nums
+
+
+def _profile_train_step(trainer, step):
+    """One more full-width step (the fifth batch) under the profiler:
+    wall, device busy time and share, launches, largest device items."""
+    import torch
+    batch = {k: torch.as_tensor(v, device=trainer.model.device)
+             for k, v in trainer.data.batch(4).items()}
+    wall, avgs = _profile(lambda: step(trainer.params, trainer.opt_state,
+                                       batch))
+    dev = _device_items(avgs)
+    busy = sum(e.self_device_time_total for e in dev) / 1e6
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    out = {"wall_s": wall, "device_busy_s": busy,
+           "device_busy_share": busy / wall,
+           "kernel_launches": sum(e.count for e in dev),
+           "top_device": [(e.key[:60], e.self_device_time_total / 1e3,
+                           e.count) for e in top]}
+    log(f"[train] one step under the profiler: wall {wall:.3f} s, device "
+        f"busy {busy:.3f} s ({100 * busy / wall:.1f}%), "
+        f"{out['kernel_launches']} kernel launches")
+    for key, ms, count in out["top_device"]:
+        log(f"[train]   device {ms:9.3f} ms  x{count:<6d} {key}")
+    return out
+
+
+def _train_steps(model, params, data, n, lr=3e-4):
+    """``n`` make_train_step steps (MCA off) from ``params``; returns
+    (losses, final params)."""
+    import torch
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+    opt = adamw.AdamWConfig(lr=lr, schedule=adamw.cosine_schedule(1, n))
+    step = make_train_step(model, opt, with_mca=False)
+    state = adamw.init_state(params)
+    losses = []
+    for i in range(n):
+        batch = {k: torch.as_tensor(v, device=model.device)
+                 for k, v in data.batch(i).items()}
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["total_loss"]))
+    return losses, params
+
+
+def _train_parity():
+    """(b) a reduced f32 starcoder2-3b trains on the card as on the CPU."""
+    import torch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import named_leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _reduced_train()
+    cpu = build_model(cfg, device="cpu")
+    params = cpu.init(0)
+    data = SyntheticLM(cfg.vocab_size, 64, 4, seed=0)
+    lc, pc = _train_steps(cpu, params, data, 3)
+    lg, pg = _train_steps(build_model(cfg, device="cuda"),
+                          _to_device(params, "cuda"), data, 3)
+    loss_rel = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
+    worst, worst_name = 0.0, ""
+    for (name, a), (_, b) in zip(named_leaves(pc), named_leaves(pg)):
+        rel = float((a - b.cpu()).abs().max() / a.abs().max())
+        if rel > worst:
+            worst, worst_name = rel, name
+    log(f"[train] parity (reduced f32, 2 layers, MCA off, 3 steps): losses "
+        f"cpu {lc} card {lg}, max rel diff {loss_rel:.2e} (limit 1e-5); "
+        f"params max|diff|/max|p| {worst:.2e} at {worst_name} (limit 1e-4)")
+    if not loss_rel <= 1e-5 or not worst <= 1e-4:
+        raise AssertionError("training on the card != on the CPU")
+    return {"loss_rel": loss_rel, "param_rel": worst}
+
+
+def _resume_run(ckpt_dir, total, fault=None):
+    from repro_torch import resilience
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import Trainer, TrainerConfig, make_train_step
+    cfg = _reduced_train()
+    model = build_model(cfg, device="cuda")
+    opt = adamw.AdamWConfig(lr=1e-3)
+    tcfg = TrainerConfig(total_steps=total, ckpt_dir=str(ckpt_dir),
+                         ckpt_every=2, log_every=100, watchdog_s=600)
+    tr = Trainer(model, opt, SyntheticLM(cfg.vocab_size, 64, 4, seed=0),
+                 make_train_step(model, opt), tcfg)
+    if fault is None:
+        return tr, tr.run()
+    with resilience.chaos(fault):
+        try:
+            tr.run()
+        except resilience.FaultInjected:
+            return tr, None
+    raise AssertionError("the injected fault did not stop the run")
+
+
+def _train_resume():
+    """(c) kill inside step 5 of 8 and resume; then a corrupt newest
+    checkpoint is walked past.  Reduced f32 config (2 layers): the
+    full-width state is 36 GB, too much to write to disk in a smoke run.
+    Deterministic algorithms are on for this part, so replay is exact."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.optim.adamw import named_leaves
+    from repro_torch.resilience import Fault
+    shutil.rmtree(RESUME_DIR, ignore_errors=True)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _resume_run(RESUME_DIR / "run", 8,
+                    Fault("train.step", mode="raise", after=4))
+        tr, out = _resume_run(RESUME_DIR / "run", 8)
+        start = tr.start_step
+        ref_tr, ref = _resume_run(RESUME_DIR / "ref", 8)
+        ref2_tr, _ = _resume_run(RESUME_DIR / "ref2", 8)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ref_params = ref_tr.params
+    d_res = _max_diff(tr.params, ref_params)
+    d_rep = _max_diff(ref2_tr.params, ref_params)
+    resumed = {h["step"]: h["loss"] for h in out["history"]}
+    loss_rel = max(abs(resumed[h["step"]] - h["loss"]) / abs(h["loss"])
+                   for h in ref["history"] if h["step"] in resumed)
+    ok_params = all(
+        np.allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=1e-5, atol=1e-6)
+        for (_, a), (_, b) in zip(named_leaves(tr.params),
+                                  named_leaves(ref_params)))
+    log(f"[train] resume: killed in step 5 of 8, restarted at step {start}, "
+        f"finished {out['steps']} steps; params max|diff| against an "
+        f"uninterrupted run {d_res:.3e} (rtol 1e-5, atol 1e-6), loss per "
+        f"step max rel diff {loss_rel:.2e} (1e-5); two uninterrupted runs "
+        f"differ by {d_rep:.3e}")
+    if start not in (2, 4) or out["steps"] != 8 - start or not ok_params \
+            or not loss_rel <= 1e-5:
+        raise AssertionError("kill-and-resume does not match an "
+                             "uninterrupted run")
+    newest = ckpt.latest_step(str(RESUME_DIR / "run"))
+    path = RESUME_DIR / "run" / f"step_{newest:08d}" / "arrays.npz"
+    raw = bytearray(path.read_bytes())
+    raw[len(raw) // 2] ^= 0x01                  # flip one byte
+    path.write_bytes(bytes(raw))
+    like = {"params": tr.params, "opt": tr.opt_state}
+    step, state = ckpt.restore_latest_valid(str(RESUME_DIR / "run"), like)
+    dev = {t.device.type for _, t in named_leaves(state["params"])}
+    log(f"[train] one byte of step {newest}'s arrays.npz flipped: "
+        f"restore_latest_valid fell back to step {step}, params on {dev}")
+    if step is None or step >= newest or dev != {"cuda"}:
+        raise AssertionError("restore_latest_valid did not fall back past "
+                             "the corrupt checkpoint")
+    shutil.rmtree(RESUME_DIR)
+    return {"restart_step": start, "param_max_diff": d_res,
+            "replay_max_diff": d_rep, "loss_rel": loss_rel}
+
+
+def _max_diff(a, b):
+    from repro_torch.optim.adamw import named_leaves
+    return max(float((x - y).abs().max()) for (_, x), (_, y) in
+               zip(named_leaves(a), named_leaves(b)))
+
+
+def _train_refusal():
+    """(d) a train step through a kernel (use_kernel=True) raises."""
+    import torch
+    from repro_torch.core.policy import MCAConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+    mca = MCAConfig(enabled=True, alpha=0.2, block=128, use_kernel=True,
+                    sites=("v_proj",))
+    cfg = _reduced_train(n_layers=1, vocab_size=128, d_model=256, n_heads=2,
+                         n_kv_heads=1, d_head=128, mca=mca)
+    model = build_model(cfg, device="cuda")
+    params = model.init(0)
+    step = make_train_step(model, adamw.AdamWConfig())
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+             SyntheticLM(128, 16, 2, seed=0).batch(0).items()}
+    ops.reset_launch_counts()
+    try:
+        step(params, adamw.init_state(params), batch)
+    except RuntimeError as e:
+        if "no backward kernel" not in str(e):
+            raise
+        log(f"[train] use_kernel=True step refused: {e}")
+    else:
+        raise AssertionError("a train step through the MCA kernel did not "
+                             "raise")
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"launched {ops.launch_counts()}")
+
+
+def phase_train():
+    """Phase 8: the training path on the card, parts (a)-(d)."""
+    t0 = time.perf_counter()
+    nums = _train_full_width()
+    nums["parity"] = _train_parity()
+    nums["resume"] = _train_resume()
+    _train_refusal()
+    nums["phase_s"] = time.perf_counter() - t0
+    return nums
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -1267,6 +1586,7 @@ def main() -> int:
     phase_profile(engine)
     del engine
     nums = phase_numbers()
+    train_nums = phase_train()
     meta = {
         "mca_matmul_fixed": ("src/repro_torch/csrc/mca_matmul.cu",
                              "src/repro/kernels/mca_matmul.py:84"),
@@ -1288,7 +1608,9 @@ def main() -> int:
                         "max_abs_err": errs[name], **nums[name]})
     for name in meta:
         log(f"[numbers] {name} launches {launches[name]} ({per[name]})")
-    log(json.dumps({"serve": serve_nums, "card": smi}))
+    log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f}s "
+        f"(phase 8: {train_nums['phase_s']:.1f}s)")
+    log(json.dumps({"serve": serve_nums, "train": train_nums, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolves through ARCHS.
 
 Port of ``repro/configs/__init__.py``, holding the architectures ported so
-far (starcoder2-3b, the serving model).  The others follow with their
-model families (ROADMAP.md).
+far: starcoder2-3b (the serving and training model) and bert-base (the
+paper's encoder).  The others follow with their model families
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import importlib
 
 ARCHS = {
     "starcoder2-3b": "starcoder2_3b",
+    "bert-base": "bert_base",
 }
 
 

@@ -17,7 +17,7 @@ differ from JAX's for the same seed; what does not depend on them
 """
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -112,3 +112,13 @@ def sampled_flops(r_blocks, f: int, block: int = DEFAULT_BLOCK):
     if isinstance(r_blocks, int):
         return 2 * r_blocks * block * f
     return torch.sum(2.0 * r_blocks.float() * block * f)
+
+
+def mc_matmul(key: int, x: torch.Tensor, w: torch.Tensor, r: int,
+              block: int = DEFAULT_BLOCK,
+              probs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Convenience: draw ``r`` blocks from ``key`` and estimate ``x @ w``."""
+    if probs is None:
+        probs = block_probs(w, block)
+    idx, inv_rp = draw_block_samples(generator(key, x.device), probs, r)
+    return sampled_matmul(x, w, idx, inv_rp, block)

@@ -121,6 +121,15 @@ def mca_project(key: Optional[int], x: torch.Tensor, w: torch.Tensor,
     return y, stats
 
 
+def merge_stats(stats_list) -> Stats:
+    """Aggregate FLOPs accounting across sites/layers."""
+    out = {"exact_flops": 0, "mca_flops": 0}
+    for s in stats_list:
+        out["exact_flops"] = out["exact_flops"] + s["exact_flops"]
+        out["mca_flops"] = out["mca_flops"] + s["mca_flops"]
+    return out
+
+
 def flops_reduction(stats: Stats):
     """The paper's headline metric: exact / MCA attention-encoding FLOPs."""
     mca = stats["mca_flops"]

@@ -58,3 +58,15 @@ def assign_tiers(r_blocks: torch.Tensor, ladder: Sequence[int]
     for rung in ladder:
         tier += (r > rung).to(torch.int32)
     return torch.clamp(tier, max=len(ladder) - 1)
+
+
+def importance_from_attention(attn: torch.Tensor) -> torch.Tensor:
+    """max_i A[..., i, j] reduced over query and head axes.
+
+    attn: [..., H, S_q, S_k] -> [..., S_k].  The materialized-A path;
+    ``kernels.attn_colmax`` computes the same from (q, k, lse).
+    """
+    col = torch.amax(attn, dim=-2)          # over queries
+    if col.dim() >= 2:
+        col = torch.amax(col, dim=-2)       # over heads
+    return col

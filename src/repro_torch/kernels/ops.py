@@ -17,6 +17,13 @@ kernel launchers also keep a plain integer ``launches`` count each
 (``launch_counts()``), which a run reads to show that its main path went
 through the kernels.  Device telemetry (``kernels.<op>.device_*``) is not
 ported yet.
+
+No kernel has a backward yet (the reference's Pallas kernels have none
+either).  A CUDA launch writes into a fresh tensor that autograd would
+see as a constant, so every wrapper refuses, on either device, to run
+while grad mode is on and an input it reads requires a gradient
+(:func:`_refuse_grad`): a loss taken through a kernel raises instead of
+silently training without the gradient that passes through it.
 """
 from __future__ import annotations
 
@@ -50,6 +57,17 @@ def _count(op: str, used_kernel: bool, n: int = 1) -> None:
     obs.get_registry().counter(_COUNTERS[op][used_kernel]).inc(n)
 
 
+def _refuse_grad(op: str, *inputs: Optional[torch.Tensor]) -> None:
+    """Raise if autograd would need a gradient through ``op``."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in inputs):
+        raise RuntimeError(
+            f"kernels.{op}: an input requires a gradient, but the port has "
+            "no backward kernel yet (ROADMAP.md); leave "
+            "MCAConfig.use_kernel off when training, or call under "
+            "torch.no_grad()")
+
+
 def mca_matmul(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
                inv_rp: torch.Tensor, *, block: int = 128, block_m: int = 128,
                block_f: int = 128) -> torch.Tensor:
@@ -57,6 +75,7 @@ def mca_matmul(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
 
     x: [m, d]; w: [d, f]; idx: [R] int32; inv_rp: [R] f32 -> [m, f].
     """
+    _refuse_grad("mca_matmul", x, w, inv_rp)
     if x.device.type == "cpu":
         _count("mca_matmul", False)
         return _ref.ref_mca_matmul_fixed(x, w, idx, inv_rp, block)
@@ -80,6 +99,7 @@ def mca_matmul_ragged(x: torch.Tensor, w: torch.Tensor, r_tile: torch.Tensor,
     if m_tiles == 0 or x.shape[0] % m_tiles:
         raise ValueError(f"x {tuple(x.shape)}: rows are not a multiple of "
                          f"{m_tiles} row tiles")
+    _refuse_grad("mca_matmul_ragged", x, w, inv_rp)
     if x.device.type == "cpu":
         _count("mca_matmul_ragged", False)
         return _ref.ref_mca_matmul_ragged(x, w, r_tile, idx, inv_rp, block)
@@ -97,6 +117,7 @@ def kv_slot_update(cache: torch.Tensor, new: torch.Tensor,
     int32.  Both paths write the caller's tensor and return it (the
     reference donates its buffer and returns the aliased output).
     """
+    _refuse_grad("kv_slot_update", cache, new)
     if cache.device.type == "cpu":
         _count("kv_slot_update", False)
         return _ref.ref_kv_slot_update(cache, new, pos)
@@ -126,6 +147,7 @@ def kv_slot_update_layer(k_cache: torch.Tensor, k_new: torch.Tensor,
     ``launch_counts()["kv_slot_update"]`` counts device launches, one per
     call.
     """
+    _refuse_grad("kv_slot_update", k_cache, k_new, v_cache, v_new)
     if k_cache.device.type == "cpu":
         _count("kv_slot_update", False, 2)
         _ref.ref_kv_slot_update_layer(k_cache, k_new, v_cache, v_new,
@@ -146,6 +168,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     [B, Hq, Sq, dh] in q.dtype, lse [B, Hq, Sq] f32.  Causal masking uses
     the diagonal offset ``skv - sq`` (suffix queries).
     """
+    _refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         _count("flash_attention", False)
         return _ref.ref_attention(q, k, v, scale=scale, causal=causal)
@@ -161,6 +184,7 @@ def attn_colmax(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor, *,
                 ) -> torch.Tensor:
     """Column max of A from (q, k, lse): [B, Hq, Skv] f32, or [B, Skv]
     reduced over heads (``reduce_heads``, the reference's default)."""
+    _refuse_grad("attn_colmax", q, k, lse)
     if q.device.type == "cpu":
         _count("attn_colmax", False)
         cm = _ref.ref_colmax(q, k, lse, scale=scale, causal=causal)

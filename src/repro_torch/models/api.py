@@ -1,18 +1,23 @@
-"""Top-level model API: build_model(cfg) -> Model(init/prefill/decode/...).
+"""Top-level model API: build_model(cfg) -> Model(init/loss/prefill/...).
 
 Port of the decoder-only LM path of ``repro/models/api.py`` (family
-``dense``, GQA attention).  Parameters are nested dicts of tensors that
-mirror the reference's pytree, except that ``params["layers"]`` is a list
-of per-layer dicts instead of ``[L, ...]``-stacked leaves
-(``convert.params_from_jax`` unstacks them).  The decode cache keeps the
-reference's layer-stacked layout: ``cache["layers"][name]`` is
-``[L, B, ...]`` and each layer works on the contiguous view ``[l]``.
+``dense``, GQA attention, optional absolute sinusoidal positions).
+Parameters are nested dicts of tensors that mirror the reference's
+pytree, except that ``params["layers"]`` is a list of per-layer dicts
+instead of ``[L, ...]``-stacked leaves (``convert.params_from_jax``
+unstacks them).  The decode cache keeps the reference's layer-stacked
+layout: ``cache["layers"][name]`` is ``[L, B, ...]`` and each layer works
+on the contiguous view ``[l]``.
 
 Decode and slot insertion update the cache IN PLACE and return it (the
-reference donates the cache buffers instead).
+reference donates the cache buffers instead); the loss path writes no
+tensor in place, so autograd can differentiate it.
 
-Not ported yet: the loss (``chunked_xent``, training slice), MoE / SSM /
-hybrid / VLM / encoder-decoder families, absolute sinusoidal positions.
+As in the reference, decode adds no position embedding (``_lm_decode``),
+so a sinusoidal model's decode does not match its forward (ROADMAP.md,
+Queue 3).
+
+Not ported yet: MoE / SSM / hybrid / VLM / encoder-decoder families.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import dataclasses
 from typing import Callable, Optional, Union
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.core.amm import fold_in
@@ -27,7 +33,7 @@ from . import attention as attn
 from . import ffn as ffn_mod
 from . import stack
 from .common import (apply_norm, dense_init, embed_tokens, init_embedding,
-                     init_norm)
+                     init_norm, sinusoidal_pos_emb)
 from .config import ModelConfig
 
 NEG_INF = -1e30
@@ -38,11 +44,53 @@ class Model:
     cfg: ModelConfig
     device: torch.device
     init: Callable          # (seed | Generator) -> params, on self.device
+    loss: Callable          # (params, batch, key|None) -> (loss, metrics)
     forward_hidden: Callable  # (params, batch, key|None) -> (x, aux, stats)
     prefill: Callable       # (params, batch, max_len, key|None)
                             #   -> (cache, hidden, stats)
     decode: Callable        # (params, tokens, cache, t) -> (logits, cache)
     init_cache: Callable    # (batch, max_len) -> cache
+
+
+# ------------------------------------------------------------------ loss
+def _xent_chunk(h_c, head, y_c, vocab_size: int):
+    """(sum of masked token losses, token count) of one sequence chunk."""
+    logits = torch.einsum("bcd,dv->bcv", h_c.float(), head.float())
+    ids = torch.arange(logits.shape[-1], device=logits.device)
+    logits = torch.where(ids < vocab_size, logits, NEG_INF)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, torch.clamp(y_c, min=0).long()[..., None]
+                      )[..., 0]
+    mask = (y_c >= 0).float()
+    return torch.sum((lse - ll) * mask), torch.sum(mask)
+
+
+def chunked_xent(hidden, head, labels, cfg):
+    """Sequence-chunked vocab-masked cross entropy.
+
+    hidden: [B, S, d]; head: [d, Vp]; labels: [B, S] int (-1 = ignore).
+    Keeps the [B, chunk, Vp] f32 logits bounded: under autograd each
+    chunk is recomputed in the backward (``torch.utils.checkpoint``, the
+    reference's ``jax.checkpoint``), so only one chunk's logits live at a
+    time.
+    """
+    s = hidden.shape[1]
+    chunk = attn.pick_chunk(s, cfg.logits_chunk)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    remat = torch.is_grad_enabled()
+    for c0 in range(0, s, chunk):
+        args = (hidden[:, c0:c0 + chunk], head, labels[:, c0:c0 + chunk],
+                cfg.vocab_size)
+        if remat:
+            t_c, n_c = torch.utils.checkpoint.checkpoint(
+                _xent_chunk, *args, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            t_c, n_c = _xent_chunk(*args)
+        tot = tot + t_c
+        cnt = cnt + n_c
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 # ------------------------------------------------------------------ head
@@ -87,7 +135,19 @@ def _init_lm(seed, cfg, device):
 
 
 def _lm_embed(params, cfg, batch):
-    return embed_tokens(params["embed"], batch["tokens"])
+    x = embed_tokens(params["embed"], batch["tokens"])
+    if cfg.add_sinusoidal_pos:
+        pe = sinusoidal_pos_emb(x.shape[1], cfg.d_model, x.dtype, x.device)
+        if "pos_offset" in batch:
+            # left-padded rows: the embedding index counts from the first
+            # real token (pad rows clip to index 0; they are masked later)
+            idx = torch.clamp(
+                torch.arange(x.shape[1], device=x.device)[None]
+                - batch["pos_offset"][:, None].long(), min=0)
+            x = x + pe[idx]
+        else:
+            x = x + pe[None]
+    return x
 
 
 def _lm_hidden(params, cfg, batch, mca_key=None):
@@ -97,6 +157,16 @@ def _lm_hidden(params, cfg, batch, mca_key=None):
                                         mca_key=mca_key,
                                         kind=stack.layer_kind(cfg))
     return apply_norm(params["final_norm"], cfg, x), aux, stats
+
+
+def _lm_loss(params, cfg, batch, mca_key=None):
+    hidden, aux, stats = _lm_hidden(params, cfg, batch, mca_key)
+    loss = chunked_xent(hidden, _head(params, cfg), batch["labels"], cfg)
+    metrics = {"loss": loss.detach(), "aux_loss": aux,
+               "mca_exact_flops": stats["exact_flops"],
+               "mca_flops": stats["mca_flops"],
+               "mca_tier_hist": stats["tier_hist"]}
+    return loss + aux, metrics
 
 
 # ----------------------------------------------------------- cache utils
@@ -210,8 +280,7 @@ def _lm_init_cache(cfg, batch, max_len, device):
 # ================================================================ factory
 def _check_supported(cfg: ModelConfig) -> None:
     if (cfg.family != "dense" or cfg.attn_type != "gqa"
-            or cfg.is_encoder_decoder or cfg.add_sinusoidal_pos
-            or cfg.frontend != "none"):
+            or cfg.is_encoder_decoder or cfg.frontend != "none"):
         raise NotImplementedError(
             f"{cfg.name}: only the dense decoder-only GQA family is ported "
             "so far (see ROADMAP.md)")
@@ -226,6 +295,7 @@ def build_model(cfg: ModelConfig,
         cfg=cfg,
         device=dev,
         init=lambda seed=0: _init_lm(seed, cfg, dev),
+        loss=lambda p, b, key=None: _lm_loss(p, cfg, b, key),
         forward_hidden=lambda p, b, key=None: _lm_hidden(p, cfg, b, key),
         prefill=lambda p, b, max_len, key=None: _lm_prefill(
             p, cfg, b, max_len, key),

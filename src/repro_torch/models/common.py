@@ -102,6 +102,19 @@ def embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:
     return params["table"][tokens.long()]
 
 
+def sinusoidal_pos_emb(s: int, d: int, dtype=torch.float32,
+                       device=None) -> torch.Tensor:
+    """[S, d] fixed sinusoidal embedding: sin of the first d/2 channels,
+    cos of the rest, angles computed in f32."""
+    half = d // 2
+    freq = torch.exp(-math.log(10_000.0)
+                     * torch.arange(half, dtype=torch.float32, device=device)
+                     / max(half - 1, 1))
+    ang = torch.arange(s, dtype=torch.float32, device=device)[:, None] \
+        * freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """tanh-approximate GeLU (``jax.nn.gelu(approximate=True)``)."""
     return F.gelu(x, approximate="tanh")

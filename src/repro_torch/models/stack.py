@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.amm import fold_in
 from . import attention as attn
@@ -69,11 +70,30 @@ def init_stack(g: torch.Generator, cfg, n_layers: int, kind: str, device):
 
 def stack_forward(params, cfg, x, *, pos, mca_key: Optional[int], kind: str,
                   causal=None, window=None):
-    """Loop over layers. Returns (x, aux, stats); aux is 0 (dense FFN)."""
+    """Loop over layers. Returns (x, aux, stats); aux is 0 (dense FFN).
+
+    Under autograd with ``cfg.remat`` each layer is recomputed in the
+    backward (``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint``), so only the layer inputs stay alive.  The
+    recompute draws the same MCA samples: they come from a generator
+    seeded from the layer's integer key, never from the global RNG, so
+    the RNG state is not stashed.
+    """
     stats = zero_carry_stats(cfg, x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i, p_l in enumerate(params):
         key_l = None if mca_key is None else fold_in(mca_key, i)
-        x, st, _ = layer_forward(p_l, cfg, x, pos=pos, mca_key=key_l,
-                                 kind=kind, causal=causal, window=window)
+
+        def run(xx, p_l=p_l, key_l=key_l):
+            out, st, _ = layer_forward(p_l, cfg, xx, pos=pos, mca_key=key_l,
+                                       kind=kind, causal=causal,
+                                       window=window)
+            return out, st
+
+        if remat:
+            x, st = torch.utils.checkpoint.checkpoint(
+                run, x, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, st = run(x)
         stats = add_stats(stats, st)
     return x, torch.zeros((), dtype=torch.float32, device=x.device), stats

@@ -6,19 +6,21 @@ annotations), with the reference's metric names.
 - spans: ``obs.record_span`` / ``obs.mark`` / ``obs.export_chrome_trace``
   when enabled with ``obs.enable_tracing()`` / ``obs.tracing()``;
 - profiler hooks: ``obs.trace("name")`` over
-  ``torch.profiler.record_function``.
+  ``torch.profiler.record_function``;
+- sink: ``obs.JsonlSink(path)`` appends structured JSON-lines records
+  (flushed per write; fsync on close), ``obs.read_jsonl`` reads them.
 
-Not ported yet: device telemetry (``devtel``), SPMD aggregation and the
-JSONL sink.
+Not ported yet: device telemetry (``devtel``) and SPMD aggregation.
 """
 from .registry import (Counter, Gauge, Histogram, Registry, get_registry,
                        scoped)
+from .sink import JsonlSink, read_jsonl
 from .trace import trace
 from .tracing import (enable_tracing, export_chrome_trace, mark, record_span,
                       tracing, tracing_enabled)
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "Registry", "get_registry", "scoped",
-    "trace", "enable_tracing", "tracing", "tracing_enabled",
-    "record_span", "mark", "export_chrome_trace",
+    "JsonlSink", "read_jsonl", "trace", "enable_tracing", "tracing",
+    "tracing_enabled", "record_span", "mark", "export_chrome_trace",
 ]

@@ -1,0 +1,201 @@
+"""AdamW with decoupled weight decay, global-norm clipping and microbatch
+gradient accumulation.
+
+Port of ``repro/optim/adamw.py``.  Trees are the port's params: nested
+dicts and lists of tensors.  ``apply_updates`` is out of place by default
+(new params and state; its inputs are left as they were, as the
+reference's pure function leaves them); ``donate=True`` writes the update
+into the caller's params and state instead, the counterpart of the
+reference's ``donate_argnums``.  Either way the tree is updated one leaf
+at a time, so the f32 temporaries of one leaf are all that the update
+adds to the state.
+
+``state["count"]`` is a 0-d int32 tensor, as in the reference, kept on
+the CPU (as ``torch.optim.AdamW`` keeps its step unless capturable): the
+step reads it as a host int, for the schedule, the bias corrections and
+the MCA key, without a device read.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.core.amm import fold_in
+
+#: leaf names that are not decayed: norms, biases and other 1-d params
+NO_DECAY = frozenset({"scale", "bias", "norm", "lam", "b_a", "b_i", "a_log",
+                      "d_skip", "dt_bias", "q_norm", "k_norm", "q_ln",
+                      "kv_ln", "conv_b"})
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    schedule: Optional[Callable] = None       # step -> lr multiplier
+
+
+def _decay_mask(name: str) -> bool:
+    """Decay matmul weights; skip norms/biases/1-d params (by leaf name)."""
+    return name not in NO_DECAY
+
+
+def tree_map(fn, *trees):
+    """Map ``fn`` over the leaves of equally shaped dict/list trees."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, (list, tuple)):
+        return type(t0)(tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+def named_leaves(tree, name: str = ""):
+    """Yield (leaf name, leaf) in tree order; a list entry keeps the name
+    of the key that holds the list."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from named_leaves(v, k)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from named_leaves(v, name)
+    else:
+        yield name, tree
+
+
+def leaves(tree):
+    return [leaf for _, leaf in named_leaves(tree)]
+
+
+def init_state(params):
+    zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                           device=p.device), params)
+    return {"m": zeros,
+            "v": tree_map(torch.clone, zeros),
+            "count": torch.zeros((), dtype=torch.int32)}
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in leaves(tree)))
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    return tree_map(lambda g: g.float() * scale, grads), norm
+
+
+def apply_updates(cfg: AdamWConfig, params, grads, state, *,
+                  donate: bool = False):
+    """One AdamW step. Returns (new_params, new_state, grad_norm).
+
+    The clip scale is folded into the per-leaf update rather than
+    materialized as a clipped f32 grad tree.  ``donate=True`` writes the
+    new values into ``params`` and ``state`` and returns them.
+    """
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
+                        max=1.0)
+    count = int(state["count"]) + 1
+    lr = cfg.lr * (float(cfg.schedule(count)) if cfg.schedule else 1.0)
+    b1c = 1.0 - cfg.b1 ** count
+    b2c = 1.0 - cfg.b2 ** count
+
+    def upd(name, p, g, m, v):
+        g = g.float() * scale
+        if not donate:
+            m, v = m.clone(), v.clone()
+        m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
+        v.mul_(cfg.b2).add_(g.square_().mul_(1 - cfg.b2))
+        del g
+        step = torch.div(m, b1c).div_(torch.div(v, b2c).sqrt_().add_(cfg.eps))
+        if cfg.weight_decay and _decay_mask(name):
+            step.add_(p.float() * cfg.weight_decay)
+        new_p = (p.float() - lr * step).to(p.dtype)
+        if donate:
+            p.copy_(new_p)
+            new_p = p
+        return new_p, m, v
+
+    out = [upd(n, p, g, m, v) for (n, p), g, m, v in zip(
+        named_leaves(params), leaves(grads), leaves(state["m"]),
+        leaves(state["v"]))]
+    new_params, new_m, new_v = (_unflatten(params, [o[i] for o in out])
+                                for i in range(3))
+    if donate:
+        state["count"].fill_(count)
+        new_count = state["count"]
+    else:
+        new_count = torch.tensor(count, dtype=torch.int32)
+    return new_params, {"m": new_m, "v": new_v, "count": new_count}, gnorm
+
+
+def _unflatten(like, flat):
+    it = iter(flat)
+    return tree_map(lambda _: next(it), like)
+
+
+def cosine_schedule(warmup: int, total: int, min_frac: float = 0.1):
+    """Linear warmup then cosine decay to ``min_frac``: step (an int) ->
+    lr multiplier."""
+    def fn(step):
+        step = float(step)
+        warm = min(step / max(warmup, 1), 1.0)
+        prog = min(max((step - warmup) / max(total - warmup, 1), 0.0), 1.0)
+        cos = min_frac + (1 - min_frac) * 0.5 * (1 + math.cos(math.pi * prog))
+        return warm * cos
+    return fn
+
+
+def value_and_grad(loss_fn, params, batch, key=None):
+    """((loss, metrics), grads) of ``loss_fn(params, batch, key)``.
+
+    The gradient is taken through detached aliases of the leaves, so the
+    caller's tensors are neither copied nor marked as requiring grad.
+    The loss comes back detached."""
+    flat = [p.detach().requires_grad_(p.is_floating_point())
+            for p in leaves(params)]
+    with torch.enable_grad():
+        loss, metrics = loss_fn(_unflatten(params, flat), batch, key)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(flat, grads)]
+    return (loss.detach(), metrics), _unflatten(params, grads)
+
+
+def accumulate_gradients(loss_fn, params, batch, n_micro: int, key=None):
+    """Split the batch into ``n_micro`` microbatches and accumulate their
+    gradients in f32 (the mean); returns the mean loss and the metrics of
+    the last microbatch.  Microbatch i draws its MCA samples from
+    ``fold_in(key, i)``.
+
+    loss_fn: (params, microbatch, key) -> (loss, metrics)."""
+    if n_micro == 1:
+        return value_and_grad(loss_fn, params, batch, key)
+    for k, x in batch.items():
+        if x.shape[0] % n_micro:
+            raise ValueError(f"batch[{k!r}] has {x.shape[0]} rows, not a "
+                             f"multiple of n_micro={n_micro}")
+    gsum = None
+    lsum = torch.zeros((), dtype=torch.float32)
+    for i in range(n_micro):
+        mb = {k: x.reshape(n_micro, x.shape[0] // n_micro, *x.shape[1:])[i]
+              for k, x in batch.items()}
+        k = None if key is None else fold_in(key, i)
+        (loss, metrics), g = value_and_grad(loss_fn, params, mb, k)
+        if gsum is None:
+            gsum = tree_map(lambda t: t.float(), g)
+            lsum = lsum.to(loss.device)
+        else:
+            tree_map(lambda a, b: a.add_(b.float()), gsum, g)
+        lsum = lsum + loss
+    grads = tree_map(lambda t: t / n_micro, gsum)
+    return (lsum / n_micro, metrics), grads

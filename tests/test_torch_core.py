@@ -295,3 +295,90 @@ def test_mca_project_mca_flops_int64_at_full_width():
                                 policy.MCAConfig(enabled=True), "o_proj")
     assert big["mca_flops"].dtype == torch.int64
     assert int(big["mca_flops"]) == want // 8 * d > 2 ** 31
+
+
+# ---------------------------------------------------------- error bounds
+def test_error_bound_functions_match_reference():
+    """Lemma 1, Theorem 2 (mean and tail), beta and ||W||_F equal the
+    reference's on the same inputs."""
+    from repro.core import error_bounds as j_eb
+    from repro_torch.core import error_bounds as eb
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((3, 16, 64)).astype(np.float32)
+    w = rng.standard_normal((64, 8)).astype(np.float32)
+    xn = np.linalg.norm(x[0], axis=-1).astype(np.float32)
+    r = np.arange(1, 17)
+    np.testing.assert_allclose(float(eb.w_fro(_t(w))),
+                               float(j_eb.w_fro(jnp.asarray(w))), rtol=1e-6)
+    np.testing.assert_allclose(eb.beta_of(_t(x)).numpy(),
+                               np.asarray(j_eb.beta_of(jnp.asarray(x))),
+                               rtol=1e-6)
+    wf = eb.w_fro(_t(w))
+    np.testing.assert_allclose(
+        eb.lemma1_bound(_t(xn), wf, _t(r)).numpy(),
+        np.asarray(j_eb.lemma1_bound(jnp.asarray(xn), j_eb.w_fro(
+            jnp.asarray(w)), jnp.asarray(r))), rtol=1e-6)
+    beta = eb.beta_of(_t(x[0]))
+    for delta in (0.5, 0.1, 0.01):
+        mean = float(eb.theorem2_mean_bound(0.4, beta, wf))
+        tail = float(eb.theorem2_tail_bound(0.4, beta, wf, delta))
+        np.testing.assert_allclose(tail, mean / delta, rtol=1e-6)
+    np.testing.assert_allclose(
+        mean, float(j_eb.theorem2_mean_bound(
+            0.4, j_eb.beta_of(jnp.asarray(x[0])),
+            j_eb.w_fro(jnp.asarray(w)))), rtol=1e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_theorem2_is_attention_weighted_lemma1_under_eq9(seed):
+    """Under the Eq. 9 schedule the attention-weighted Lemma-1 bounds sum
+    to alpha * beta * ||W||_F exactly (the reference's property test)."""
+    from repro_torch.core import error_bounds as eb
+    rng = np.random.default_rng(seed)
+    n, d, f, alpha = 32, 128, 16, 0.3
+    x = _t(rng.standard_normal((n, d)).astype(np.float32))
+    w = _t(rng.standard_normal((d, f)).astype(np.float32))
+    colmax = _t(rng.uniform(0.05, 1.0, n).astype(np.float32))
+    r = (n * colmax / alpha) ** 2
+    lhs = float(torch.sum(colmax * eb.lemma1_bound(
+        torch.linalg.vector_norm(x, dim=-1), eb.w_fro(w), r)))
+    rhs = float(eb.theorem2_mean_bound(alpha, eb.beta_of(x), eb.w_fro(w)))
+    np.testing.assert_allclose(lhs, rhs, rtol=1e-5)
+
+
+@pytest.mark.parametrize("r", [1, 3, 8])
+def test_mc_matmul_holds_lemma1_and_full_enumeration_is_exact(r):
+    """``mc_matmul``: the mean error over 128 keys stays within the
+    Lemma-1 bound (with the reference's 25% slack); enumerating every
+    block once with unit weights is the exact product."""
+    from repro_torch.core import error_bounds as eb
+    rng = np.random.default_rng(r)
+    block, kb, f, n = 16, 8, 12, 16
+    x = _t(rng.standard_normal((n, block * kb)).astype(np.float32))
+    w = _t(rng.standard_normal((block * kb, f)).astype(np.float32))
+    exact = x @ w
+    errs = torch.stack([torch.linalg.vector_norm(
+        amm.mc_matmul(k, x, w, r, block) - exact, dim=-1)
+        for k in range(128)])
+    bound = eb.lemma1_bound(torch.linalg.vector_norm(x, dim=-1),
+                            eb.w_fro(w), torch.full((n,), r))
+    assert bool(torch.all(errs.mean(0) <= 1.25 * bound))
+    full = amm.sampled_matmul(x, w, torch.arange(kb, dtype=torch.int32),
+                              torch.ones(kb), block)
+    torch.testing.assert_close(full, exact, rtol=1e-5, atol=1e-4)
+
+
+def test_importance_from_attention_and_merge_stats():
+    a = jax.nn.softmax(jax.random.normal(jax.random.PRNGKey(0),
+                                         (2, 4, 8, 8)), axis=-1)
+    col = schedule.importance_from_attention(_t(a))
+    assert tuple(col.shape) == (2, 8)
+    np.testing.assert_array_equal(
+        col.numpy(), np.asarray(j_schedule.importance_from_attention(a)))
+    np.testing.assert_allclose(col.numpy(), np.asarray(a).max(axis=(1, 2)),
+                               rtol=1e-6)
+    stats = [{"exact_flops": 100, "mca_flops": 40},
+             {"exact_flops": 50, "mca_flops": 10}]
+    assert policy.merge_stats(stats) == j_policy.merge_stats(stats) == {
+        "exact_flops": 150, "mca_flops": 50}
+    assert policy.flops_reduction(policy.merge_stats(stats)) == 3.0

@@ -641,3 +641,148 @@ def test_full_width_decode_launches_once_per_layer(cuda):
     assert ops.launch_counts()["kv_slot_update"] == cfg.n_layers * steps
     assert c["kernels.kv_slot_update.kernel_calls"] == 2 * cfg.n_layers * steps
     assert c.get("kernels.kv_slot_update.fallback_calls", 0) == 0
+
+
+# --------------------------------------------------------------- training
+def _train_model(device, **kw):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, reduced
+    return build_model(reduced(get_config("starcoder2-3b"), n_layers=2,
+                               vocab_size=128, **kw), device=device)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _steps(model, params, n, donate=False):
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+    opt = adamw.AdamWConfig(lr=3e-4, schedule=adamw.cosine_schedule(1, n))
+    step = make_train_step(model, opt, with_mca=False, donate=donate)
+    state = adamw.init_state(params)
+    data = SyntheticLM(128, 32, 4, seed=0)
+    losses = []
+    for i in range(n):
+        batch = {k: torch.as_tensor(v, device=model.device)
+                 for k, v in data.batch(i).items()}
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["total_loss"]))
+    return losses, params, state
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """Reduced starcoder2-3b (f32, MCA off, TF32 off): three steps on the
+    card give the CPU's losses within 1e-5 relative and its params within
+    1e-4 of each leaf's max magnitude."""
+    from repro_torch.optim.adamw import named_leaves
+    cpu = _train_model("cpu")
+    params = cpu.init(0)
+    lc, pc, _ = _steps(cpu, params, 3)
+    lg, pg, sg = _steps(_train_model("cuda"), _to(params, "cuda"), 3)
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    for (name, a), (_, b) in zip(named_leaves(pc), named_leaves(pg)):
+        assert b.device.type == "cuda"
+        tol = 1e-4 * float(a.abs().max())
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=0,
+                                   atol=tol, err_msg=name)
+    assert sg["count"].device.type == "cpu" and int(sg["count"]) == 3
+
+
+def test_donated_step_equals_out_of_place_on_card(cuda):
+    from repro_torch.optim.adamw import named_leaves
+    model = _train_model("cuda")
+    params = model.init(0)
+    _, p_out, _ = _steps(model, _to(params, "cuda"), 2)
+    p_in = _to(params, "cuda")
+    _, p_don, _ = _steps(model, p_in, 2, donate=True)
+    assert p_don["layers"][1]["ffn"]["w_up"] is p_in["layers"][1]["ffn"][
+        "w_up"]
+    for (name, a), (_, b) in zip(named_leaves(p_out), named_leaves(p_don)):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("op", ["mca_matmul", "mca_matmul_ragged",
+                                "flash_attention", "attn_colmax",
+                                "kv_slot_update", "kv_slot_update_layer"])
+def test_wrappers_refuse_gradient_on_card(cuda, op):
+    """On CUDA tensors too, a wrapper raises instead of launching when
+    an input requires a gradient, and launches nothing."""
+    from repro_torch.kernels import ops
+    x = torch.randn(128, 256, device="cuda", dtype=torch.bfloat16)
+    w = torch.randn(256, 128, device="cuda", dtype=torch.bfloat16,
+                    requires_grad=True)
+    idx = torch.zeros(2, dtype=torch.int32, device="cuda")
+    q = torch.randn(1, 2, 64, 64, device="cuda", dtype=torch.bfloat16,
+                    requires_grad=True)
+    cache = torch.zeros(2, 4, 8, device="cuda")
+    new = torch.ones(2, 1, 8, device="cuda", requires_grad=True)
+    calls = {
+        "mca_matmul": lambda: ops.mca_matmul(
+            x, w, idx, torch.ones(2, device="cuda")),
+        "mca_matmul_ragged": lambda: ops.mca_matmul_ragged(
+            x, w, torch.ones(1, dtype=torch.int32, device="cuda"),
+            idx[None], torch.ones(1, 2, device="cuda")),
+        "flash_attention": lambda: ops.flash_attention(q, q, q, scale=0.1),
+        "attn_colmax": lambda: ops.attn_colmax(
+            q, q, torch.zeros(1, 2, 64, device="cuda"), scale=0.1),
+        "kv_slot_update": lambda: ops.kv_slot_update(
+            cache, new, torch.zeros(2, dtype=torch.int32, device="cuda")),
+        "kv_slot_update_layer": lambda: ops.kv_slot_update_layer(
+            cache, new, cache.clone(), new.detach(), None, 1, window=0)}
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        calls[op]()
+    assert not any(ops.launch_counts().values())
+
+
+def test_train_step_through_kernel_refuses_on_card(cuda):
+    from repro_torch.core.policy import MCAConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+    mca = MCAConfig(enabled=True, alpha=0.2, block=128, use_kernel=True,
+                    sites=("v_proj",))
+    model = _train_model("cuda", d_model=256, n_heads=2, n_kv_heads=1,
+                         d_head=128, mca=mca)
+    params = model.init(0)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in SyntheticLM(128, 16, 2, seed=0).batch(0).items()}
+    with pytest.raises(RuntimeError, match="kernels.mca_matmul"):
+        make_train_step(model, adamw.AdamWConfig())(
+            params, adamw.init_state(params), batch)
+
+
+def test_trainer_restores_checkpoint_onto_card(cuda, tmp_path):
+    """A Trainer on the card resumes from its checkpoint directory: the
+    restored params and moments are on the card, the count on the host."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import named_leaves
+    from repro_torch.train import Trainer, TrainerConfig, make_train_step
+    model = _train_model("cuda")
+    opt = adamw.AdamWConfig(lr=1e-3)
+
+    def trainer(total):
+        return Trainer(model, opt, SyntheticLM(128, 16, 2, seed=0),
+                       make_train_step(model, opt),
+                       TrainerConfig(total_steps=total,
+                                     ckpt_dir=str(tmp_path), ckpt_every=2,
+                                     log_every=100))
+
+    first = trainer(4)
+    first.run()
+    again = trainer(6)
+    assert again.start_step == 4 and int(again.opt_state["count"]) == 4
+    for (name, a), (_, b) in zip(
+            named_leaves({"p": first.params, "o": first.opt_state}),
+            named_leaves({"p": again.params, "o": again.opt_state})):
+        assert a.device == b.device and torch.equal(a, b), name
+    assert {t.device.type for _, t in named_leaves(again.params)} == {"cuda"}
+    assert again.opt_state["count"].device.type == "cpu"
+    assert again.run()["steps"] == 2

@@ -334,3 +334,61 @@ def test_build_layout_and_missing_toolkit(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "DEFAULT_NVCC", str(tmp_path / "nvcc"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
+
+
+def _wrapper_call(op, grad_arg):
+    """One call of an ``ops`` wrapper with input ``grad_arg`` requiring
+    a gradient; returns a thunk."""
+    x = torch.randn(128, 256)
+    w = torch.randn(256, 8)
+    idx = torch.zeros(2, dtype=torch.int32)
+    q = torch.randn(1, 2, 64, 32)
+    lse = torch.zeros(1, 2, 64)
+    cache, new = torch.zeros(2, 4, 8), torch.ones(2, 1, 8)
+    args = {"mca_matmul": dict(x=x, w=w, inv_rp=torch.ones(2)),
+            "mca_matmul_ragged": dict(x=x, w=w, inv_rp=torch.ones(1, 2)),
+            "flash_attention": dict(q=q, k=q.clone(), v=q.clone()),
+            "attn_colmax": dict(q=q, k=q.clone(), lse=lse),
+            "kv_slot_update": dict(cache=cache, new=new),
+            "kv_slot_update_layer": dict(k_new=new, v_new=new.clone(),
+                                         k_cache=cache,
+                                         v_cache=cache.clone())}[op]
+    args[grad_arg] = args[grad_arg].clone().requires_grad_(True)
+    a = args
+    calls = {
+        "mca_matmul": lambda: ops.mca_matmul(a["x"], a["w"], idx,
+                                             a["inv_rp"]),
+        "mca_matmul_ragged": lambda: ops.mca_matmul_ragged(
+            a["x"], a["w"], torch.ones(1, dtype=torch.int32),
+            idx[None], a["inv_rp"]),
+        "flash_attention": lambda: ops.flash_attention(
+            a["q"], a["k"], a["v"], scale=0.2),
+        "attn_colmax": lambda: ops.attn_colmax(a["q"], a["k"], a["lse"],
+                                               scale=0.2),
+        "kv_slot_update": lambda: ops.kv_slot_update(
+            a["cache"], a["new"], torch.zeros(2, dtype=torch.int32)),
+        "kv_slot_update_layer": lambda: ops.kv_slot_update_layer(
+            a["k_cache"], a["k_new"], a["v_cache"], a["v_new"], None, 1,
+            window=0)}
+    return calls[op]
+
+
+GRAD_CASES = [("mca_matmul", "x"), ("mca_matmul", "w"),
+              ("mca_matmul", "inv_rp"), ("mca_matmul_ragged", "x"),
+              ("mca_matmul_ragged", "w"), ("flash_attention", "q"),
+              ("flash_attention", "v"), ("attn_colmax", "k"),
+              ("kv_slot_update", "new"), ("kv_slot_update_layer", "v_new")]
+
+
+@pytest.mark.parametrize("op,grad_arg", GRAD_CASES)
+def test_wrappers_refuse_to_drop_a_gradient(op, grad_arg):
+    """No kernel has a backward: with grad on and an input that requires
+    a gradient, every wrapper raises, on the CPU as on the card, naming
+    the op; without grad mode the same call runs its plain version."""
+    call = _wrapper_call(op, grad_arg)
+    name = "kv_slot_update" if op.startswith("kv_") else op
+    with pytest.raises(RuntimeError, match=rf"kernels\.{name}: .*no "
+                                           r"backward kernel"):
+        call()
+    with torch.no_grad():
+        call()

@@ -22,12 +22,14 @@ from _torch_parity import (assert_routing_margins, model_pair,  # noqa: E402
 from repro import obs as jobs  # noqa: E402
 from repro.core.policy import MCAConfig as JMCAConfig  # noqa: E402
 from repro.models import attention as j_attn  # noqa: E402
+from repro.models import api as j_api  # noqa: E402
 from repro.models import common as j_common  # noqa: E402
 from repro.models.api import cache_insert_slot as j_insert  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core.policy import MCAConfig  # noqa: E402
+from repro_torch.models import api  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import build_model, common, reduced  # noqa: E402
 from repro_torch.models.api import cache_insert_slot  # noqa: E402
@@ -345,3 +347,75 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
     assert build_model(cfg, device="cpu").device.type == "cpu"
     with pytest.raises(NotImplementedError):
         build_model(cfg.replace(family="moe"), device="cpu")
+
+
+# -------------------------------------------- sinusoidal / bert-base
+def _pe_tol(s):
+    """The two packages' f32 ``exp`` differ by an ulp on some frequencies
+    (<= 1); position p multiplies that, so angles differ by up to
+    (s - 1) ulps of 1."""
+    return 2 * s * 2.0 ** -24
+
+
+@pytest.mark.parametrize("s,d", [(16, 128), (64, 768), (7, 3)])
+def test_sinusoidal_pos_emb_matches(s, d):
+    _close(common.sinusoidal_pos_emb(s, d),
+           j_common.sinusoidal_pos_emb(s, d), atol=_pe_tol(s))
+
+
+@pytest.fixture(scope="module")
+def bert_pair():
+    """bert-base at full width (d 768, 12 heads of 64, d_ff 3072, vocab
+    30522, f32), random weights, MCA off.  Depth is cut to 2 of its 12
+    layers to keep the CPU time low; every layer is the same code."""
+    from repro.configs import get_config as j_get_config
+    from repro.models import build_model as j_build_model
+    jcfg = j_get_config("bert-base", dtype="float32", n_layers=2)
+    tcfg = get_config("bert-base", dtype="float32", n_layers=2)
+    assert (tcfg.d_model, tcfg.n_heads, tcfg.d_ff, tcfg.vocab_size) == (
+        768, 12, 3072, 30522)
+    jm = j_build_model(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tm = build_model(tcfg, device="cpu")
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    return jm, jp, tm, tp
+
+
+def test_bert_base_forward_hidden_matches(bert_pair):
+    """Bidirectional, sinusoidal positions, tied embeddings: the hidden
+    states equal the reference's within 1e-4, with and without left
+    padding offsets (``pos_offset``)."""
+    jm, jp, tm, tp = bert_pair
+    toks = np.random.default_rng(0).integers(0, 30522, (2, 24)
+                                             ).astype(np.int32)
+    off = np.asarray([0, 5], np.int32)
+    for extra in ({}, {"pos_offset": off}):
+        jb = {"tokens": jnp.asarray(toks),
+              **{k: jnp.asarray(v) for k, v in extra.items()}}
+        tb = {"tokens": _t(toks), **{k: _t(v) for k, v in extra.items()}}
+        jh, _, _ = jm.forward_hidden(jp, jb)
+        th, _, _ = tm.forward_hidden(tp, tb)
+        _close(th, jh, atol=1e-4)
+    jx = j_api._lm_embed(jp, jm.cfg, {"tokens": jnp.asarray(toks),
+                                      "pos_offset": jnp.asarray(off)})
+    tx = api._lm_embed(tp, tm.cfg, {"tokens": _t(toks),
+                                    "pos_offset": _t(off)})
+    _close(tx, jx, atol=_pe_tol(24))
+    pe = common.sinusoidal_pos_emb(24, 768)
+    table = tp["embed"]["table"][_t(toks).long()]
+    _close(tx[1, 5:], table[1, 5:] + pe[:19], atol=1e-6)
+    _close(tx[1, :5], table[1, :5] + pe[0], atol=1e-6)
+
+
+def test_bert_decode_adds_no_position_like_the_reference(bert_pair):
+    """The reference's decode adds no position embedding (so a
+    sinusoidal model's decode differs from its forward); the port mirrors
+    it, and decode logits agree."""
+    jm, jp, tm, tp = bert_pair
+    toks = np.random.default_rng(1).integers(0, 30522, (1, 6)
+                                             ).astype(np.int32)
+    jc, _, _ = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :5])}, 8)
+    tc, _, _ = tm.prefill(tp, {"tokens": _t(toks[:, :5])}, 8)
+    jl, _ = jm.decode(jp, jnp.asarray(toks[:, 5:]), jc, 5)
+    tl, _ = tm.decode(tp, _t(toks[:, 5:]), tc, 5)
+    _close(tl, jl, atol=1e-4)
