@@ -18,7 +18,12 @@ Phases, each of which must pass:
              taken in another order), ``kv_slot_update`` bitwise,
              untouched rows included, both its entry point (one cache) and
              its layer write (K, V and slot_pos in one launch: per-row t,
-             a host-int t, a window's wrap, layer 7 of the stacked cache);
+             a host-int t, a window's wrap, layer 7 of the stacked cache;
+             phase 9's rows: olmoe-1b-7b's K and V of 16 x 128 with
+             slot_pos, minicpm3-4b's ckv (256) and kr (32) with no
+             slot_pos, each with a per-row and a host-int t); the MCA
+             matmul also at phase 9's widths (d = f = 2048 at R = 1, 2, 4;
+             d = f = 2560 at R = 4; d 256, f 2560 at R = 1);
              ``flash_attention`` out within 2e-2
              of max|out| in bf16 (P is rounded to bf16 for PV) and 2e-4 in
              f32, lse within 1e-3, ``attn_colmax`` within 1e-3, at
@@ -29,7 +34,8 @@ Phases, each of which must pass:
              of 1, one query, and one f32 shape; an empty side (skv 0:
              out 0, lse -1e30; sq 0: colmax 0).
 4. parity  — a reduced starcoder2-3b (f32, 2 layers) served on the card
-             gives the same tokens as on the CPU and logits within 1e-4.
+             gives the same tokens as on the CPU (and again in a second
+             card run), hidden states and logits within 1e-4.
 5. serve   — starcoder2-3b at full width (30 layers, d_model 3072, bf16,
              random weights from a seed) with MCA on
              (alpha=0.2, block=128, use_kernel=True) through both batchers;
@@ -63,7 +69,10 @@ Phases, each of which must pass:
              point), its layer write at the serve shape beside three
              ``index_put_`` and the two-call writes of one layer,
              its floor (B = 1, one 16-byte row), and where the host time of
-             one call goes (each piece of the issue path timed alone).
+             one call goes (each piece of the issue path timed alone);
+             phase 9's shapes: ``FAMILY_MCA_TIMED`` and the MLA layer write
+             (ckv and kr of minicpm3-4b's decode, two ``index_put_`` as
+             its library yardstick).
 8. train   — the training path (``repro_torch.launch.train``), after the
              serve engine is gone:
              (a) starcoder2-3b at full width (bf16, random weights from
@@ -88,6 +97,21 @@ Phases, each of which must pass:
              build/, removed afterwards);
              (d) a train step with use_kernel=True raises the wrappers'
              no-backward error and launches nothing.
+9. families — the MoE and MLA families, after the train phase (nothing
+             else resident): (a) reduced olmoe-1b-7b and minicpm3-4b as in
+             phase 4; (b) olmoe-1b-7b then minicpm3-4b at full width (depth
+             not cut, bf16, random weights from seed 0), MCA on (alpha
+             0.2, block 128, use_kernel; olmoe's sites v_proj, o_proj and
+             expert_ffn, minicpm3's v_proj and o_proj), Engine(batch 4,
+             max_len 512): a SlotBatcher serves 6 requests (prompts
+             16..200, 16 new tokens), then a ContinuousBatcher 4; every
+             request ends ok, kv_slot_update launches once per layer per
+             decode step, mca_matmul_fixed launches equal
+             ``kernels.mca_matmul.kernel_calls`` and the count the
+             routing of those prefills gives, every fallback count is 0,
+             flops_reduction > 1; two generations of the same prompts give
+             the same tokens; prefill and decode p50, tokens/s, peak
+             memory, wall time and one profiled prefill and decode burst.
 
 Builds four sources (one ``nvcc`` each, in parallel).  Ends with a
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
@@ -110,6 +134,13 @@ BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor-core peak
 MCA_CASES = [(64, 3072, 256, 1), (128, 3072, 256, 4), (24, 3072, 3072, 2),
              (128, 3072, 3072, 4), (256, 3072, 3072, 4)]
 MCA_TIMED = (128, 3072, 3072, 4)  # o_proj: 128 rows at the 4-block rung
+# phase 9's shapes: olmoe-1b-7b v_proj/o_proj (d = f = 2048, K = 16),
+# minicpm3-4b o_proj (d = f = 2560, K = 20) and w_uv (d 256, f 2560: K = 2,
+# so only R = 1 is sampled)
+FAMILY_MCA_CASES = [(128, 2048, 2048, 1), (128, 2048, 2048, 2),
+                    (128, 2048, 2048, 4), (128, 2560, 2560, 4),
+                    (128, 256, 2560, 1)]
+FAMILY_MCA_TIMED = [(128, 2048, 2048, 4), (128, 256, 2560, 1)]
 # (m, R) of every sampled tier of the serve path: a prefill bucket of n
 # tokens (16..256) fills the 1-, 2- and 4-block tiers up to n, n/2, 3n/8
 SERVE_MR = [(6, 4), (8, 2), (12, 4), (16, 1), (16, 2), (24, 4), (32, 1),
@@ -135,6 +166,8 @@ SERVE_KERNELS = ("mca_matmul_fixed", "kv_slot_update")
 ENTRY_KERNELS = ("flash_attention", "attn_colmax", "mca_matmul_ragged")
 KV_SHAPE = (4, 512, 256)          # one layer's K (or V) cache, flattened
 KV_STACK = (30, 4, 512, 2, 128)   # layer-stacked cache of the serve path
+OLMOE_KV_TAIL = (16, 128)         # olmoe-1b-7b: a K or V row of 4 KB
+MLA_TAILS = ((256,), (32,))       # minicpm3-4b: ckv and kr rows, no slot_pos
 
 
 def log(msg: str) -> None:
@@ -213,7 +246,7 @@ def phase_kernels():
     from repro_torch.kernels import cache_update, ref
     from repro_torch.kernels.mca_matmul import mca_matmul_fixed
     errs = {"mca_matmul_fixed": 0.0, "kv_slot_update": 0.0}
-    cases = [(c, "sampled") for c in MCA_CASES] + [
+    cases = [(c, "sampled") for c in MCA_CASES + FAMILY_MCA_CASES] + [
         ((128, 3072, 3072, 24), "exact")]
     for (m, d, f, r), mode in cases:
         x, w, idx, inv_rp = _mca_inputs(m, d, f, r, seed=m + f + r)
@@ -268,16 +301,18 @@ def phase_kernels():
 
 
 def _layer_inputs(g, lead=(), b=KV_STACK[1], s=KV_STACK[2],
-                  tail=KV_STACK[3:], t_lo=0, t_hi=None):
-    """K and V caches of ``lead + (b, s) + tail`` bf16, their new rows,
-    slot_pos (``lead + (b, s)`` int32) and a per-row t in [t_lo, t_hi)."""
+                  tail=KV_STACK[3:], t_lo=0, t_hi=None, v_tail=None):
+    """K and V caches of ``lead + (b, s) + tail`` bf16 (V's rows
+    ``v_tail`` wide when given), their new rows, slot_pos
+    (``lead + (b, s)`` int32) and a per-row t in [t_lo, t_hi)."""
     import torch
 
     def rand(shape):
         return torch.randn(shape, generator=g, device="cuda").bfloat16()
 
-    k, v = rand(lead + (b, s) + tail), rand(lead + (b, s) + tail)
-    kn, vn = rand((b, 1) + tail), rand((b, 1) + tail)
+    v_tail = tail if v_tail is None else v_tail
+    k, v = rand(lead + (b, s) + tail), rand(lead + (b, s) + v_tail)
+    kn, vn = rand((b, 1) + tail), rand((b, 1) + v_tail)
     spos = torch.randint(-1, s, lead + (b, s), generator=g, device="cuda",
                          dtype=torch.int32)
     t = torch.randint(t_lo, s if t_hi is None else t_hi, (b,), generator=g,
@@ -317,6 +352,48 @@ def _check_layer_write(g):
     log("[kernels] kv_slot_update_layer (K, V, slot_pos in one launch) at "
         f"{'; '.join(c[0] for c in cases)}: bitwise equal to the plain "
         "version, untouched rows included")
+    _check_family_layer_writes(g)
+
+
+def _check_family_layer_writes(g):
+    """Phase 9's layer writes, bitwise against the plain version, whole
+    tensors compared: olmoe-1b-7b's K and V rows (16 x 128) with slot_pos,
+    and minicpm3-4b's latent rows (ckv 256 and kr 32 wide, 512 and 64
+    bytes) with no slot_pos; each with a per-row t and a host-int t."""
+    import torch
+    from repro_torch.kernels import cache_update, ref
+    s = KV_STACK[2]
+    cases = [("olmoe K, V [4,512,16,128] + slot_pos", OLMOE_KV_TAIL, None,
+              True),
+             ("MLA ckv [4,512,256], kr [4,512,32], no slot_pos",
+              MLA_TAILS[0], MLA_TAILS[1], False)]
+    for what, tail, v_tail, with_spos in cases:
+        for host_int in (False, True):
+            k, v, kn, vn, spos, t = _layer_inputs(g, tail=tail,
+                                                  v_tail=v_tail)
+            if host_int:
+                t = s // 3
+            if not with_spos:
+                spos = None
+            got = [k.clone(), v.clone()] + ([spos.clone()] if with_spos
+                                            else [])
+            want = [k, v] + ([spos] if with_spos else [])
+            cache_update.kv_slot_update_layer(
+                got[0], kn, got[1], vn, got[2] if with_spos else None, t,
+                window=0)
+            ref.ref_kv_slot_update_layer(want[0], kn, want[1], vn,
+                                         want[2] if with_spos else None, t,
+                                         window=0)
+            torch.cuda.synchronize()
+            for name, a, w in zip(("K", "V", "slot_pos"), got, want):
+                if not torch.equal(a, w):
+                    raise AssertionError(
+                        f"kv_slot_update_layer {what} "
+                        f"{'host-int' if host_int else 'per-row'} t: {name} "
+                        "!= plain version")
+    log("[kernels] kv_slot_update_layer at "
+        f"{'; '.join(c[0] for c in cases)}, per-row and host-int t: bitwise "
+        "equal to the plain version, untouched rows included")
 
 
 def _held(what, got, want, tol):
@@ -438,16 +515,20 @@ def _check_attention():
 
 
 # ------------------------------------------------------------- phase 4
-def phase_parity():
-    """Reduced starcoder2-3b (f32): the card serves what the CPU serves."""
+def _card_vs_cpu(arch, tag):
+    """A reduced ``arch`` (f32, 2 layers, vocab 128, MCA off, TF32 off)
+    served on the card and on the CPU from the same params: the same
+    greedy tokens (and the same again in a second card run), and the
+    forward's hidden states and logits within 1e-4."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model, reduced
+    from repro_torch.models.api import _logits
     from repro_torch.serve import Engine
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = reduced(get_config("starcoder2-3b"), n_layers=2, vocab_size=128)
+    cfg = reduced(get_config(arch), n_layers=2, vocab_size=128)
     cpu = build_model(cfg, device="cpu")
     params = cpu.init(0)
     gpu = build_model(cfg, device="cuda")
@@ -455,18 +536,30 @@ def phase_parity():
     prompts = np.random.default_rng(0).integers(1, 128, (2, 12))
     lens = np.asarray([12, 7])
     prompts[1, :5] = 0
-    outs = []
-    for model, p in ((cpu, params), (gpu, gparams)):
+    toks, hid, logits = [], [], []
+    for model, p in ((cpu, params), (gpu, gparams), (gpu, gparams)):
         eng = Engine(model, p, batch_size=2, max_len=32)
-        outs.append(eng.generate(prompts, 8, prompt_lens=lens))
-        hid, _, _ = model.forward_hidden(p, {"tokens": torch.as_tensor(
+        toks.append(eng.generate(prompts, 8, prompt_lens=lens))
+        h, _, _ = model.forward_hidden(p, {"tokens": torch.as_tensor(
             prompts[:1], device=model.device)})
-        outs.append(hid.float().cpu().numpy())
-    diff = float(np.abs(outs[1] - outs[3]).max())
-    log(f"[parity] reduced f32 tokens cpu={outs[0].tolist()} "
-        f"gpu={outs[2].tolist()} hidden max|diff|={diff:.3e}")
-    if not np.array_equal(outs[0], outs[2]) or not diff <= 1e-4:
-        raise AssertionError("reduced model on the card != on the CPU")
+        hid.append(h.float().cpu().numpy())
+        logits.append(_logits(p, cfg, h)[..., :128].cpu().numpy())
+    diff = float(np.abs(hid[0] - hid[1]).max())
+    ldiff = float(np.abs(logits[0] - logits[1]).max())
+    log(f"{tag} {arch} reduced f32 tokens cpu={toks[0].tolist()} "
+        f"gpu={toks[1].tolist()} hidden max|diff|={diff:.3e} logits "
+        f"max|diff|={ldiff:.3e}; second card run "
+        f"{'identical' if np.array_equal(toks[1], toks[2]) else 'DIFFERS'}")
+    if not (np.array_equal(toks[0], toks[1])
+            and np.array_equal(toks[1], toks[2])
+            and diff <= 1e-4 and ldiff <= 1e-4):
+        raise AssertionError(f"reduced {arch} on the card != on the CPU")
+    return {"hidden_diff": diff, "logits_diff": ldiff}
+
+
+def phase_parity():
+    """Reduced starcoder2-3b (f32): the card serves what the CPU serves."""
+    _card_vs_cpu("starcoder2-3b", "[parity]")
 
 
 def _to_device(tree, device):
@@ -786,10 +879,11 @@ def _us(x) -> str:
     return "not measured" if x is None else f"{x:.2f} us"
 
 
-def phase_profile(engine):
+def phase_profile(engine, tag="[profile]"):
     """Where one full-width prefill (256-token bucket) and one decode
     burst (8 steps, 4 live slots) spend their time: device busy share,
-    kernel launches, and the largest device and host items."""
+    kernel launches, and the largest device and host items.  Returns the
+    figures of both."""
     import numpy as np
     rng = np.random.default_rng(1)
     cfg = engine.model.cfg
@@ -821,17 +915,17 @@ def phase_profile(engine):
                             e.count) for e in top_dev],
             "top_host": [(e.key[:60], e.self_cpu_time_total / 1e3, e.count)
                          for e in top_host]}
-        log(f"[profile] {name}: wall {wall * 1e3:.1f} ms under the "
+        log(f"{tag} {name}: wall {wall * 1e3:.1f} ms under the "
             f"profiler, device busy {busy * 1e3:.1f} ms "
             f"({100 * busy / wall:.1f}%), "
             f"{out[name]['kernel_launches']} kernel launches")
         for key, ms, count in out[name]["top_device"]:
-            log(f"[profile]   device {ms:8.3f} ms  x{count:<5d} {key}")
+            log(f"{tag}   device {ms:8.3f} ms  x{count:<5d} {key}")
         for key, ms, count in out[name]["top_host"]:
-            log(f"[profile]   host   {ms:8.3f} ms  x{count:<5d} {key}")
+            log(f"{tag}   host   {ms:8.3f} ms  x{count:<5d} {key}")
         for kern in (MCA_KERNEL, "kv_slot_update_kernel"):
             hits = [e for e in dev if kern in e.key]
-            log(f"[profile]   port kernel {kern!r}: "
+            log(f"{tag}   port kernel {kern!r}: "
                 f"{sum(e.self_device_time_total for e in hits) / 1e3:.3f} "
                 f"ms of device time in {sum(e.count for e in hits)} "
                 "launches")
@@ -841,18 +935,19 @@ def phase_profile(engine):
         out[name]["kv_span_host_ms"] = sum(e.cpu_time_total
                                            for e in span) / 1e3
         out[name]["kv_span_calls"] = sum(e.count for e in span)
-        log(f"[profile]   span 'kv_slot_update': "
+        log(f"{tag}   span 'kv_slot_update': "
             f"{out[name]['kv_span_host_ms']:.3f} ms of host time over "
             f"{out[name]['kv_span_calls']} calls")
         for op in ("aten::index_put_", "aten::arange", "aten::remainder"):
             hits = [e for e in host if e.key == op]
-            log(f"[profile]   host op {op}: {sum(e.count for e in hits)} "
+            log(f"{tag}   host op {op}: {sum(e.count for e in hits)} "
                 f"calls, {sum(e.cpu_time_total for e in hits) / 1e3:.3f} ms")
-    log("[profile] " + json.dumps(
+    log(f"{tag} " + json.dumps(
         {k: {kk: v[kk] for kk in ("wall_ms", "device_busy_ms",
                                   "device_busy_share", "kernel_launches",
                                   "kv_span_host_ms", "kv_span_calls")}
          for k, v in out.items()}))
+    return out
 
 
 def _bound_ms(n_bytes, flops):
@@ -1256,8 +1351,54 @@ def _numbers_kv(out):
                                  library_device_us=lib_dev)
 
 
+def _numbers_mla_write():
+    """The MLA layer write at minicpm3-4b's decode shape (B = 4, ckv rows
+    of 256 and kr rows of 32 bf16, 512 slots, no slot_pos, per-row t):
+    kernel per call, device and host time, its bound, the plain version
+    and two ``index_put_`` (ckv, kr) as the library yardstick."""
+    import torch
+    from repro_torch.kernels import cache_update, ref
+    g = torch.Generator(device="cuda").manual_seed(8)
+    ckv, kr, c1, k1, _, t = _layer_inputs(g, tail=MLA_TAILS[0],
+                                          v_tail=MLA_TAILS[1])
+    b = ckv.shape[0]
+    row = (c1[0].numel() + k1[0].numel()) * c1.element_size()
+    bound, by = _bound_ms(2 * b * row + 4 * b, 0)
+
+    def call():
+        cache_update.kv_slot_update_layer(ckv, c1, kr, k1, None, t, window=0)
+
+    rows_idx = torch.arange(b, device="cuda")
+    t_l = t.long()
+
+    def lib_call():
+        ckv.index_put_((rows_idx, t_l), c1[:, 0])
+        kr.index_put_((rows_idx, t_l), k1[:, 0])
+
+    ms = cuda_time_ms(call)
+    plain = cuda_time_ms(lambda: ref.ref_kv_slot_update_layer(
+        ckv, c1, kr, k1, None, t, window=0))
+    lib = cuda_time_ms(lib_call)
+    dev_us, lib_dev = _device_pair_us(call, "kv_slot_update_kernel",
+                                      lib_call)
+    host = host_us(call)
+    log(f"[numbers] kv_slot_update_layer MLA ckv [4,512,256] + kr "
+        f"[4,512,32] bf16, no slot_pos (minicpm3-4b decode): kernel "
+        f"{ms * 1e3:.2f} us per call (device {_us(dev_us)}, host "
+        f"{host:.2f} us to issue), plain {plain * 1e3:.2f} us, 2 x "
+        f"index_put_ {lib * 1e3:.2f} us per call (device {_us(lib_dev)}), "
+        f"bound {bound * 1e3:.4f} us ({by})")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=lib, device_us=dev_us, host_us=host,
+                library_device_us=lib_dev)
+
+
 def phase_numbers():
-    out = {}
+    out = {"families": {}}
+    for case in FAMILY_MCA_TIMED:
+        out["families"][f"mca_matmul_fixed {case}"] = _numbers_fixed(
+            case, plain_too=True)
+    out["families"]["kv_slot_update_layer MLA"] = _numbers_mla_write()
     shapes = list(MCA_CASES)
     for m, r in SERVE_MR:
         for f in (256, 3072):
@@ -1567,6 +1708,171 @@ def phase_train():
     return nums
 
 
+# ------------------------------------------------------------- phase 9
+# (arch, MCA sites) served at full width, one after the other
+FAMILIES = [("olmoe-1b-7b", ("v_proj", "o_proj", "expert_ffn")),
+            ("minicpm3-4b", ("v_proj", "o_proj"))]
+FAMILY_REQUESTS = 6               # SlotBatcher requests, prompts 16..200
+FAMILY_WAVE = 4                   # ContinuousBatcher requests of 32 tokens
+FAMILY_NEW = 16                   # new tokens per request
+
+
+def _expected_mca_launches(cfg, prefill_tokens):
+    """mca_matmul_fixed launches of the prefills that routed these token
+    counts: every sampled tier of v_proj and o_proj in every layer whose
+    capacity the dispatch sends to the kernel (``cap % min(128, cap) ==
+    0``, block >= 128), counted from the same ladders and capacities."""
+    from repro_torch.core import schedule
+    from repro_torch.core.policy import _caps_for
+    mca = cfg.mca
+    if cfg.attn_type == "mla":
+        dims = (cfg.mla_kv_lora, cfg.n_heads * cfg.mla_v_dim)
+    else:
+        dims = (cfg.d_model, cfg.n_heads * cfg.d_head)
+    n_launch = 0
+    for n in prefill_tokens:
+        for d in dims:
+            block = mca.block_for(d)
+            ladder = schedule.tier_ladder(d, block, mca.n_tiers,
+                                          mca.r_min_blocks)
+            caps = _caps_for(n, len(ladder), mca.capacity_fracs)
+            n_launch += sum(1 for t in range(len(ladder) - 1)
+                            if block >= 128
+                            and caps[t] % min(128, caps[t]) == 0)
+    return cfg.n_layers * n_launch
+
+
+def _serve_family(arch, sites):
+    """(b) ``arch`` at full width (bf16, random weights from seed 0, depth
+    not cut) with MCA on its sites through both batchers."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import MCAConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serve import (ContinuousBatcher, Engine, Request,
+                                   SlotBatcher)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    mca = MCAConfig(enabled=True, alpha=0.2, block=128, use_kernel=True,
+                    sites=sites)
+    cfg = get_config(arch, mca=mca)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in _leaves(params))
+    torch.cuda.synchronize()
+    log(f"[families] {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B params ({cfg.dtype}) made on the card in "
+        f"{time.perf_counter() - t_phase:.1f}s; MCA sites {sites}")
+    engine = Engine(model, params, batch_size=4, max_len=512,
+                    mca_enabled=True)
+    routed = []                  # tokens of every prefill, in order
+    inner = engine._prefill
+
+    def prefill(batch_in, mca_on):
+        routed.append(int(batch_in["tokens"].numel()))
+        return inner(batch_in, mca_on)
+
+    engine._prefill = prefill
+    rng = np.random.default_rng(9)
+    launches = {}
+    nums = {"params": n_params}
+    for name in ("slot", "wave"):
+        if name == "slot":
+            reqs = [Request(uid=i, prompt=rng.integers(
+                1, cfg.vocab_size, int(rng.integers(16, 201))),
+                max_new=FAMILY_NEW) for i in range(FAMILY_REQUESTS)]
+            batcher = SlotBatcher(engine, check_every=8)
+        else:
+            reqs = [Request(uid=100 + i, prompt=rng.integers(
+                1, cfg.vocab_size, 32), max_new=FAMILY_NEW)
+                for i in range(FAMILY_WAVE)]
+            batcher = ContinuousBatcher(engine)
+        del routed[:]
+        with obs.scoped() as reg:
+            for r in reqs:
+                batcher.submit(r)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            batcher.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[name] = ops.launch_counts()
+            snap = reg.snapshot()
+        what = f"{arch} {type(batcher).__name__}"
+        _check_requests(what, reqs, cfg.vocab_size, FAMILY_NEW)
+        hists, c = snap["histograms"], snap["counters"]
+        # a burst is 8 decode steps; the one wave decodes FAMILY_NEW - 1
+        steps = (hists["serve.decode_step_seconds"]["count"] * 8
+                 if name == "slot" else FAMILY_NEW - 1)
+        _check_path(what, snap, launches[name], steps, cfg.n_layers)
+        got = launches[name]["mca_matmul_fixed"]
+        calls = c.get("kernels.mca_matmul.kernel_calls", 0)
+        want = _expected_mca_launches(cfg, routed)
+        occ = sum(v for k, v in c.items()
+                  if k.startswith("serve.tier_occupancy"))
+        want_occ = cfg.n_layers * 2 * c["serve.prefill_tokens"]
+        red = snap["gauges"]["serve.flops_reduction"]
+        log(f"[families] {what}: prefills of {routed} tokens, "
+            f"mca_matmul_fixed launches {got} (kernel_calls {calls}, from "
+            f"the routing {want}), kv_slot_update "
+            f"{launches[name]['kv_slot_update']} = {cfg.n_layers} layers x "
+            f"{steps} decode steps, tier "
+            f"occupancy {occ} (want {want_occ}), flops_reduction {red:.3f}")
+        if not (got == calls == want and got > 0 and occ == want_occ
+                and red > 1.0):
+            raise AssertionError(f"{what}: MCA launches or accounting do "
+                                 "not add up")
+        nums[name] = {
+            "prefill_p50_s": hists["serve.prefill_seconds"]["p50"],
+            "decode_step_p50_s": hists["serve.decode_step_seconds"]["p50"],
+            "tokens_per_s": c["serve.generated_tokens"] / wall,
+            "prefill_tokens": c["serve.prefill_tokens"],
+            "generated_tokens": c["serve.generated_tokens"],
+            "decode_steps": steps, "wall_s": wall,
+            "flops_reduction": red}
+    engine._prefill = inner
+    nums["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # the combine and every other step are deterministic: two greedy
+    # generations of the same prompts (MCA on, same key) agree
+    prompts = rng.integers(1, cfg.vocab_size, (4, 64))
+    outs = [engine.generate(prompts, 8) for _ in range(2)]
+    if not np.array_equal(outs[0], outs[1]):
+        raise AssertionError(f"{arch}: two runs gave different tokens")
+    prof = phase_profile(engine, tag=f"[families] {arch} profile")
+    nums["profile"] = {k: {kk: v[kk] for kk in (
+        "wall_ms", "device_busy_ms", "device_busy_share", "kernel_launches")}
+        for k, v in prof.items()}
+    total = {k: launches["slot"][k] + launches["wave"][k]
+             for k in launches["slot"]}
+    del engine, params, model
+    nums["phase_s"] = time.perf_counter() - t_phase
+    log(f"[families] {arch}: " + json.dumps(nums)
+        + "; two runs of the same prompts gave the same tokens")
+    return total, nums
+
+
+def phase_families():
+    """Phase 9: the MoE and MLA families, with nothing else resident:
+    (a) reduced olmoe-1b-7b and minicpm3-4b, card against CPU; (b) both at
+    full width with MCA on, one after the other."""
+    t0 = time.perf_counter()
+    out = {"parity": {arch: _card_vs_cpu(arch, "[families]")
+                      for arch, _ in FAMILIES}}
+    launches = {}
+    for arch, sites in FAMILIES:
+        total, out[arch] = _serve_family(arch, sites)
+        for k, v in total.items():
+            launches[k] = launches.get(k, 0) + v
+    out["phase_s"] = time.perf_counter() - t0
+    return launches, out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1587,6 +1893,14 @@ def main() -> int:
     del engine
     nums = phase_numbers()
     train_nums = phase_train()
+    fam_launches, fam_nums = phase_families()
+    for k in SERVE_KERNELS:
+        launches[k] += fam_launches[k]
+        per[k] += f"; phase 9: {fam_launches[k]}"
+    per["mca_matmul_fixed"] += (" (per prefill of <= 256 tokens: olmoe "
+                                "16 x 2 x 3 = 96, minicpm3 62 x (1 + 3) "
+                                "= 248)")
+    per["kv_slot_update"] += (" (per decode step: olmoe 16, minicpm3 62)")
     meta = {
         "mca_matmul_fixed": ("src/repro_torch/csrc/mca_matmul.cu",
                              "src/repro/kernels/mca_matmul.py:84"),
@@ -1609,8 +1923,11 @@ def main() -> int:
     for name in meta:
         log(f"[numbers] {name} launches {launches[name]} ({per[name]})")
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f}s "
-        f"(phase 8: {train_nums['phase_s']:.1f}s)")
-    log(json.dumps({"serve": serve_nums, "train": train_nums, "card": smi}))
+        f"(phase 8: {train_nums['phase_s']:.1f}s, phase 9: "
+        f"{fam_nums['phase_s']:.1f}s)")
+    log(json.dumps({"serve": serve_nums, "train": train_nums,
+                    "families": fam_nums,
+                    "family_kernels": nums["families"], "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -46,28 +46,34 @@ def num_blocks(d: int, block: int = DEFAULT_BLOCK) -> int:
     return d // block
 
 
-def block_sq_norms(w: torch.Tensor, block: int = DEFAULT_BLOCK
-                   ) -> torch.Tensor:
-    """Per-block squared Frobenius norm of W's row-blocks: [d, f] -> [K]."""
-    d = w.shape[0]
+def block_sq_norms(w: torch.Tensor, block: int = DEFAULT_BLOCK,
+                   lead: int = 0) -> torch.Tensor:
+    """Per-block squared Frobenius norm of W's row-blocks: [d, f] -> [K].
+
+    ``lead`` leading dims index independent weights (one per expert):
+    [*L, d, f] -> [*L, K].
+    """
+    d = w.shape[lead]
     k = num_blocks(d, block)
-    w2 = torch.sum(torch.square(w.float()), dim=tuple(range(1, w.dim())))
-    return torch.sum(w2.reshape(k, block), dim=1)
+    w2 = torch.sum(torch.square(w.float()),
+                   dim=tuple(range(lead + 1, w.dim())))
+    return torch.sum(w2.reshape(*w.shape[:lead], k, block), dim=-1)
 
 
 def block_probs(w: torch.Tensor, block: int = DEFAULT_BLOCK,
-                floor: float = 1e-12) -> torch.Tensor:
+                floor: float = 1e-12, lead: int = 0) -> torch.Tensor:
     """Eq. (6) of the paper at block granularity: p(b) ∝ ||W[b]||_F^2.
 
     Non-finite block norms count as empty and the floor keeps p strictly
-    positive (uniform when every block is zero).  Returns [K] summing to 1.
+    positive (uniform when every block is zero).  Returns [K] summing to 1
+    ([*L, K], each row summing to 1, for ``lead`` leading weight dims).
     """
     from repro_torch import resilience
-    n2 = block_sq_norms(w, block)
+    n2 = block_sq_norms(w, block, lead)
     n2 = resilience.inject("amm.probs", n2)
     n2 = torch.where(torch.isfinite(n2), n2, torch.zeros_like(n2))
     n2 = torch.clamp(n2, min=floor)
-    return n2 / torch.sum(n2)
+    return n2 / torch.sum(n2, dim=-1, keepdim=True)
 
 
 def draw_block_samples(g: torch.Generator, probs: torch.Tensor, r: int

@@ -97,23 +97,31 @@ def per_token_mca_matmul(key: int, x: torch.Tensor, w: torch.Tensor,
                          probs: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """Paper-faithful per-token estimator (Mode A / oracle): token j uses
-    the first r_blocks[j] of K i.i.d. draws.  x: [n, d] -> [n, f]."""
-    n, d = x.shape
+    the first r_blocks[j] of K i.i.d. draws.  x: [n, d] -> [n, f].
+
+    Leading dims batch independent problems, each with its own weight (the
+    reference ``vmap``s over experts): x [*L, n, d], w [*L, d, f],
+    r_blocks [*L, n] -> [*L, n, f]; every row draws from one generator.
+    """
+    lead = x.shape[:-2]
+    n, d = x.shape[-2], x.shape[-1]
     f = w.shape[-1]
     k = num_blocks(d, block)
     if probs is None:
-        probs = block_probs(w, block)
-    idx = torch.multinomial(probs.float(), n * k, replacement=True,
-                            generator=generator(key, x.device)).reshape(n, k)
+        probs = block_probs(w, block, lead=len(lead))
+    idx = torch.multinomial(probs.float().reshape(-1, k), n * k,
+                            replacement=True,
+                            generator=generator(key, x.device)
+                            ).reshape(*lead, n, k)
     ar = torch.arange(k, device=x.device)
-    use = ar[None, :] < r_blocks[:, None]
-    onehot = (idx[:, :, None] == ar[None, None, :]) & use[:, :, None]
-    counts = torch.sum(onehot.float(), dim=1)                    # [n, K]
-    scale = counts / (r_blocks[:, None].float() * probs[None, :])
-    xb = x.reshape(n, k, block)
-    wb = w.reshape(k, block, f)
-    out = torch.einsum("nk,nkb,kbf->nf", scale.to(x.dtype).float(),
-                       xb.float(), wb.float())
+    use = ar < r_blocks[..., None]
+    onehot = (idx[..., None] == ar) & use[..., None]
+    counts = torch.sum(onehot.float(), dim=-2)                   # [*L, n, K]
+    scale = counts / (r_blocks[..., None].float() * probs[..., None, :])
+    xb = x.reshape(*lead, n, k, block)
+    wb = w.reshape(*lead, k, block, f)
+    out = torch.einsum("...nk,...nkb,...kbf->...nf",
+                       scale.to(x.dtype).float(), xb.float(), wb.float())
     return out.to(x.dtype)
 
 

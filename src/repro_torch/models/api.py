@@ -1,7 +1,8 @@
 """Top-level model API: build_model(cfg) -> Model(init/loss/prefill/...).
 
-Port of the decoder-only LM path of ``repro/models/api.py`` (family
-``dense``, GQA attention, optional absolute sinusoidal positions).
+Port of the decoder-only LM path of ``repro/models/api.py`` (families
+``dense`` and ``moe``, GQA or MLA attention, optional absolute sinusoidal
+positions).
 Parameters are nested dicts of tensors that mirror the reference's
 pytree, except that ``params["layers"]`` is a list of per-layer dicts
 instead of ``[L, ...]``-stacked leaves (``convert.params_from_jax``
@@ -17,7 +18,8 @@ As in the reference, decode adds no position embedding (``_lm_decode``),
 so a sinusoidal model's decode does not match its forward (ROADMAP.md,
 Queue 3).
 
-Not ported yet: MoE / SSM / hybrid / VLM / encoder-decoder families.
+Not ported yet: the SSM / hybrid / VLM / audio / encoder-decoder
+families.
 """
 from __future__ import annotations
 
@@ -162,7 +164,7 @@ def _lm_hidden(params, cfg, batch, mca_key=None):
 def _lm_loss(params, cfg, batch, mca_key=None):
     hidden, aux, stats = _lm_hidden(params, cfg, batch, mca_key)
     loss = chunked_xent(hidden, _head(params, cfg), batch["labels"], cfg)
-    metrics = {"loss": loss.detach(), "aux_loss": aux,
+    metrics = {"loss": loss.detach(), "aux_loss": aux.detach(),
                "mca_exact_flops": stats["exact_flops"],
                "mca_flops": stats["mca_flops"],
                "mca_tier_hist": stats["tier_hist"]}
@@ -231,59 +233,79 @@ def _lm_prefill(params, cfg, batch, max_len, mca_key=None):
         kv_valid = ar >= off_arr[:, None]
 
     slots = cfg.window if cfg.window > 0 else max_len
-    layers = attn.init_gqa_cache(cfg, b, max_len, cfg.torch_dtype, dev,
-                                 n_layers=cfg.n_layers)
+    layers = _init_layers_cache(cfg, b, max_len, dev)
     stats = stack.zero_carry_stats(cfg, dev)
     for i, p_l in enumerate(params["layers"]):
         key_l = None if mca_key is None else fold_in(mca_key, i)
-        x, st, (k, v) = stack.layer_forward(p_l, cfg, x, pos=pos,
-                                            mca_key=key_l, kind=kind,
-                                            kv_valid=kv_valid)
+        x, _, st, kv = stack.layer_forward(p_l, cfg, x, pos=pos,
+                                           mca_key=key_l, kind=kind,
+                                           kv_valid=kv_valid)
         stats = stack.add_stats(stats, st)
-        _, spos = _pad_seq_cache(k, slots, out=layers["k"][i])
-        _pad_seq_cache(v, slots, out=layers["v"][i])
-        layers["slot_pos"][i] = spos
+        if cfg.attn_type == "mla":
+            _pad_seq_cache(kv[0], max_len, out=layers["ckv"][i])
+            _pad_seq_cache(kv[1], max_len, out=layers["kr"][i])
+        else:
+            _, spos = _pad_seq_cache(kv[0], slots, out=layers["k"][i])
+            _pad_seq_cache(kv[1], slots, out=layers["v"][i])
+            layers["slot_pos"][i] = spos
     x = apply_norm(params["final_norm"], cfg, x)
     return {"layers": layers, "pos_off": off_arr}, x, stats
 
 
-def _decode_layer(p_l, cfg, xx, cache_l, t, pos_off=None):
+def _decode_layer(p_l, cfg, xx, cache_l, t, kind, pos_off=None):
     h = apply_norm(p_l["ln1"], cfg, xx)
-    y, cache_l, _ = attn.gqa_decode(p_l["mixer"], cfg, h, cache_l, t=t,
-                                    pos_off=pos_off)
+    if cfg.attn_type == "mla":
+        y, cache_l, _ = attn.mla_decode(p_l["mixer"], cfg, h, cache_l, t=t,
+                                        pos_off=pos_off)
+    else:
+        y, cache_l, _ = attn.gqa_decode(p_l["mixer"], cfg, h, cache_l, t=t,
+                                        pos_off=pos_off)
     xx = xx + y
     h = apply_norm(p_l["ln2"], cfg, xx)
-    return xx + ffn_mod.ffn(p_l["ffn"], cfg, h), cache_l
+    if kind == "attn_moe":                 # decode routes with no MCA key
+        y, _, _ = ffn_mod.moe_ffn(p_l["ffn"], cfg, h)
+    else:
+        y = ffn_mod.ffn(p_l["ffn"], cfg, h)
+    return xx + y, cache_l
 
 
 def _lm_decode(params, cfg, tokens, cache, t):
     """tokens: [B, 1]; t: int, 0-d or [B] int32 tensor.  Updates ``cache``
     in place; returns (logits [B, 1, Vp] f32, cache)."""
     x = embed_tokens(params["embed"], tokens)
+    kind = stack.layer_kind(cfg)
     pos_off = cache.get("pos_off")
     layers = cache["layers"]
     for i, p_l in enumerate(params["layers"]):
         cache_l = {name: leaf[i] for name, leaf in layers.items()}
-        x, _ = _decode_layer(p_l, cfg, x, cache_l, t, pos_off=pos_off)
+        x, _ = _decode_layer(p_l, cfg, x, cache_l, t, kind, pos_off=pos_off)
     x = apply_norm(params["final_norm"], cfg, x)
     return _logits(params, cfg, x), cache
 
 
+def _init_layers_cache(cfg, batch, max_len, device):
+    """The layer-stacked decode cache: {"ckv", "kr"} for MLA, {"k", "v",
+    "slot_pos"} for GQA, each leaf [L, B, ...]."""
+    init = attn.init_mla_cache if cfg.attn_type == "mla" \
+        else attn.init_gqa_cache
+    return init(cfg, batch, max_len, cfg.torch_dtype, device,
+                n_layers=cfg.n_layers)
+
+
 def _lm_init_cache(cfg, batch, max_len, device):
-    return {"layers": attn.init_gqa_cache(cfg, batch, max_len,
-                                          cfg.torch_dtype, device,
-                                          n_layers=cfg.n_layers),
+    return {"layers": _init_layers_cache(cfg, batch, max_len, device),
             "pos_off": torch.zeros((batch,), dtype=torch.int32,
                                    device=device)}
 
 
 # ================================================================ factory
 def _check_supported(cfg: ModelConfig) -> None:
-    if (cfg.family != "dense" or cfg.attn_type != "gqa"
+    if (cfg.family not in ("dense", "moe")
+            or cfg.attn_type not in ("gqa", "mla")
             or cfg.is_encoder_decoder or cfg.frontend != "none"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense decoder-only GQA family is ported "
-            "so far (see ROADMAP.md)")
+            f"{cfg.name}: only the decoder-only dense and MoE families with "
+            "GQA or MLA attention are ported so far (see ROADMAP.md)")
 
 
 def build_model(cfg: ModelConfig,

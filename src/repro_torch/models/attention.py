@@ -1,7 +1,8 @@
 """Attention: memory-efficient chunked softmax attention with the MCA hooks,
 GQA module and KV-cache decode paths.
 
-Port of the GQA part of ``repro/models/attention.py``.  Layout convention:
+Port of the GQA and MLA parts of ``repro/models/attention.py``.  Layout
+convention:
 activations are [B, S, H, dh] (seq-major); GQA never materializes repeated
 KV (einsum over grouped heads).  The chunked passes are plain PyTorch, as
 they are jnp in the reference: the reference's flash/colmax Pallas kernels
@@ -11,7 +12,7 @@ Scores and softmax run in f32 (bf16 operands are upcast exactly, as
 ``preferred_element_type=float32`` does); A@V casts A to V's dtype first,
 as the reference does.
 
-Not ported yet: MLA, the banded local passes (``cfg.banded_local``), the
+Not ported yet: the banded local passes (``cfg.banded_local``), the
 fused conservative colmax (``mca.fast_colmax``), cross attention and the
 mesh-dependent head layouts.
 """
@@ -391,4 +392,154 @@ def gqa_decode(p, cfg, x, cache, *, t, pos_off=None):
         rowmax = torch.amax(a, dim=(1, 2, 4))                 # [B, 1]
     out = out.reshape(b, 1, cfg.n_heads * dh)
     y = out @ p["wo"]
+    return y, cache, rowmax
+
+
+# ------------------------------------------------------------ MLA module
+def init_mla(g: torch.Generator, cfg, device):
+    dt = cfg.torch_dtype
+    h = cfg.n_heads
+    dn, dr = cfg.mla_qk_nope, cfg.mla_qk_rope
+    dq, dl = cfg.mla_q_lora, cfg.mla_kv_lora
+    return {
+        "w_dq": dense_init(g, cfg.d_model, dq, dt, device),
+        "w_uq": dense_init(g, dq, h * (dn + dr), dt, device),
+        "w_dkv": dense_init(g, cfg.d_model, dl, dt, device),
+        "w_kr": dense_init(g, cfg.d_model, dr, dt, device),
+        "w_uk": dense_init(g, dl, h * dn, dt, device),
+        "w_uv": dense_init(g, dl, h * cfg.mla_v_dim, dt, device),
+        "wo": dense_init(g, h * cfg.mla_v_dim, cfg.d_model, dt, device),
+        "q_ln": torch.zeros((dq,), dtype=torch.float32, device=device),
+        "kv_ln": torch.zeros((dl,), dtype=torch.float32, device=device),
+    }
+
+
+def mla_attention(p, cfg, x, *, pos, mca_key: Optional[int] = None,
+                  return_cache=False, kv_valid=None):
+    """MLA (latent) attention, full sequence.  MCA applies to the latent
+    value up-projection ``w_uv`` (site ``v_proj``, importance = colmax)
+    and to ``wo`` (site ``o_proj``, importance = rowmax).
+
+    QK heads are ``dn + dr`` wide (the rotary part's key is shared by
+    every head), V heads ``dv``; every head is its own group (hkv = h).
+    kv_valid: optional [B, S] bool marking real (non-left-padding) tokens.
+    Returns (y, (ckv [B,S,dl], kr [B,S,dr]) or None, stats, rowmax).
+    """
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dv = cfg.mla_qk_nope, cfg.mla_qk_rope, cfg.mla_v_dim
+    scale = (dn + dr) ** -0.5
+    stats = zero_stats(cfg.mca.n_tiers, x.device)
+
+    cq = rmsnorm(x @ p["w_dq"], p["q_ln"], cfg.norm_eps)
+    q = _split_heads(cq @ p["w_uq"], h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
+
+    ckv = rmsnorm(x @ p["w_dkv"], p["kv_ln"], cfg.norm_eps)
+    k_rope = apply_rope((x @ p["w_kr"])[:, :, None, :], pos,
+                        cfg.rope_theta)                      # [B,S,1,dr]
+    k_nope = _split_heads(ckv @ p["w_uk"], h, dn)
+    k = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
+    qg = torch.cat([q_nope, q_rope], dim=-1).reshape(b, s, h, 1, dn + dr)
+
+    chunk = pick_chunk(s, cfg.attn_chunk)
+    passes = dict(scale=scale, causal=cfg.causal, window=0, chunk=chunk)
+    if cfg.mca.active("v_proj") and mca_key is not None:
+        m, lse = chunked_lse(qg, k, kv_valid=kv_valid, **passes)
+        colmax = chunked_colmax(qg, k, lse, kv_valid=kv_valid,
+                                q_valid=kv_valid, **passes)
+        hv, s_v = mca_project(fold_in(mca_key, 1), ckv, p["w_uv"], colmax,
+                              s, cfg.mca, "v_proj")
+        stats = _acc_stats(stats, s_v)
+        v = _split_heads(hv, h, dv)
+        out = chunked_av(qg, k, v, lse, kv_valid=kv_valid, **passes)
+    else:
+        v = _split_heads(ckv @ p["w_uv"], h, dv)
+        out, m, lse = onepass_attention(qg, k, v, kv_valid=kv_valid,
+                                        **passes)
+    rowmax = torch.exp(torch.amax(m - lse, dim=(1, 2)))        # [B, S]
+    if kv_valid is not None:
+        rowmax = torch.where(kv_valid, rowmax, 0.0)
+
+    out = out.reshape(b, s, h * dv)
+    if cfg.mca.active("o_proj") and mca_key is not None:
+        y, s_o = mca_project(fold_in(mca_key, 2), out, p["wo"], rowmax, s,
+                             cfg.mca, "o_proj")
+        stats = _acc_stats(stats, s_o)
+    else:
+        y = out @ p["wo"]
+
+    cache = (ckv, k_rope[:, :, 0, :]) if return_cache else None
+    return y, cache, stats, rowmax
+
+
+def init_mla_cache(cfg, batch, max_len, dtype, device, n_layers=None):
+    """Zeroed latent cache; with ``n_layers`` every leaf is layer-stacked
+    ``[L, B, ...]`` (the layout ``models/api.py`` uses).  Its slots are
+    positions: MLA has no window and no ``slot_pos``."""
+    lead = (batch,) if n_layers is None else (n_layers, batch)
+    return {
+        "ckv": torch.zeros(lead + (max_len, cfg.mla_kv_lora), dtype=dtype,
+                           device=device),
+        "kr": torch.zeros(lead + (max_len, cfg.mla_qk_rope), dtype=dtype,
+                          device=device),
+    }
+
+
+def mla_decode(p, cfg, x, cache, *, t, pos_off=None):
+    """Absorbed-matrix MLA decode: scores and values read the latent cache
+    directly, so a cached token costs ``kv_lora + rope`` values.
+
+    x: [B, 1, d]; t: int, 0-d or [B] int32 tensor (a per-row t is the
+    per-slot path); pos_off: optional [B] int32 left-padding offsets.
+    One ``kernels.ops.kv_slot_update_layer`` call (one launch on the card)
+    writes the ``ckv`` and ``kr`` rows at slot t.  ``cache`` ({"ckv":
+    [B, S, dl], "kr": [B, S, dr]}) is updated IN PLACE and returned.
+    Returns (y, cache, rowmax [B, 1]).
+    """
+    b = x.shape[0]
+    dev = x.device
+    h = cfg.n_heads
+    dn, dr, dv = cfg.mla_qk_nope, cfg.mla_qk_rope, cfg.mla_v_dim
+    dl = cfg.mla_kv_lora
+    scale = (dn + dr) ** -0.5
+    off = (torch.zeros((b,), dtype=torch.int32, device=dev)
+           if pos_off is None else pos_off)
+    if isinstance(t, torch.Tensor):
+        t_vec = t_kv = t.to(torch.int32).expand(b)
+    else:                                  # host int: a fill, not a copy
+        t_kv = int(t)
+        t_vec = torch.full((b,), t_kv, dtype=torch.int32, device=dev)
+
+    cq = rmsnorm(x @ p["w_dq"], p["q_ln"], cfg.norm_eps)
+    q = _split_heads(cq @ p["w_uq"], h, dn + dr)             # [B,1,h,dn+dr]
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    posb = t_vec[:, None] - off[:, None]
+    q_rope = apply_rope(q_rope, posb, cfg.rope_theta)
+
+    ckv1 = rmsnorm(x @ p["w_dkv"], p["kv_ln"], cfg.norm_eps)   # [B,1,dl]
+    kr1 = apply_rope((x @ p["w_kr"])[:, :, None, :], posb,
+                     cfg.rope_theta)[:, :, 0, :]               # [B,1,dr]
+    ckv, kr = cache["ckv"], cache["kr"]
+    kernel_ops.kv_slot_update_layer(ckv, ckv1.contiguous(), kr,
+                                    kr1.contiguous(), None, t_kv, window=0)
+
+    # absorb W_UK into the query:  q_lat[b,h,dl] = q_nope . W_UK[:, h, :]
+    w_uk = p["w_uk"].reshape(dl, h, dn)
+    q_lat = torch.einsum("bqhd,lhd->bqhl", q_nope, w_uk)
+    s_lat = torch.einsum("bqhl,bsl->bhqs", q_lat.float(), ckv.float())
+    s_rot = torch.einsum("bqhd,bsd->bhqs", q_rope.float(), kr.float())
+    sc = (s_lat + s_rot) * scale
+    idxs = torch.arange(ckv.shape[1], device=dev)
+    valid = ((idxs[None, :] <= t_vec[:, None])
+             & (idxs[None, :] >= off[:, None]))
+    sc = torch.where(valid[:, None, None, :], sc, NEG_INF)
+    a = torch.softmax(sc, dim=-1)
+    out_lat = torch.einsum("bhqs,bsl->bqhl", a.to(ckv.dtype), ckv)
+    # absorb W_UV on the way out
+    w_uv = p["w_uv"].reshape(dl, h, dv)
+    out = torch.einsum("bqhl,lhv->bqhv", out_lat, w_uv).reshape(b, 1, h * dv)
+    y = out @ p["wo"]
+    rowmax = torch.amax(a, dim=(1, 3))                          # [B, 1]
     return y, cache, rowmax

@@ -2,8 +2,9 @@
 
 Port of ``repro/models/config.py`` with the same fields and defaults, so a
 config means the same model in both packages; ``torch_dtype`` replaces
-``jnp_dtype``.  The port runs the dense GQA decoder path so far
-(``models/api.py`` raises for the other families).
+``jnp_dtype``.  The port runs the decoder-only dense and MoE families
+with GQA or MLA attention so far (``models/api.py`` raises for the
+others).
 """
 from __future__ import annotations
 

@@ -27,7 +27,10 @@ pytestmark = pytest.mark.gpu
 
 MCA_CASES = [(64, 3072, 256, 1), (128, 3072, 256, 4), (24, 3072, 3072, 2),
              (128, 3072, 3072, 4), (256, 3072, 3072, 4), (6, 3072, 3072, 1),
-             (48, 256, 264, 3)]
+             (48, 256, 264, 3),
+             # olmoe-1b-7b v_proj/o_proj, minicpm3-4b o_proj and w_uv
+             (128, 2048, 2048, 1), (128, 2048, 2048, 2), (128, 2048, 2048, 4),
+             (128, 2560, 2560, 4), (128, 256, 2560, 1)]
 
 
 @pytest.fixture
@@ -232,6 +235,11 @@ LAYER_CASES = [
     ("b1", 1, 512, (2, 128), (2, 128), "bfloat16", "rows", 0, True, None),
     ("b1_one_16B_row", 1, 8, (8,), (8,), "bfloat16", "rows", 0, True, None),
     ("b0", 0, 512, (2, 128), (2, 128), "bfloat16", "rows", 0, True, None),
+    ("olmoe_rows", 4, 512, (16, 128), (16, 128), "bfloat16", "rows", 0, True,
+     None),
+    ("mla_rows", 4, 512, (256,), (32,), "bfloat16", "rows", 0, False, None),
+    ("mla_host_int_t", 4, 512, (256,), (32,), "bfloat16", "int", 0, False,
+     None),
 ]
 
 
@@ -554,11 +562,10 @@ def test_flash_kernel_is_deterministic(cuda):
         assert torch.equal(out, runs[0][0]) and torch.equal(lse, runs[0][1])
 
 
-def _reduced_pair(**kw):
+def _reduced_pair(arch="starcoder2-3b", **kw):
     from repro_torch.configs import get_config
     from repro_torch.models import build_model, reduced
-    cfg = reduced(get_config("starcoder2-3b"), n_layers=2, vocab_size=128,
-                  **kw)
+    cfg = reduced(get_config(arch), n_layers=2, vocab_size=128, **kw)
     cpu = build_model(cfg, device="cpu")
     params = cpu.init(0)
     gpu = build_model(cfg, device="cuda")
@@ -591,6 +598,29 @@ def test_reduced_serving_on_card_matches_cpu(cuda):
         outs.append(sb.run())
     assert outs[0] == outs[1]
     assert ops.launch_counts()["kv_slot_update"] > 0
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "minicpm3-4b"])
+def test_reduced_families_serve_on_card_as_on_cpu(cuda, arch):
+    """The MoE and MLA families (MCA off, f32): the card serves the CPU's
+    tokens through the per-slot batcher, twice the same, one layer write
+    per layer per decode step."""
+    from repro_torch import serve
+    from repro_torch.kernels import ops
+    cpu, params, gpu, gparams = _reduced_pair(arch)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, 128, n).astype(np.int32) for n in (9, 4, 12)]
+    outs = []
+    for model, p in ((cpu, params), (gpu, gparams), (gpu, gparams)):
+        sb = serve.SlotBatcher(serve.Engine(model, p, batch_size=2,
+                                            max_len=48), check_every=3)
+        for i, pr in enumerate(prompts):
+            sb.submit(serve.Request(uid=i, prompt=pr, max_new=6))
+        ops.reset_launch_counts()
+        outs.append(sb.run())
+    assert outs[0] == outs[1] == outs[2]
+    launches = ops.launch_counts()["kv_slot_update"]
+    assert launches > 0 and launches % 2 == 0           # 2 layers
 
 
 def test_mca_serving_on_card_takes_the_kernels(cuda):

@@ -326,6 +326,38 @@ def test_params_from_jax_bf16_bitwise_and_unstacked():
         "embed"]["table"].dtype == torch.float32
 
 
+def test_params_from_jax_unstacks_moe_and_mla_leaves():
+    """Reference MoE leaves [L, E, d, f] and MLA leaves (q_ln, kv_ln in
+    f32 beside bf16 weights) come out per layer, bitwise, each keeping
+    its dtype."""
+    import ml_dtypes
+    rng = np.random.default_rng(7)
+    w_up = rng.standard_normal((3, 4, 8, 16)).astype(ml_dtypes.bfloat16)
+    w_uv = rng.standard_normal((3, 8, 12)).astype(ml_dtypes.bfloat16)
+    q_ln = rng.standard_normal((3, 8)).astype(np.float32)
+    router = rng.standard_normal((3, 8, 4)).astype(np.float32)
+    tree = {"embed": {"table": w_uv[0]},
+            "layers": {"mixer": {"w_uv": w_uv, "q_ln": q_ln,
+                                 "kv_ln": q_ln[::-1].copy()},
+                       "ffn": {"w_up": w_up, "router": router}}}
+    out = params_from_jax(tree, device="cpu")
+    assert len(out["layers"]) == 3
+    for i in range(3):
+        lay = out["layers"][i]
+        assert lay["ffn"]["w_up"].shape == (4, 8, 16)
+        assert lay["ffn"]["w_up"].dtype == lay["mixer"]["w_uv"].dtype \
+            == torch.bfloat16
+        assert lay["mixer"]["q_ln"].dtype == lay["ffn"]["router"].dtype \
+            == torch.float32
+        np.testing.assert_array_equal(
+            lay["ffn"]["w_up"].view(torch.int16).numpy(),
+            w_up[i].view(np.int16))
+        np.testing.assert_array_equal(lay["mixer"]["kv_ln"].numpy(),
+                                      q_ln[::-1][i])
+        np.testing.assert_array_equal(lay["ffn"]["router"].numpy(),
+                                      router[i])
+
+
 def test_params_from_jax_needs_a_card_unless_cpu_is_asked():
     """Like every entry point, the conversion resolves a missing device to
     the card and raises without one, instead of making CPU tensors."""
@@ -346,7 +378,82 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
             build_model(cfg)
     assert build_model(cfg, device="cpu").device.type == "cpu"
     with pytest.raises(NotImplementedError):
-        build_model(cfg.replace(family="moe"), device="cpu")
+        build_model(cfg.replace(family="ssm"), device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    dict(family="ssm", ssm_state=16),
+    dict(family="hybrid", block_pattern=("rec", "rec", "attn"),
+         rnn_width=128),
+    dict(family="vlm", frontend="patch"),
+    dict(family="audio", frontend="frames", is_encoder_decoder=True,
+         n_encoder_layers=2),
+    dict(is_encoder_decoder=True, n_encoder_layers=2),
+    dict(attn_type="none")])
+def test_build_model_refuses_the_families_not_ported(change):
+    """The dense and MoE families with GQA or MLA build; SSM, hybrid,
+    VLM, audio and encoder-decoder configs still raise."""
+    cfg = reduced(get_config("starcoder2-3b")).replace(**change)
+    with pytest.raises(NotImplementedError, match="not ported|ported so"):
+        build_model(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-1b-a400m",
+                                  "minicpm3-4b", "chatglm3-6b", "qwen3-32b"])
+def test_new_architectures_build_on_the_cpu(arch):
+    cfg = reduced(get_config(arch))
+    params = build_model(cfg, device="cpu").init(0)
+    assert len(params["layers"]) == cfg.n_layers
+    mixer = params["layers"][0]["mixer"]
+    assert ("w_uv" in mixer) == (cfg.attn_type == "mla")
+    assert params["layers"][0]["ffn"]["w_up"].dim() == (
+        3 if cfg.family == "moe" else 2)
+
+
+# ------------------------------------------- chatglm3-6b / qwen3-32b
+@pytest.fixture(scope="module", params=["chatglm3-6b", "qwen3-32b"])
+def dense_pair(request):
+    """Dense GQA models the code already ran: chatglm3-6b (partial
+    rotary 0.5) and qwen3-32b (qk-norm, rope theta 1e6), reduced."""
+    return model_pair(request.param, n_layers=2, vocab_size=128)
+
+
+def test_dense_arch_loss_and_grads_match(dense_pair):
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import named_leaves
+    jm, jp, tm, tp = dense_pair
+    assert (tm.cfg.rotary_pct, tm.cfg.qk_norm, tm.cfg.rope_theta) == (
+        jm.cfg.rotary_pct, jm.cfg.qk_norm, jm.cfg.rope_theta)
+    toks = np.random.default_rng(8).integers(0, 128, (2, 12)).astype(
+        np.int32)
+    labels = np.roll(toks, -1, axis=1)
+    jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
+    tb = {"tokens": _t(toks), "labels": _t(labels)}
+    (jl, jmet), jg = jax.value_and_grad(jm.loss, has_aux=True)(jp, jb, None)
+    (tl, tmet), tg = adamw.value_and_grad(tm.loss, tp, tb, None)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    assert float(tmet["aux_loss"]) == float(jmet["aux_loss"]) == 0.0
+    want = params_from_jax(jax.tree.map(np.asarray, jg), device="cpu")
+    for (name, g), (_, w) in zip(named_leaves(tg), named_leaves(want)):
+        _close(g, w, atol=1e-4 * float(w.abs().max()))
+
+
+def test_dense_arch_prefill_and_decode_match(dense_pair):
+    jm, jp, tm, tp = dense_pair
+    toks = np.random.default_rng(9).integers(0, 128, (2, 10)).astype(
+        np.int32)
+    off = np.asarray([0, 3], np.int32)
+    jc, jh, _ = jm.prefill(jp, {"tokens": jnp.asarray(toks),
+                                "pos_offset": jnp.asarray(off)}, 24)
+    tc, th, _ = tm.prefill(tp, {"tokens": _t(toks), "pos_offset": _t(off)},
+                           24)
+    _close(th, jh)
+    nxt = toks[:, -1:]
+    for t in range(10, 13):
+        jl, jc = jm.decode(jp, jnp.asarray(nxt), jc, t)
+        tl, tc = tm.decode(tp, _t(nxt), tc, t)
+        _close(tl, jl, atol=1e-4 * max(1.0, float(np.abs(jl).max())))
+        nxt = np.asarray(jl)[..., :128].argmax(-1).astype(np.int32)
 
 
 # -------------------------------------------- sinusoidal / bert-base

@@ -249,3 +249,58 @@ def test_tracing_request_chains_match(engines):
     rows = {e["args"]["name"] for e in traces[1]["traceEvents"]
             if e["name"] == "thread_name"}
     assert {f"serve.per_slot/req{i}" for i in range(3)} <= rows
+
+
+# -------------------------------------------------- MoE and MLA families
+@pytest.fixture(scope="module", params=[
+    ("olmoe-1b-7b", {}), ("olmoe-1b-7b", {"capacity_factor": 0.5}),
+    ("minicpm3-4b", {})], ids=["olmoe", "olmoe-tight", "minicpm3"])
+def family_engines(request):
+    """Reduced olmoe-1b-7b (MoE; once drop-free, once with capacity tight
+    enough that tokens drop) and minicpm3-4b (MLA) in both packages."""
+    arch, kw = request.param
+    jm, jp, tm, tp = model_pair(arch, n_layers=2, vocab_size=VOCAB, **kw)
+    return (jserve.Engine(jm, jp, batch_size=2, max_len=48),
+            serve.Engine(tm, tp, batch_size=2, max_len=48))
+
+
+@pytest.mark.parametrize("entry", ["generate", "wave", "slot"])
+def test_families_serve_the_reference_tokens(family_engines, entry):
+    """Engine.generate, the wave ContinuousBatcher and the per-slot
+    SlotBatcher each give their reference counterpart's tokens, statuses
+    and metrics.  MoE capacity depends on the tokens routed together, so
+    each batcher is held to its own counterpart, never to the other."""
+    jeng, teng = family_engines
+    if entry == "generate":
+        prompts = np.random.default_rng(12).integers(
+            1, VOCAB, (2, 9)).astype(np.int32)
+        prompts[1, :4] = 0
+        want = jeng.generate(prompts, 6, prompt_lens=[9, 5])
+        np.testing.assert_array_equal(
+            teng.generate(prompts, 6, prompt_lens=[9, 5]), want)
+        return
+    lens, news = [9, 4, 12, 6], [5, 7, 3, 6]
+    jcls, tcls = ((jserve.ContinuousBatcher, serve.ContinuousBatcher)
+                  if entry == "wave" else
+                  (jserve.SlotBatcher, serve.SlotBatcher))
+    kw = {} if entry == "wave" else {"check_every": 3}
+    jdone, jstat, jsnap = _serve(jserve, jcls, jeng,
+                                 _requests(jserve, 13, lens, news), **kw)
+    tdone, tstat, tsnap = _serve(serve, tcls, teng,
+                                 _requests(serve, 13, lens, news), **kw)
+    assert tdone == jdone and tstat == jstat
+    assert set(tstat.values()) == {"ok"}
+    _same_metrics(jsnap, tsnap)
+
+
+@pytest.mark.parametrize("arch,per_slot", [("olmoe-1b-7b", True),
+                                           ("minicpm3-4b", False)])
+def test_launch_serve_families_on_cpu(arch, per_slot, capsys):
+    argv = ["--arch", arch, "--reduced", "--requests", "3", "--max-new",
+            "4", "--prompt-len", "8", "--max-len", "32", "--mca"]
+    if per_slot:
+        argv += ["--per-slot", "--check-every", "2"]
+    done = launch_serve.main(argv, device="cpu")
+    assert sorted(done) == [0, 1, 2] and all(len(v) == 4
+                                             for v in done.values())
+    assert "served 3 requests / 12 tokens" in capsys.readouterr().out

@@ -402,6 +402,20 @@ def test_launch_train_cli_on_cpu(mca, capsys):
         assert all(h["flops_reduction"] == 0.0 for h in out["history"])
 
 
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "olmoe-1b-7b"])
+def test_launch_train_families_on_cpu(arch, capsys):
+    """The launcher trains the reduced MLA and MoE models on the CPU,
+    with MCA on v_proj; the MoE loss carries the router's aux loss."""
+    from repro_torch.launch import train
+    argv = ["--arch", arch, "--reduced", "--steps", "3", "--batch", "2",
+            "--seq", "16", "--mca", "--alpha", "0.3"]
+    out = train.main(argv, device="cpu")
+    assert "finished 3 steps" in capsys.readouterr().out
+    losses = [h["loss"] for h in out["history"]]
+    assert out["steps"] == 3 and all(np.isfinite(losses))
+    assert all(h["flops_reduction"] > 1.0 for h in out["history"])
+
+
 def test_launch_train_checkpoints_and_resumes(tmp_path):
     from repro_torch.checkpoint import checkpoint as ckpt
     from repro_torch.launch import train
