@@ -32,7 +32,13 @@ Phases, each of which must pass:
              causal sq > skv (the rows that see no key must give out 0
              and lse -1e30; the others are compared), dh 32, a GQA group
              of 1, one query, and one f32 shape; an empty side (skv 0:
-             out 0, lse -1e30; sq 0: colmax 0).
+             out 0, lse -1e30; sq 0: colmax 0).  Every case runs again
+             with its telemetry buffer on: the outputs must be bitwise
+             those with it off and the buffer the plain version's (the
+             reference's counts: 1 launch, or 2 for a layer write; the
+             sampled blocks, rows or score tiles), also at m = 200 (the
+             reference's fallback counts R) and ``ATTN_TIMED`` in 64 x 64
+             tiles.
 4. parity  — a reduced starcoder2-3b (f32, 2 layers) served on the card
              gives the same tokens as on the CPU (and again in a second
              card run), hidden states and logits within 1e-4.
@@ -112,14 +118,33 @@ Phases, each of which must pass:
              flops_reduction > 1; two generations of the same prompts give
              the same tokens; prefill and decode p50, tokens/s, peak
              memory, wall time and one profiled prefill and decode burst.
+10. devtel — device telemetry through phase 5's engine, (a) between
+             phases 5b and 6, before any profiler runs: phase 5's
+             SlotBatcher pass four times, devtel off, on, on, off; with it
+             on,
+             ``kernels.kv_slot_update.device_launches`` = 2 x 30 layers x
+             decode steps (the reference's one launch per cache) and
+             ``device_rows_written`` 4 x that, ``kernels.mca_matmul``'s
+             device launches = its kernel calls = ``launch_counts()`` =
+             the routing's, its ``device_sampled_blocks`` the routing's
+             (row tiles x R per launch), ``mca.device_tier_hist.t*``
+             summed = the tier occupancy; the host's reads of device
+             tensors inside the decode bursts the same on as off; decode
+             step and prefill p50 of the four runs; phase 5b's entry
+             chain with devtel on (flash and colmax tiles, ragged
+             sum(r_tile)); (b) after phase 6: one profiled decode burst
+             with devtel on (launches beside phase 6's); each timed
+             kernel's device time with its buffer off, on, on, off.
 
-Builds four sources (one ``nvcc`` each, in parallel).  Ends with a
+Phase 10 runs between phases 5b and 7.  Builds four sources (one
+``nvcc`` each, in parallel).  Ends with a
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
 line and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero (and
 prints no result) on any failure or without a card.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import pathlib
@@ -162,6 +187,10 @@ ATTN_CASES = [(4, 24, 2, 512, 512, 128, True, "bfloat16"),   # starcoder2-3b
               (1, 2, 1, 1, 5, 64, True, "bfloat16"),         # one query
               (2, 24, 2, 256, 256, 128, True, "float32")]
 ATTN_TIMED = ATTN_CASES[0]
+# telemetry: one more fixed shape, m = 200 (the reference falls back on it
+# and counts R); ATTN_TIMED is also counted in 64 x 64 tiles
+TEL_MCA_CASES = [(200, 3072, 256, 2)]
+TEL_CHECKED = []                  # (what, [launches, count]) of phase 3
 SERVE_KERNELS = ("mca_matmul_fixed", "kv_slot_update")
 ENTRY_KERNELS = ("flash_attention", "attn_colmax", "mca_matmul_ragged")
 KV_SHAPE = (4, 512, 256)          # one layer's K (or V) cache, flattened
@@ -240,14 +269,32 @@ def _mca_inputs(m, d, f, r, seed, dtype=None):
     return x, w, idx, inv_rp
 
 
+def _tel_held(what, off, on, want):
+    """Telemetry on against off: every output bitwise equal (``on`` ends
+    with the buffer), and the buffer equal to the plain version's (the
+    reference's counts for the call)."""
+    import torch
+    offs = off if isinstance(off, tuple) else (off,)
+    for a, b in zip(offs, on[:-1]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: an output with telemetry on "
+                                 "differs from it off")
+    if not torch.equal(on[-1], want):
+        raise AssertionError(f"{what}: telemetry {on[-1].tolist()} != the "
+                             f"reference's counts {want.tolist()}")
+    TEL_CHECKED.append((what, on[-1][0, :2].tolist()))
+
+
 def phase_kernels():
-    """Each kernel vs its plain version; returns max abs errors."""
+    """Each kernel vs its plain version, and with its telemetry buffer on
+    against off; returns max abs errors."""
     import torch
     from repro_torch.kernels import cache_update, ref
     from repro_torch.kernels.mca_matmul import mca_matmul_fixed
     errs = {"mca_matmul_fixed": 0.0, "kv_slot_update": 0.0}
     cases = [(c, "sampled") for c in MCA_CASES + FAMILY_MCA_CASES] + [
-        ((128, 3072, 3072, 24), "exact")]
+        ((128, 3072, 3072, 24), "exact")] + [
+        (c, "telemetry") for c in TEL_MCA_CASES]
     for (m, d, f, r), mode in cases:
         x, w, idx, inv_rp = _mca_inputs(m, d, f, r, seed=m + f + r)
         if mode == "exact":
@@ -262,6 +309,11 @@ def phase_kernels():
                     f"R={r}", got, want, 1e-2 * float(want.abs().max()))
         if mode == "sampled":
             errs["mca_matmul_fixed"] = max(errs["mca_matmul_fixed"], err)
+        _tel_held(f"mca_matmul_fixed m={m} d={d} f={f} R={r}", got,
+                  mca_matmul_fixed(x, w, idx, inv_rp, block=128,
+                                   telemetry=True),
+                  ref.ref_mca_matmul_fixed(x, w, idx, inv_rp, 128,
+                                           telemetry=True)[1])
 
     # f32 variant (CUDA tensors of an f32 model take it), small shape
     x, w, idx, inv_rp = _mca_inputs(48, 256, 128, 2, seed=1,
@@ -270,6 +322,10 @@ def phase_kernels():
     got = mca_matmul_fixed(x, w, idx, inv_rp, block=128)
     _held("[kernels] mca_matmul_fixed f32 m=48 d=256 f=128 R=2", got, want,
           1e-4 * float(want.abs().max()))
+    _tel_held("mca_matmul_fixed f32 m=48", got,
+              mca_matmul_fixed(x, w, idx, inv_rp, block=128, telemetry=True),
+              ref.ref_mca_matmul_fixed(x, w, idx, inv_rp, 128,
+                                       telemetry=True)[1])
 
     g = torch.Generator(device="cuda").manual_seed(7)
     b, s, f = KV_SHAPE
@@ -282,6 +338,11 @@ def phase_kernels():
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         raise AssertionError("kv_slot_update [4,512,256] != plain version")
+    _tel_held("kv_slot_update [4,512,256]", got,
+              cache_update.kv_slot_update(cache.clone(), new, pos,
+                                          telemetry=True),
+              ref.ref_kv_slot_update(cache.clone(), new, pos,
+                                     telemetry=True)[1])
     stack = torch.randn(KV_STACK, generator=g, device="cuda").bfloat16()
     new5 = torch.randn((KV_STACK[1], 1) + KV_STACK[3:], generator=g,
                        device="cuda").bfloat16()
@@ -297,6 +358,9 @@ def phase_kernels():
     _check_layer_write(g)
     errs["mca_matmul_ragged"] = _check_ragged()
     errs.update(_check_attention())
+    log(f"[kernels] telemetry on against off: bitwise equal outputs, and "
+        f"the reference's counts, in {len(TEL_CHECKED)} calls: "
+        + "; ".join(f"{what} {n}" for what, n in TEL_CHECKED))
     return errs
 
 
@@ -338,17 +402,25 @@ def _check_layer_write(g):
         if host_int:
             t = s // 3
         got, want = [k.clone(), v.clone(), spos.clone()], [k, v, spos]
+        on = [x.clone() for x in got]
         gl = [x[7] for x in got] if lead else got
         wl = [x[7] for x in want] if lead else want
+        ol = [x[7] for x in on] if lead else on
         cache_update.kv_slot_update_layer(gl[0], kn, gl[1], vn, gl[2], t,
                                           window=window)
-        ref.ref_kv_slot_update_layer(wl[0], kn, wl[1], vn, wl[2], t,
-                                     window=window)
+        tel = cache_update.kv_slot_update_layer(ol[0], kn, ol[1], vn, ol[2],
+                                                t, window=window,
+                                                telemetry=True)
+        want_tel = ref.ref_kv_slot_update_layer(wl[0], kn, wl[1], vn, wl[2],
+                                                t, window=window,
+                                                telemetry=True)
         torch.cuda.synchronize()
         for name, a, w in zip(("K", "V", "slot_pos"), got, want):
             if not torch.equal(a, w):
                 raise AssertionError(f"kv_slot_update_layer {what}: {name} "
                                      "!= plain version")
+        _tel_held(f"kv_slot_update_layer {what}", tuple(got),
+                  tuple(on) + (tel,), want_tel)
     log("[kernels] kv_slot_update_layer (K, V, slot_pos in one launch) at "
         f"{'; '.join(c[0] for c in cases)}: bitwise equal to the plain "
         "version, untouched rows included")
@@ -377,20 +449,26 @@ def _check_family_layer_writes(g):
                 spos = None
             got = [k.clone(), v.clone()] + ([spos.clone()] if with_spos
                                             else [])
+            on = [x.clone() for x in got]
             want = [k, v] + ([spos] if with_spos else [])
             cache_update.kv_slot_update_layer(
                 got[0], kn, got[1], vn, got[2] if with_spos else None, t,
                 window=0)
-            ref.ref_kv_slot_update_layer(want[0], kn, want[1], vn,
-                                         want[2] if with_spos else None, t,
-                                         window=0)
+            tel = cache_update.kv_slot_update_layer(
+                on[0], kn, on[1], vn, on[2] if with_spos else None, t,
+                window=0, telemetry=True)
+            want_tel = ref.ref_kv_slot_update_layer(
+                want[0], kn, want[1], vn, want[2] if with_spos else None, t,
+                window=0, telemetry=True)
             torch.cuda.synchronize()
+            kind = f"{what} {'host-int' if host_int else 'per-row'} t"
             for name, a, w in zip(("K", "V", "slot_pos"), got, want):
                 if not torch.equal(a, w):
                     raise AssertionError(
-                        f"kv_slot_update_layer {what} "
-                        f"{'host-int' if host_int else 'per-row'} t: {name} "
+                        f"kv_slot_update_layer {kind}: {name} "
                         "!= plain version")
+            _tel_held(f"kv_slot_update_layer {kind}", tuple(got),
+                      tuple(on) + (tel,), want_tel)
     log("[kernels] kv_slot_update_layer at "
         f"{'; '.join(c[0] for c in cases)}, per-row and host-int t: bitwise "
         "equal to the plain version, untouched rows included")
@@ -432,6 +510,11 @@ def _check_ragged():
         got = mca_matmul_ragged(x, w, rt, idx, inv_rp, block=128)
         want = ref.ref_mca_matmul_ragged(x, w, rt, idx, inv_rp, 128)
         torch.cuda.synchronize()
+        _tel_held(f"mca_matmul_ragged m={m} f={f} r_tile={r_tile}", got,
+                  mca_matmul_ragged(x, w, rt, idx, inv_rp, block=128,
+                                    telemetry=True),
+                  ref.ref_mca_matmul_ragged(x, w, rt, idx, inv_rp, 128,
+                                            telemetry=True)[1])
         err = max(err, _held(
             f"[kernels] mca_matmul_ragged m={m} d={d} f={f} r_tile={r_tile}",
             got,
@@ -478,6 +561,10 @@ def _check_attention():
         torch.cuda.synchronize()
         shape = (f"[{b},{hq}/{hkv},{sq}x{skv},{dh}] "
                  f"{'causal' if causal else 'full'} {dtn}")
+        for blk in (128, 64) if (b, hq, hkv, sq, skv, dh, causal, dtn) == \
+                ATTN_TIMED else (128,):
+            _check_attention_telemetry(shape, q, k, v, out, lse, cm, scale,
+                                       causal, blk)
         rel = 2e-2 if dt == torch.bfloat16 else 2e-4
         # causal rows i < sq - skv see no key: out 0, lse -1e30 (the plain
         # version averages V there, ROADMAP Queue 3)
@@ -511,7 +598,30 @@ def _check_attention():
                              "-1e30, or attn_colmax with sq 0 is not 0")
     log("[kernels] bf16 flash_attention [2,4/2,96x0,128]: out 0, lse -1e30; "
         "attn_colmax [2,4/2,0x96,128]: 0")
+    tel_f = flash_attention(q, k, v, scale=128 ** -0.5, causal=True,
+                            telemetry=True)[2]
+    tel_c = attn_colmax(q0, k0, torch.empty((2, 4, 0), device="cuda"),
+                        scale=128 ** -0.5, causal=True, telemetry=True)[1]
+    if tel_f[0, :2].tolist() != [1, 0] or tel_c[0, :2].tolist() != [1, 0]:
+        raise AssertionError("an empty side's telemetry is not 1 launch, "
+                             "0 tiles")
     return errs
+
+
+def _check_attention_telemetry(shape, q, k, v, out, lse, cm, scale, causal,
+                               blk):
+    """flash and colmax with their telemetry buffers on, at the caller's
+    (blk, blk) tiles: bitwise the same outputs, and the reference's tiles
+    (the plain version's buffer)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.attn_colmax import attn_colmax
+    from repro_torch.kernels.flash_attention import flash_attention
+    kw = dict(scale=scale, causal=causal, block_q=blk, block_k=blk)
+    want = ref.ref_attention(q, k, v, telemetry=True, **kw)[2]
+    _tel_held(f"flash_attention {shape} tiles {blk}", (out, lse),
+              flash_attention(q, k, v, telemetry=True, **kw), want)
+    _tel_held(f"attn_colmax {shape} tiles {blk}", cm,
+              attn_colmax(q, k, lse, telemetry=True, **kw), want)
 
 
 # ------------------------------------------------------------- phase 4
@@ -704,12 +814,18 @@ def phase_serve():
 
 
 # ------------------------------------------------------------ phase 5b
-def phase_entry(engine):
+def phase_entry(engine, tel=False):
     """This slice's path: ``repro_torch.kernels`` at full width on layer 0
-    of the served model.  Returns the launch counts of the run."""
+    of the served model.  Returns the launch counts of the run.  With
+    ``tel`` (phase 10) devtel is on for the three calls, and their device
+    counts must be the reference's: 1 launch each, flash's and colmax's
+    128 x 128 score tiles, the ragged matmul's sum(r_tile)."""
+    import contextlib
     import numpy as np
     import torch
     from repro_torch import kernels
+    from repro_torch.kernels import telemetry
+    from repro_torch.obs import devtel
     from repro_torch.core import amm, schedule
     from repro_torch.kernels import ref
     from repro_torch.models import attention as attn
@@ -741,9 +857,14 @@ def phase_entry(engine):
     k_blocks = d // block
     torch.cuda.synchronize()
 
+    tag = "[devtel] entry" if tel else "[entry]"
+    scope = devtel.enabled_scope if tel else contextlib.nullcontext
+    base = devtel.totals()
     kernels.reset_launch_counts()
-    out, lse = kernels.flash_attention(qh, kh, vh, scale=scale, causal=True)
-    cm = kernels.attn_colmax(qh, kh, lse, scale=scale, causal=True)
+    with scope():
+        out, lse = kernels.flash_attention(qh, kh, vh, scale=scale,
+                                           causal=True)
+        cm = kernels.attn_colmax(qh, kh, lse, scale=scale, causal=True)
     r_cols = schedule.r_cols_from_attention(cm, s, alpha=cfg.mca.alpha, d=d)
     # value projection of the tokens sorted by their block budget: each
     # 128-row tile takes the largest budget of its rows
@@ -755,11 +876,26 @@ def phase_entry(engine):
     idx, _ = amm.draw_block_samples(gen, probs, r_tile.numel() * k_blocks)
     idx = idx.reshape(-1, k_blocks).contiguous()
     inv_rp = (1.0 / (r_tile[:, None] * probs[idx.long()])).float().contiguous()
-    yv = kernels.mca_matmul_ragged(xs, p0["wv"], r_tile, idx, inv_rp,
-                                   block=block)
+    with scope():
+        yv = kernels.mca_matmul_ragged(xs, p0["wv"], r_tile, idx, inv_rp,
+                                       block=block)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
-    log(f"[entry] launches {launches}")
+    log(f"{tag} launches {launches}")
+    if tel:
+        got = devtel.since(base)
+        tiles = telemetry.attn_tiles(b, hq, s, s, 128, 128, True)
+        want = {"kernels.flash_attention.device_launches": 1.0,
+                "kernels.flash_attention.device_tiles": float(tiles),
+                "kernels.attn_colmax.device_launches": 1.0,
+                "kernels.attn_colmax.device_tiles": float(tiles),
+                "kernels.mca_matmul_ragged.device_launches": 1.0,
+                "kernels.mca_matmul_ragged.device_sampled_blocks":
+                    float(sum(r_tile.tolist()))}
+        log(f"{tag} device counts {got}")
+        if got != want:
+            raise AssertionError(f"entry path device counts {got} != the "
+                                 f"reference's {want}")
     for name in ENTRY_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"entry path: {name} never launched")
@@ -1198,7 +1334,7 @@ def _host_breakdown(entry_host):
     b, s = KV_SHAPE[:2]
     row = kn[0].numel() * kn.element_size()
     args = (k.data_ptr(), kn.data_ptr(), row, v.data_ptr(), vn.data_ptr(),
-            row, spos.data_ptr(), t.data_ptr(), 1, 0, b, s, 0,
+            row, spos.data_ptr(), t.data_ptr(), 1, 0, b, s, 0, None,
             torch._C._cuda_getCurrentRawStream(0))
     empty = _layer_inputs(g, b=0)
     op, which = "kv_slot_update", "kernel_calls"
@@ -1717,11 +1853,13 @@ FAMILY_WAVE = 4                   # ContinuousBatcher requests of 32 tokens
 FAMILY_NEW = 16                   # new tokens per request
 
 
-def _expected_mca_launches(cfg, prefill_tokens):
-    """mca_matmul_fixed launches of the prefills that routed these token
-    counts: every sampled tier of v_proj and o_proj in every layer whose
-    capacity the dispatch sends to the kernel (``cap % min(128, cap) ==
-    0``, block >= 128), counted from the same ladders and capacities."""
+def _expected_mca(cfg, prefill_tokens):
+    """(launches, sampled blocks) of mca_matmul_fixed for the prefills
+    that routed these token counts: a launch for every sampled tier of
+    v_proj and o_proj in every layer whose capacity the dispatch sends to
+    the kernel (``cap % min(128, cap) == 0``, block >= 128), counted from
+    the same ladders and capacities; each counts, in the reference's
+    units, ``cap // min(128, cap)`` row tiles x the tier's R blocks."""
     from repro_torch.core import schedule
     from repro_torch.core.policy import _caps_for
     mca = cfg.mca
@@ -1729,17 +1867,19 @@ def _expected_mca_launches(cfg, prefill_tokens):
         dims = (cfg.mla_kv_lora, cfg.n_heads * cfg.mla_v_dim)
     else:
         dims = (cfg.d_model, cfg.n_heads * cfg.d_head)
-    n_launch = 0
+    n_launch = n_blocks = 0
     for n in prefill_tokens:
         for d in dims:
             block = mca.block_for(d)
             ladder = schedule.tier_ladder(d, block, mca.n_tiers,
                                           mca.r_min_blocks)
             caps = _caps_for(n, len(ladder), mca.capacity_fracs)
-            n_launch += sum(1 for t in range(len(ladder) - 1)
-                            if block >= 128
-                            and caps[t] % min(128, caps[t]) == 0)
-    return cfg.n_layers * n_launch
+            for t in range(len(ladder) - 1):
+                cap = caps[t]
+                if block >= 128 and cap % min(128, cap) == 0:
+                    n_launch += 1
+                    n_blocks += cap // min(128, cap) * ladder[t]
+    return cfg.n_layers * n_launch, cfg.n_layers * n_blocks
 
 
 def _serve_family(arch, sites):
@@ -1813,7 +1953,7 @@ def _serve_family(arch, sites):
         _check_path(what, snap, launches[name], steps, cfg.n_layers)
         got = launches[name]["mca_matmul_fixed"]
         calls = c.get("kernels.mca_matmul.kernel_calls", 0)
-        want = _expected_mca_launches(cfg, routed)
+        want = _expected_mca(cfg, routed)[0]
         occ = sum(v for k, v in c.items()
                   if k.startswith("serve.tier_occupancy"))
         want_occ = cfg.n_layers * 2 * c["serve.prefill_tokens"]
@@ -1873,6 +2013,271 @@ def phase_families():
     return launches, out
 
 
+# ------------------------------------------------------------ phase 10
+class _BurstReads:
+    """Counts the host's reads of CUDA tensors (``.cpu()``, ``.item()``,
+    ``.tolist()``, ``int``/``float``/``bool`` of a tensor and
+    ``torch.cuda.synchronize``) while installed: ``reads`` all of them,
+    ``burst_reads`` those made inside ``engine.decode_burst``."""
+
+    NAMES = ("cpu", "item", "tolist", "__int__", "__float__", "__bool__")
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.reads = self.burst_reads = self.bursts = 0
+        self._in_burst = False
+
+    def _note(self):
+        self.reads += 1
+        self.burst_reads += self._in_burst
+
+    def __enter__(self):
+        import torch
+        self._saved = {n: (torch.Tensor.__dict__.get(n),
+                           getattr(torch.Tensor, n)) for n in self.NAMES}
+        for n, (_, fn) in self._saved.items():
+            def counted(t, *a, _fn=fn, **k):
+                if t.is_cuda:
+                    self._note()
+                return _fn(t, *a, **k)
+            setattr(torch.Tensor, n, counted)
+        self._sync = torch.cuda.synchronize
+
+        def sync(*a, **k):
+            self._note()
+            return self._sync(*a, **k)
+        torch.cuda.synchronize = sync
+        inner = self.engine.decode_burst
+
+        def burst(*a, **k):
+            self.bursts += 1
+            self._in_burst = True
+            try:
+                return inner(*a, **k)
+            finally:
+                self._in_burst = False
+        self.engine.decode_burst = burst
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        for n, (own, _) in self._saved.items():
+            if own is None:
+                delattr(torch.Tensor, n)
+            else:
+                setattr(torch.Tensor, n, own)
+        torch.cuda.synchronize = self._sync
+        del self.engine.decode_burst
+
+
+def _slot_pass(engine, tel_on):
+    """Phase 5's SlotBatcher pass (its 8 requests, prompts 16..200, 32 new
+    tokens, bursts of 8) with devtel on or off: the snapshot, launch
+    counts, tokens of every prefill and the host's reads."""
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.kernels import ops
+    from repro_torch.obs import devtel
+    from repro_torch.serve import Request, SlotBatcher
+    cfg = engine.model.cfg
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, prompt=rng.integers(1, cfg.vocab_size,
+                                               int(rng.integers(16, 201))),
+                    max_new=32) for i in range(8)]
+    routed = []
+    inner = engine._prefill
+
+    def prefill(batch_in, mca_on):
+        routed.append(int(batch_in["tokens"].numel()))
+        return inner(batch_in, mca_on)
+
+    engine._prefill = prefill
+    try:
+        with obs.scoped() as reg, devtel.enabled_scope(tel_on):
+            sb = SlotBatcher(engine, check_every=8)
+            for r in reqs:
+                sb.submit(r)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            with _BurstReads(engine) as reads:
+                sb.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ops.launch_counts()
+            snap = reg.snapshot()
+    finally:
+        engine._prefill = inner
+    _check_requests(f"SlotBatcher (devtel {'on' if tel_on else 'off'})",
+                    reqs, cfg.vocab_size, 32)
+    return dict(snap=snap, launches=launches, routed=routed, wall=wall,
+                reads=reads.reads, burst_reads=reads.burst_reads,
+                bursts=reads.bursts)
+
+
+def _check_devtel_pass(cfg, run):
+    """The device counts of a devtel-on pass against the host's and the
+    routing's."""
+    c, n = run["snap"]["counters"], run["launches"]
+    steps = run["snap"]["histograms"]["serve.decode_step_seconds"][
+        "count"] * 8
+    kv = c.get("kernels.kv_slot_update.device_launches", 0)
+    rows = c.get("kernels.kv_slot_update.device_rows_written", 0)
+    mca = c.get("kernels.mca_matmul.device_launches", 0)
+    blocks = c.get("kernels.mca_matmul.device_sampled_blocks", 0)
+    want_launch, want_blocks = _expected_mca(cfg, run["routed"])
+    hist = sum(v for k, v in c.items()
+               if k.startswith("mca.device_tier_hist.t"))
+    occ = sum(v for k, v in c.items()
+              if k.startswith("serve.tier_occupancy.t"))
+    log(f"[devtel] SlotBatcher: {steps} decode steps; kv_slot_update "
+        f"device_launches {kv} (2 x {cfg.n_layers} layers x steps = "
+        f"{2 * cfg.n_layers * steps}; launch_counts {n['kv_slot_update']}), "
+        f"device_rows_written {rows}; mca_matmul device_launches {mca} "
+        f"(kernel_calls {c.get('kernels.mca_matmul.kernel_calls', 0)}, "
+        f"launch_counts {n['mca_matmul_fixed']}, routing {want_launch}), "
+        f"device_sampled_blocks {blocks} (routing {want_blocks}); "
+        f"device_tier_hist sum {hist} (tier_occupancy {occ})")
+    if not (kv == 2 * cfg.n_layers * steps == 2 * n["kv_slot_update"]
+            and rows == 4 * kv
+            and mca == c.get("kernels.mca_matmul.kernel_calls", -1)
+            == n["mca_matmul_fixed"] == want_launch
+            and blocks == want_blocks and hist == occ > 0):
+        raise AssertionError("device telemetry of the serve path does not "
+                             "match the host's counts and the routing")
+
+
+def _tel_kernel_times():
+    """Each phase-7 timed kernel through its launcher with the telemetry
+    buffer off and on, in turns (off, on, on, off): its own device time
+    (profiler, one trace of 20 calls each) and the time per call (CUDA
+    events, the buffer's zero fill included)."""
+    import torch
+    from repro_torch.kernels import cache_update
+    from repro_torch.kernels.attn_colmax import attn_colmax
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mca_matmul import (mca_matmul_fixed,
+                                                mca_matmul_ragged)
+    x, w, idx, inv_rp = _mca_inputs(*MCA_TIMED, seed=100)
+    m, d, f, r_tile, r_max = RAGGED_CASES[0]
+    rx, rw, rt, ridx, rinv = _ragged_inputs(m, d, f, r_tile, r_max, seed=300)
+    b, hq, hkv, sq, skv, dh, causal, dtn = ATTN_TIMED
+    q, k, v = _attn_inputs(b, hq, hkv, sq, skv, dh, getattr(torch, dtn),
+                           seed=200)
+    kw = dict(scale=dh ** -0.5, causal=causal)
+    _, lse = flash_attention(q, k, v, **kw)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    kc, vc, kn, vn, spos, t = _layer_inputs(g)
+    calls = {
+        "mca_matmul_fixed": (MCA_KERNEL, lambda tel: mca_matmul_fixed(
+            x, w, idx, inv_rp, block=128, telemetry=tel)),
+        "mca_matmul_ragged": (MCA_KERNEL, lambda tel: mca_matmul_ragged(
+            rx, rw, rt, ridx, rinv, block=128, telemetry=tel)),
+        "flash_attention": ("flash_fwd_bf16_kernel", lambda tel:
+                            flash_attention(q, k, v, telemetry=tel, **kw)),
+        "attn_colmax": ("colmax_bf16_kernel", lambda tel: attn_colmax(
+            q, k, lse, telemetry=tel, **kw)),
+        "kv_slot_update": ("kv_slot_update_kernel", lambda tel:
+                           cache_update.kv_slot_update_layer(
+                               kc, kn, vc, vn, spos, t, window=0,
+                               telemetry=tel)),
+    }
+    out = {}
+    turns = (False, True, True, False)
+    for name, (kern, fn) in calls.items():
+        per = [cuda_time_ms(functools.partial(fn, tel)) * 1e3
+               for tel in turns]                    # warms both up too
+        dev = [_device_us(functools.partial(fn, tel), kern) for tel in turns]
+        out[name] = {"device_us_off": [dev[0], dev[3]],
+                     "device_us_on": [dev[1], dev[2]],
+                     "per_call_us_off": [per[0], per[3]],
+                     "per_call_us_on": [per[1], per[2]]}
+        log(f"[devtel] {name} (telemetry off, on, on, off): device "
+            + ", ".join(_us(x) for x in dev) + "; per call "
+            + ", ".join(f"{x:.2f} us" for x in per))
+    return out
+
+
+def _burst_launches(engine):
+    """Device launches of one 8-step decode burst with devtel on, under
+    the profiler, set up as phase 6's (4 slots of 200-token prompts)."""
+    import numpy as np
+    from repro_torch.obs import devtel
+    rng = np.random.default_rng(1)
+    cfg = engine.model.cfg
+    box = [engine.init_slot_state()]
+    for slot in range(4):
+        box[0], _, _ = engine.prefill_into(
+            rng.integers(1, cfg.vocab_size, 200), box[0], slot, 32)
+
+    def burst():
+        box[0], _, _, _ = engine.decode_burst(box[0], 8)
+
+    with devtel.enabled_scope():
+        burst()                                     # warm up
+        _, avgs = _profile(burst)
+    return sum(e.count for e in _device_items(avgs))
+
+
+def phase_devtel(engine):
+    """Phase 10 (a), before phase 6 runs a profiler: device telemetry
+    through the full-width serve path.  Phase 5's SlotBatcher pass four
+    times, devtel off, on, on, off: with it on, the device counts equal
+    the host's and the routing's (60 kv_slot_update device launches a
+    decode step, MCA launches and blocks from the routing, the tier
+    histogram the stats'), and the host reads inside the decode bursts
+    are those with it off; decode step and prefill p50 of each run.  Then
+    the entry chain of phase 5b with devtel on."""
+    t0 = time.perf_counter()
+    cfg = engine.model.cfg
+    runs = [_slot_pass(engine, tel_on) for tel_on in (False, True, True,
+                                                      False)]
+    t_passes = time.perf_counter() - t0
+    for run, tel_on in zip(runs, (False, True, True, False)):
+        if tel_on:
+            _check_devtel_pass(cfg, run)
+    reads = {(r["reads"], r["burst_reads"], r["bursts"]) for r in runs}
+    log(f"[devtel] host reads of device tensors (all, inside decode "
+        f"bursts, bursts) per pass, off/on/on/off: "
+        f"{[(r['reads'], r['burst_reads'], r['bursts']) for r in runs]}")
+    if len(reads) != 1:
+        raise AssertionError("devtel changed the host's reads of the "
+                             "serve path")
+    p50 = [(r["snap"]["histograms"]["serve.decode_step_seconds"]["p50"],
+            r["snap"]["histograms"]["serve.prefill_seconds"]["p50"])
+           for r in runs]
+    log("[devtel] decode step p50 ms (off, on, on, off): "
+        + ", ".join(f"{a * 1e3:.2f}" for a, _ in p50)
+        + "; prefill p50 s: " + ", ".join(f"{b:.4f}" for _, b in p50))
+    phase_entry(engine, tel=True)
+    nums = {"decode_step_p50_s": [a for a, _ in p50],
+            "prefill_p50_s": [b for _, b in p50],
+            "reads_per_pass": runs[0]["reads"],
+            "burst_reads": runs[0]["burst_reads"],
+            "bursts": runs[0]["bursts"], "passes_s": t_passes,
+            "phase_s": time.perf_counter() - t0}
+    log(f"[devtel] phase 10 (a) passed in {nums['phase_s']:.1f}s (the four "
+        f"passes {t_passes:.1f}s)")
+    return nums
+
+
+def phase_devtel_profiled(engine, prof_off, nums):
+    """Phase 10 (b), after phase 6: one profiled decode burst with devtel
+    on (launches beside phase 6's), and each timed kernel with its
+    telemetry buffer on and off.  Adds to ``nums``."""
+    t0 = time.perf_counter()
+    launches = (prof_off["decode_burst_8"]["kernel_launches"],
+                _burst_launches(engine))
+    log(f"[devtel] device launches of an 8-step decode burst, devtel off "
+        f"(phase 6) and on: {launches}; the port's kernels launch as often "
+        "either way (launch_counts above)")
+    nums["profile_launches"] = launches
+    nums["kernels"] = _tel_kernel_times()
+    nums["phase_s"] += time.perf_counter() - t0
+    log(f"[devtel] phase 10 passed in {nums['phase_s']:.1f}s ((b) "
+        f"{time.perf_counter() - t0:.1f}s)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1889,7 +2294,9 @@ def main() -> int:
     phase_parity()
     launches, per, serve_nums, engine = phase_serve()
     launches.update(phase_entry(engine))
-    phase_profile(engine)
+    devtel_nums = phase_devtel(engine)
+    prof_off = phase_profile(engine)
+    phase_devtel_profiled(engine, prof_off, devtel_nums)
     del engine
     nums = phase_numbers()
     train_nums = phase_train()
@@ -1924,9 +2331,10 @@ def main() -> int:
         log(f"[numbers] {name} launches {launches[name]} ({per[name]})")
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f}s "
         f"(phase 8: {train_nums['phase_s']:.1f}s, phase 9: "
-        f"{fam_nums['phase_s']:.1f}s)")
+        f"{fam_nums['phase_s']:.1f}s, phase 10: "
+        f"{devtel_nums['phase_s']:.1f}s)")
     log(json.dumps({"serve": serve_nums, "train": train_nums,
-                    "families": fam_nums,
+                    "families": fam_nums, "devtel": devtel_nums,
                     "family_kernels": nums["families"], "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(smi)

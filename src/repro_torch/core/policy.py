@@ -10,7 +10,9 @@ pipeline
 
 and returns (y, stats) with the paper's FLOPs accounting.  Stats values
 that depend on the data stay device tensors; the host reads them once
-per step.  Device telemetry (``mca.device_tier_hist``) is not ported yet.
+per step.  While ``obs.devtel`` is enabled, each call also adds its tier
+histogram to ``mca.device_tier_hist.t{i}`` on the device (one add, no
+host read).
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ import math
 from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.obs import devtel
 
 from . import amm, dispatch, schedule
 
@@ -114,6 +118,11 @@ def mca_project(key: Optional[int], x: torch.Tensor, w: torch.Tensor,
                      for t, r_t in enumerate(ladder))
 
     y = y2.reshape(*lead, n, f)
+    # device-side tier occupancy, per call (the stats are read once per
+    # step); a no-op unless devtel is enabled
+    devtel.emit_vec(
+        tuple(f"mca.device_tier_hist.t{i}" for i in range(len(ladder))),
+        hist)
     stats = {"site": site, "exact_flops": exact_fl, "mca_flops": mca_fl,
              "tokens": flat_n, "tier_hist": hist,
              "mean_r_blocks": torch.mean(r_blocks.float()),

@@ -42,7 +42,15 @@
 //     tile in registers and reduce their column maxima through shared
 //     memory at the end).
 //   * dh in {32, 64, 128}; swizzles as in flash_attention.cu.
+//
+// Telemetry (telemetry.cuh; null buffer: off) counts the score tiles the
+// reference's kernel recomputes, in the caller's (block_q x block_k) units,
+// the same tiles flash counts: one thread of each block (the bf16
+// kernel's producer lane, once its loads are issued) adds those of its
+// query head whose first key it holds (tel::attn_tiles_of_keys; tel_bq = 0
+// where the reference falls back and counts none).
 #include "attn_f32.cuh"
+#include "telemetry.cuh"
 
 namespace {
 
@@ -67,7 +75,8 @@ colmax_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const float* __restrict__ lse, float* __restrict__ out,
                    int hq, int hkv, int sq, int skv, float scale_log2,
-                   int causal) {
+                   int causal, int* __restrict__ tel_buf, int tel_bq,
+                   int tel_bk) {
   using C = ColmaxCfg<DH>;
   constexpr int ST = C::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -114,6 +123,11 @@ colmax_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       __syncwarp();
       if (lane == 0) mbar_arrive(&full[s]);
     }
+    // telemetry once every load is issued: off the consumers' path
+    if (lane == 0)
+      tel::record(tel_buf, k0 == 0 && h == 0 && b == 0, 1,
+                  tel::attn_tiles_of_keys(k0, k0 + C::BKEY, tel_bq, tel_bk,
+                                          sq, skv, causal));
     return;
   }
 
@@ -177,7 +191,8 @@ template <int DH>
 __global__ void __launch_bounds__(256)
 colmax_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ lse, float* __restrict__ out,
-                  int hq, int hkv, int sq, int skv, float scale, int causal) {
+                  int hq, int hkv, int sq, int skv, float scale, int causal,
+                  int* __restrict__ tel_buf, int tel_bq, int tel_bk) {
   constexpr int FLD = ColmaxF32<DH>::FLD;
   extern __shared__ __align__(128) unsigned char smem[];
   float* ks = reinterpret_cast<float*>(smem);
@@ -191,6 +206,10 @@ colmax_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int off = skv - sq;
   const long long qbase = ((long long)b * hq + h) * sq;
   const long long kbase = ((long long)b * hkv + hk) * skv;
+  if (tid == 0)
+    tel::record(tel_buf, k0 == 0 && h == 0 && b == 0, 1,
+                tel::attn_tiles_of_keys(k0, k0 + BK, tel_bq, tel_bk, sq, skv,
+                                        causal));
 
   load_tile_f32<DH>(ks, k + (kbase + k0) * DH, BK, skv - k0, FLD);
   float cm[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -228,13 +247,16 @@ colmax_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int DH>
 int colmax_bf16(const void* q, const void* k, const void* lse, void* out,
                 int b, int hq, int hkv, int sq, int skv, float scale,
-                int causal, cudaStream_t stream) {
+                int causal, int* tel_buf, int tel_bq, int tel_bk,
+                cudaStream_t stream) {
   using C = ColmaxCfg<DH>;
   // sq == 0: no query sees any key, so colmax is 0; no Q tensor map can be
   // encoded over a dimension of 0
-  if (sq == 0)
-    return (int)cudaMemsetAsync(out, 0, (size_t)b * hq * skv * sizeof(float),
-                                stream);
+  if (sq == 0) {
+    const cudaError_t e = cudaMemsetAsync(
+        out, 0, (size_t)b * hq * skv * sizeof(float), stream);
+    return e != cudaSuccess ? (int)e : tel::mark(tel_buf, 1, stream);
+  }
   CUtensorMap tq, tk;
   int e = make_map<DH>(&tq, q, (long long)b * hq, sq, C::BQ);
   if (!e) e = make_map<DH>(&tk, k, (long long)b * hkv, skv, C::BKEY);
@@ -246,21 +268,22 @@ int colmax_bf16(const void* q, const void* k, const void* lse, void* out,
   const dim3 grid(hq, b, (skv + C::BKEY - 1) / C::BKEY);
   colmax_bf16_kernel<DH><<<grid, C::THREADS, C::smem(), stream>>>(
       tq, tk, (const float*)lse, (float*)out, hq, hkv, sq, skv,
-      log2_scale(scale), causal);
+      log2_scale(scale), causal, tel_buf, tel_bq, tel_bk);
   return (int)cudaGetLastError();
 }
 
 template <int DH>
 int colmax_f32(const void* q, const void* k, const void* lse, void* out,
                dim3 grid, int hq, int hkv, int sq, int skv, float scale,
-               int causal, cudaStream_t stream) {
+               int causal, int* tel_buf, int tel_bq, int tel_bk,
+               cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
       colmax_f32_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)ColmaxF32<DH>::smem());
   if (e != cudaSuccess) return (int)e;
   colmax_f32_kernel<DH><<<grid, 256, ColmaxF32<DH>::smem(), stream>>>(
       (const float*)q, (const float*)k, (const float*)lse, (float*)out, hq,
-      hkv, sq, skv, scale, causal);
+      hkv, sq, skv, scale, causal, tel_buf, tel_bq, tel_bk);
   return (int)cudaGetLastError();
 }
 
@@ -269,17 +292,20 @@ int colmax_f32(const void* q, const void* k, const void* lse, void* out,
 // q: [B, Hq, Sq, dh], k: [B, Hkv, Skv, dh] (both bf16 or both f32), lse:
 // [B, Hq, Sq] f32, out: [B, Hq, Skv] f32; all contiguous on the device,
 // Hq % Hkv == 0, dh in {32, 64, 128}, Skv >= 1 (Sq may be 0: colmax 0),
-// bf16 pointers 16-byte aligned (the wrapper checks).  Launches on `stream`, allocates nothing,
-// returns a cudaError_t.
+// bf16 pointers 16-byte aligned (the wrapper checks).  tel, tel_bq,
+// tel_bk as for flash_attention_bf16.  Launches on `stream`, allocates
+// nothing, returns a cudaError_t.
 extern "C" int attn_colmax_bf16(const void* q, const void* k, const void* lse,
                                 void* out, int b, int hq, int hkv, int sq,
                                 int skv, int dh, float scale, int causal,
+                                void* tel, int tel_bq, int tel_bk,
                                 void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  int* tb = (int*)tel;
   switch (dh) {
-    case 32: return colmax_bf16<32>(q, k, lse, out, b, hq, hkv, sq, skv, scale, causal, st);
-    case 64: return colmax_bf16<64>(q, k, lse, out, b, hq, hkv, sq, skv, scale, causal, st);
-    case 128: return colmax_bf16<128>(q, k, lse, out, b, hq, hkv, sq, skv, scale, causal, st);
+    case 32: return colmax_bf16<32>(q, k, lse, out, b, hq, hkv, sq, skv, scale, causal, tb, tel_bq, tel_bk, st);
+    case 64: return colmax_bf16<64>(q, k, lse, out, b, hq, hkv, sq, skv, scale, causal, tb, tel_bq, tel_bk, st);
+    case 128: return colmax_bf16<128>(q, k, lse, out, b, hq, hkv, sq, skv, scale, causal, tb, tel_bq, tel_bk, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -287,13 +313,15 @@ extern "C" int attn_colmax_bf16(const void* q, const void* k, const void* lse,
 extern "C" int attn_colmax_f32(const void* q, const void* k, const void* lse,
                                void* out, int b, int hq, int hkv, int sq,
                                int skv, int dh, float scale, int causal,
+                               void* tel, int tel_bq, int tel_bk,
                                void* stream) {
   const dim3 grid((skv + BK - 1) / BK, hq, b);
   cudaStream_t st = (cudaStream_t)stream;
+  int* tb = (int*)tel;
   switch (dh) {
-    case 32: return colmax_f32<32>(q, k, lse, out, grid, hq, hkv, sq, skv, scale, causal, st);
-    case 64: return colmax_f32<64>(q, k, lse, out, grid, hq, hkv, sq, skv, scale, causal, st);
-    case 128: return colmax_f32<128>(q, k, lse, out, grid, hq, hkv, sq, skv, scale, causal, st);
+    case 32: return colmax_f32<32>(q, k, lse, out, grid, hq, hkv, sq, skv, scale, causal, tb, tel_bq, tel_bk, st);
+    case 64: return colmax_f32<64>(q, k, lse, out, grid, hq, hkv, sq, skv, scale, causal, tb, tel_bq, tel_bk, st);
+    case 128: return colmax_f32<128>(q, k, lse, out, grid, hq, hkv, sq, skv, scale, causal, tb, tel_bq, tel_bk, st);
   }
   return (int)cudaErrorInvalidValue;
 }

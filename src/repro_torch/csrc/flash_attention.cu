@@ -63,7 +63,16 @@
 // overlaps P V (FlashAttention-3's intra-warpgroup pipelining), and a
 // persistent grid of two blocks per SM that loads the next work item's Q
 // during the current one.
+//
+// Telemetry (telemetry.cuh; null buffer: off) counts score tiles in the
+// caller's (block_q x block_k) units, as the reference's kernel computes
+// them: one thread of each block (the bf16 kernel's producer lane, once
+// its loads are issued) adds the tiles of its query head whose first row
+// it holds (tel::attn_tiles_of_rows; tel_bq = 0 where the reference falls
+// back and counts none).  skv == 0 marks the call from the helper kernel
+// that writes lse.
 #include "attn_f32.cuh"
+#include "telemetry.cuh"
 
 namespace {
 
@@ -141,7 +150,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_v,
                       __nv_bfloat16* __restrict__ out,
                       float* __restrict__ lse, int hq, int hkv, int sq,
-                      int skv, float scale_log2, int causal) {
+                      int skv, float scale_log2, int causal,
+                      int* __restrict__ tel_buf, int tel_bq, int tel_bk) {
   using C = FlashCfg<DH>;
   constexpr int ST = C::STAGES, NO = DH / 2;
   extern __shared__ unsigned char smem_raw[];
@@ -189,6 +199,11 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_expect_tx(&v_full[s], C::KV_BYTES);
         tma_tile<DH>(vs + s * C::KV_BYTES, &tm_v, &v_full[s], C::BKV, k0, kh);
       }
+      // telemetry once every load is issued: off the consumers' path
+      tel::record(tel_buf, blockIdx.x == 0 && blockIdx.y == 0 &&
+                               blockIdx.z == 0, 1,
+                  tel::attn_tiles_of_rows(q0, q0 + C::BQ, tel_bq, tel_bk, sq,
+                                          skv, causal));
     }
     return;
   }
@@ -277,7 +292,8 @@ __global__ void __launch_bounds__(256)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ lse, int hq, int hkv, int sq,
-                     int skv, float scale, int causal) {
+                     int skv, float scale, int causal,
+                     int* __restrict__ tel_buf, int tel_bq, int tel_bk) {
   using T = FlashF32<DH>;
   constexpr int FLD = T::FLD, PLD = T::PLD, NJ = DH / 16;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -293,6 +309,10 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long long qbase = ((long long)b * hq + h) * sq;
   const long long kbase = ((long long)b * hkv + hk) * skv;
   const int q_valid = min(BQ, sq - q0);
+  if (threadIdx.x == 0)
+    tel::record(tel_buf, blockIdx.x == 0 && h == 0 && b == 0, 1,
+                tel::attn_tiles_of_rows(q0, q0 + BQ, tel_bq, tel_bk, sq, skv,
+                                        causal));
 
   load_tile_f32<DH>(qs, q + (qbase + q0) * DH, BQ, q_valid, FLD);
   float o[4][NJ], m[4], l[4];
@@ -372,8 +392,10 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-__global__ void fill_no_key_lse_kernel(float* lse, long long n) {
+__global__ void fill_no_key_lse_kernel(float* lse, long long n,
+                                       int* tel_buf) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i == 0) tel::record(tel_buf, true, 1, 0);
   if (i < n) lse[i] = NEG_INF;
 }
 
@@ -381,22 +403,24 @@ __global__ void fill_no_key_lse_kernel(float* lse, long long n) {
 // writes such rows.  No K or V tensor map can be encoded over a dimension
 // of 0, so these are written without the kernel.
 int flash_no_keys(void* out, void* lse, long long rows, int dh,
-                  cudaStream_t stream) {
+                  int* tel_buf, cudaStream_t stream) {
   const cudaError_t e = cudaMemsetAsync(
       out, 0, (size_t)rows * dh * sizeof(__nv_bfloat16), stream);
   if (e != cudaSuccess) return (int)e;
   fill_no_key_lse_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(
-      (float*)lse, rows);
+      (float*)lse, rows, tel_buf);
   return (int)cudaGetLastError();
 }
 
 template <int DH>
 int flash_bf16(const void* q, const void* k, const void* v, void* out,
                void* lse, int b, int hq, int hkv, int sq, int skv,
-               float scale, int causal, cudaStream_t stream) {
+               float scale, int causal, int* tel_buf, int tel_bq, int tel_bk,
+               cudaStream_t stream) {
   using C = FlashCfg<DH>;
   if (skv == 0)
-    return flash_no_keys(out, lse, (long long)b * hq * sq, DH, stream);
+    return flash_no_keys(out, lse, (long long)b * hq * sq, DH, tel_buf,
+                         stream);
   CUtensorMap tq, tk, tv;
   int e = make_map<DH>(&tq, q, (long long)b * hq, sq, C::BQ);
   if (!e) e = make_map<DH>(&tk, k, (long long)b * hkv, skv, C::BKV);
@@ -409,21 +433,22 @@ int flash_bf16(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(hq, b, (sq + C::BQ - 1) / C::BQ);
   flash_fwd_bf16_kernel<DH><<<grid, C::THREADS, C::smem(), stream>>>(
       tq, tk, tv, (__nv_bfloat16*)out, (float*)lse, hq, hkv, sq, skv,
-      log2_scale(scale), causal);
+      log2_scale(scale), causal, tel_buf, tel_bq, tel_bk);
   return (int)cudaGetLastError();
 }
 
 template <int DH>
 int flash_f32(const void* q, const void* k, const void* v, void* out,
               void* lse, dim3 grid, int hq, int hkv, int sq, int skv,
-              float scale, int causal, cudaStream_t stream) {
+              float scale, int causal, int* tel_buf, int tel_bq, int tel_bk,
+              cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_f32_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)FlashF32<DH>::smem());
   if (e != cudaSuccess) return (int)e;
   flash_fwd_f32_kernel<DH><<<grid, 256, FlashF32<DH>::smem(), stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out,
-      (float*)lse, hq, hkv, sq, skv, scale, causal);
+      (float*)lse, hq, hkv, sq, skv, scale, causal, tel_buf, tel_bq, tel_bk);
   return (int)cudaGetLastError();
 }
 
@@ -432,17 +457,22 @@ int flash_f32(const void* q, const void* k, const void* v, void* out,
 // q: [B, Hq, Sq, dh], k/v: [B, Hkv, Skv, dh], out: [B, Hq, Sq, dh] (q's
 // dtype), lse: [B, Hq, Sq] f32; all contiguous on the device, Hq % Hkv == 0,
 // dh in {32, 64, 128}, Sq >= 1 (Skv may be 0: every row then sees no key),
-// bf16 pointers 16-byte aligned (the wrapper checks).  Launches on `stream`, allocates nothing, returns a cudaError_t.
+// bf16 pointers 16-byte aligned (the wrapper checks).  tel: a zeroed
+// [1, 8] int32 telemetry buffer or NULL; (tel_bq, tel_bk): the caller's
+// tile, (0, 0) where the reference falls back.  Launches on `stream`,
+// allocates nothing, returns a cudaError_t.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* out, void* lse,
                                     int b, int hq, int hkv, int sq, int skv,
                                     int dh, float scale, int causal,
+                                    void* tel, int tel_bq, int tel_bk,
                                     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  int* tb = (int*)tel;
   switch (dh) {
-    case 32: return flash_bf16<32>(q, k, v, out, lse, b, hq, hkv, sq, skv, scale, causal, st);
-    case 64: return flash_bf16<64>(q, k, v, out, lse, b, hq, hkv, sq, skv, scale, causal, st);
-    case 128: return flash_bf16<128>(q, k, v, out, lse, b, hq, hkv, sq, skv, scale, causal, st);
+    case 32: return flash_bf16<32>(q, k, v, out, lse, b, hq, hkv, sq, skv, scale, causal, tb, tel_bq, tel_bk, st);
+    case 64: return flash_bf16<64>(q, k, v, out, lse, b, hq, hkv, sq, skv, scale, causal, tb, tel_bq, tel_bk, st);
+    case 128: return flash_bf16<128>(q, k, v, out, lse, b, hq, hkv, sq, skv, scale, causal, tb, tel_bq, tel_bk, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -451,13 +481,15 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* out, void* lse,
                                    int b, int hq, int hkv, int sq, int skv,
                                    int dh, float scale, int causal,
+                                   void* tel, int tel_bq, int tel_bk,
                                    void* stream) {
   const dim3 grid((sq + BQ - 1) / BQ, hq, b);
   cudaStream_t st = (cudaStream_t)stream;
+  int* tb = (int*)tel;
   switch (dh) {
-    case 32: return flash_f32<32>(q, k, v, out, lse, grid, hq, hkv, sq, skv, scale, causal, st);
-    case 64: return flash_f32<64>(q, k, v, out, lse, grid, hq, hkv, sq, skv, scale, causal, st);
-    case 128: return flash_f32<128>(q, k, v, out, lse, grid, hq, hkv, sq, skv, scale, causal, st);
+    case 32: return flash_f32<32>(q, k, v, out, lse, grid, hq, hkv, sq, skv, scale, causal, tb, tel_bq, tel_bk, st);
+    case 64: return flash_f32<64>(q, k, v, out, lse, grid, hq, hkv, sq, skv, scale, causal, tb, tel_bq, tel_bk, st);
+    case 128: return flash_f32<128>(q, k, v, out, lse, grid, hq, hkv, sq, skv, scale, causal, tb, tel_bq, tel_bk, st);
   }
   return (int)cudaErrorInvalidValue;
 }

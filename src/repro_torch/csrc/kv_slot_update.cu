@@ -36,8 +36,16 @@
 // Rows whose slot falls outside [0, S) skip all three writes.  The
 // reference differs there: its Pallas kernel clamps the position, and its
 // slot_pos .at[].set drops the write.  Callers pass in-range positions.
+//
+// Telemetry (telemetry.cuh; null buffer: off): the reference's meaning, one
+// launch per cache written, so the layer write marks 2 launches and each
+// row's block adds 2 rows written (1 and 1 for the entry point's single
+// cache); a row whose slot is out of range still counts, as the reference
+// counts B rows per call.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "telemetry.cuh"
 
 // One cache [B, S, row_bytes] and its new rows [B, 1, row_bytes], both
 // contiguous; `units` is the row's length in copy units (16 B or 1 B).
@@ -74,8 +82,12 @@ __global__ void kv_slot_update_kernel(CacheRows k, CacheRows v,
                                       int* __restrict__ slot_pos,
                                       const int* __restrict__ t_ptr,
                                       long long t_stride, int t_val, int S,
-                                      int wrap) {
+                                      int wrap, int* __restrict__ tel_buf) {
   const int b = blockIdx.x;
+  if (threadIdx.x == 0) {
+    const int caches = v.cache != nullptr ? 2 : 1;
+    tel::record(tel_buf, b == 0, caches, caches);
+  }
   const int t = t_ptr ? t_ptr[b * t_stride] : t_val;
   int slot = t;
   if (wrap) {                       // Python's mod: the result has S's sign
@@ -96,14 +108,15 @@ __global__ void kv_slot_update_kernel(CacheRows k, CacheRows v,
 
 static int launch(const CacheRows& k, const CacheRows& v, void* slot_pos,
                   const void* t, long long t_stride, int t_val, int B, int S,
-                  int wrap, void* stream) {
+                  int wrap, int* tel_buf, void* stream) {
   if (B == 0 || S == 0) return (int)cudaSuccess;
   const long long units = k.units + v.units;
   int threads = units < 256 ? (int)units : 256;
   threads = ((threads + 31) / 32) * 32;
   if (threads < 32) threads = 32;
   kv_slot_update_kernel<<<B, threads, 0, (cudaStream_t)stream>>>(
-      k, v, (int*)slot_pos, (const int*)t, t_stride, t_val, S, wrap);
+      k, v, (int*)slot_pos, (const int*)t, t_stride, t_val, S, wrap,
+      tel_buf);
   return (int)cudaGetLastError();
 }
 
@@ -111,24 +124,26 @@ static int launch(const CacheRows& k, const CacheRows& v, void* slot_pos,
 // of a stacked cache qualifies); k_new/v_new: [B, 1, *] contiguous, the
 // rows' widths may differ; slot_pos: [B, S] int32 or NULL; t: int32 device
 // pointer read at t[b * t_stride] (t_stride 0 broadcasts one position), or
-// NULL to use t_val for every row; wrap != 0 takes slot = t mod S.
-// Launches on `stream`, allocates nothing, returns cudaGetLastError().
+// NULL to use t_val for every row; wrap != 0 takes slot = t mod S; tel:
+// a zeroed [1, 8] int32 telemetry buffer or NULL.  Launches on `stream`,
+// allocates nothing, returns cudaGetLastError().
 extern "C" int kv_slot_update_layer(void* k_cache, const void* k_new,
                                     long long k_row_bytes, void* v_cache,
                                     const void* v_new, long long v_row_bytes,
                                     void* slot_pos, const void* t,
                                     long long t_stride, int t_val, int B,
-                                    int S, int wrap, void* stream) {
+                                    int S, int wrap, void* tel,
+                                    void* stream) {
   return launch(make_rows(k_cache, k_new, k_row_bytes),
                 make_rows(v_cache, v_new, v_row_bytes), slot_pos, t,
-                t_stride, t_val, B, S, wrap, stream);
+                t_stride, t_val, B, S, wrap, (int*)tel, stream);
 }
 
 // The reference's entry point: cache [B, S, row_bytes] contiguous; src
-// [B, 1, row_bytes] contiguous; pos [B] int32 on the device.
+// [B, 1, row_bytes] contiguous; pos [B] int32 on the device; tel as above.
 extern "C" int kv_slot_update(void* cache, const void* src, const void* pos,
-                              int B, int S, long long row_bytes,
+                              int B, int S, long long row_bytes, void* tel,
                               void* stream) {
   return launch(make_rows(cache, src, row_bytes), make_rows(NULL, NULL, 0),
-                NULL, pos, 1, 0, B, S, 0, stream);
+                NULL, pos, 1, 0, B, S, 0, (int*)tel, stream);
 }

@@ -74,7 +74,19 @@
 //
 // f32 inputs take a plain FMA path (256 threads, 64 x 64 output tiles,
 // each thread 4 x 4 outputs); it is on no timed path.
+//
+// Telemetry (telemetry.cuh; null buffer: off) counts sampled blocks in the
+// reference's units, one per (reference row tile, sample) it accumulates:
+// the first block of each row tile (column tile 0, first 64-row chunk,
+// cluster rank 0) adds tel_mul x its tile's clamped count r, or, with
+// tel_raw, tel_mul x r_tile[t] as given.  The wrapper passes tel_mul = the
+// reference's row tiles for the fixed kernel where its Pallas kernel takes
+// the shape (1 where it falls back: its dense path counts R), and tel_raw
+// for a ragged call the reference sends to its fallback, which sums r_tile
+// unclamped.  The split over a cluster and the column tiles therefore
+// count nothing twice.
 #include "hopper.cuh"
+#include "telemetry.cuh"
 
 namespace {
 
@@ -134,7 +146,8 @@ mca_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
                 const int* __restrict__ idx,
                 const float* __restrict__ inv_rp,
                 __nv_bfloat16* __restrict__ out, int bm, int f, int r_max,
-                int block, int nblocks) {
+                int block, int nblocks, int* __restrict__ tel_buf,
+                int tel_mul, int tel_raw) {
   constexpr int ST = Mma::STAGES, BM = Mma::BM, BN = Mma::BN;
   constexpr int LD = Mma::RED_LD, X_BYTES = BM * KC * 2;
   constexpr int STAGE = Mma::stage_bytes(KC);
@@ -153,6 +166,9 @@ mca_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
   const int n0 = blockIdx.x * BN;
   const int rank = cs > 1 ? (int)cluster_rank() : 0;
   const int r = r_tile ? max(0, min(r_tile[t], r_max)) : r_max;
+  if (threadIdx.x == 0 && blockIdx.x == 0 && row0 == 0 && blockIdx.z == 0)
+    tel::record(tel_buf, blockIdx.y == 0, 1,
+                tel_mul * (tel_raw ? r_tile[t] : r));
   const int cps = block / KC;                  // chunks per sample
   const int n_st = r * cps;                    // stages of this row tile
   const int live = min(cs, n_st);              // blocks with a stage
@@ -359,7 +375,8 @@ int cluster_size(int tiles, int n_st) {
 template <int KC>
 int mca_bf16(const void* x, const void* w, const void* r_tile,
              const void* idx, const void* inv_rp, void* out, int m_tiles,
-             int bm, int d, int f, int r_max, int block, cudaStream_t stream) {
+             int bm, int d, int f, int r_max, int block, int* tel_buf,
+             int tel_mul, int tel_raw, cudaStream_t stream) {
   const int chunks = (bm + Mma::BM - 1) / Mma::BM;
   const int col_tiles = (f + Mma::BN - 1) / Mma::BN;
   const int cs = cluster_size(col_tiles * m_tiles * chunks,
@@ -388,18 +405,19 @@ int mca_bf16(const void* x, const void* w, const void* r_tile,
   return (int)cudaLaunchKernelEx(
       &cfg, mca_bf16_kernel<KC>, tx, tw, (const int*)r_tile, (const int*)idx,
       (const float*)inv_rp, (__nv_bfloat16*)out, bm, f, r_max, block,
-      d / block);
+      d / block, tel_buf, tel_mul, tel_raw);
 }
 
 int mca_bf16_any(const void* x, const void* w, const void* r_tile,
                  const void* idx, const void* inv_rp, void* out, int m_tiles,
-                 int bm, int d, int f, int r_max, int block, void* stream) {
+                 int bm, int d, int f, int r_max, int block, void* tel,
+                 int tel_mul, int tel_raw, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (block % 64 == 0)
     return mca_bf16<64>(x, w, r_tile, idx, inv_rp, out, m_tiles, bm, d, f,
-                        r_max, block, st);
+                        r_max, block, (int*)tel, tel_mul, tel_raw, st);
   return mca_bf16<32>(x, w, r_tile, idx, inv_rp, out, m_tiles, bm, d, f,
-                      r_max, block, st);
+                      r_max, block, (int*)tel, tel_mul, tel_raw, st);
 }
 
 // ------------------------------------------------------------------- f32
@@ -479,10 +497,13 @@ __global__ void __launch_bounds__(256)
 mca_fixed_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                      const int* __restrict__ idx,
                      const float* __restrict__ inv_rp, float* __restrict__ out,
-                     int m, int d, int f, int r, int block) {
+                     int m, int d, int f, int r, int block,
+                     int* __restrict__ tel_buf, int tel_mul) {
   __shared__ float xs[FKC][BM + 1];   // transposed x tile
   __shared__ float ws[FKC][BN];
   const int m0 = blockIdx.y * BM;
+  if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0)
+    tel::record(tel_buf, true, 1, tel_mul * r);
   mca_tile_f32(x, w, idx, inv_rp, out, r, m0, min(m0 + BM, m),
                blockIdx.x * BN, d, f, block, xs, ws);
 }
@@ -506,11 +527,14 @@ mca_ragged_f32_kernel(const float* __restrict__ x,
                       const int* __restrict__ idx,
                       const float* __restrict__ inv_rp,
                       float* __restrict__ out,
-                      int d, int f, int bm, int r_max, int block) {
+                      int d, int f, int bm, int r_max, int block,
+                      int* __restrict__ tel_buf, int tel_raw) {
   __shared__ float xs[FKC][BM + 1];
   __shared__ float ws[FKC][BN];
   int t, row0, row_end, r;
   ragged_rows(r_tile, bm, r_max, &t, &row0, &row_end, &r);
+  if (threadIdx.x == 0 && blockIdx.x == 0 && row0 == t * bm)
+    tel::record(tel_buf, blockIdx.y == 0, 1, tel_raw ? r_tile[t] : r);
   const long long s0 = (long long)t * r_max;
   mca_tile_f32(x, w, idx + s0, inv_rp + s0, out, r, row0, row_end,
                blockIdx.x * BN, d, f, block, xs, ws);
@@ -525,38 +549,43 @@ dim3 ragged_grid(int m_tiles, int bm, int f) {
 // x: [m, d], w: [d, f], out: [m, f], all contiguous, same dtype (bf16);
 // idx: [r] int32, inv_rp: [r] f32, on the device.  Needs d % block == 0,
 // block % 32 == 0, f % 8 == 0 and 16-byte aligned x/w/out (the wrapper
-// checks).  Launches on `stream`, allocates nothing, returns a cudaError_t.
+// checks).  tel: a zeroed [1, 8] int32 telemetry buffer or NULL; tel_mul:
+// the sampled blocks each sample counts (see the top of this file).
+// Launches on `stream`, allocates nothing, returns a cudaError_t.
 extern "C" int mca_matmul_fixed_bf16(const void* x, const void* w,
                                      const void* idx, const void* inv_rp,
                                      void* out, int m, int d, int f, int r,
-                                     int block, void* stream) {
+                                     int block, void* tel, int tel_mul,
+                                     void* stream) {
   return mca_bf16_any(x, w, nullptr, idx, inv_rp, out, 1, m, d, f, r, block,
-                      stream);
+                      tel, tel_mul, 0, stream);
 }
 
 // f32 variant: needs d % block == 0 and block % 16 == 0.
 extern "C" int mca_matmul_fixed_f32(const void* x, const void* w,
                                     const void* idx, const void* inv_rp,
                                     void* out, int m, int d, int f, int r,
-                                    int block, void* stream) {
+                                    int block, void* tel, int tel_mul,
+                                    void* stream) {
   dim3 grid((f + BN - 1) / BN, (m + BM - 1) / BM);
   mca_fixed_f32_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)w, (const int*)idx, (const float*)inv_rp,
-      (float*)out, m, d, f, r, block);
+      (float*)out, m, d, f, r, block, (int*)tel, tel_mul);
   return (int)cudaGetLastError();
 }
 
 // Ragged, bf16.  x: [m, d], w: [d, f], out: [m, f] with m = m_tiles * bm;
 // r_tile: [m_tiles] int32; idx: [m_tiles, r_max] int32; inv_rp:
 // [m_tiles, r_max] f32; all contiguous on the device.  The same needs as
-// the fixed bf16 kernel.
+// the fixed bf16 kernel.  tel as above; tel_raw counts r_tile unclamped.
 extern "C" int mca_matmul_ragged_bf16(const void* x, const void* w,
                                       const void* r_tile, const void* idx,
                                       const void* inv_rp, void* out,
                                       int m_tiles, int bm, int d, int f,
-                                      int r_max, int block, void* stream) {
+                                      int r_max, int block, void* tel,
+                                      int tel_raw, void* stream) {
   return mca_bf16_any(x, w, r_tile, idx, inv_rp, out, m_tiles, bm, d, f,
-                      r_max, block, stream);
+                      r_max, block, tel, 1, tel_raw, stream);
 }
 
 // Ragged, f32: needs d % block == 0 and block % 16 == 0.
@@ -564,10 +593,12 @@ extern "C" int mca_matmul_ragged_f32(const void* x, const void* w,
                                      const void* r_tile, const void* idx,
                                      const void* inv_rp, void* out,
                                      int m_tiles, int bm, int d, int f,
-                                     int r_max, int block, void* stream) {
+                                     int r_max, int block, void* tel,
+                                     int tel_raw, void* stream) {
   mca_ragged_f32_kernel<<<ragged_grid(m_tiles, bm, f), 256, 0,
                           (cudaStream_t)stream>>>(
       (const float*)x, (const float*)w, (const int*)r_tile, (const int*)idx,
-      (const float*)inv_rp, (float*)out, d, f, bm, r_max, block);
+      (const float*)inv_rp, (float*)out, d, f, bm, r_max, block, (int*)tel,
+      tel_raw);
   return (int)cudaGetLastError();
 }

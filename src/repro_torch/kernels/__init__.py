@@ -9,7 +9,10 @@ Pallas TPU kernels, with their plain PyTorch versions for CPU tensors:
                      layer form, ops.kv_slot_update_layer, writes a decode
                      layer's K, V and slot_pos in one launch)
 
-Not ported yet: the in-kernel telemetry buffer (see ROADMAP.md).
+With ``telemetry=True`` each launcher (and plain version) also returns
+the ``[1, 8]`` int32 buffer its kernel fills in the reference's units
+(``kernels/telemetry.py``); the wrappers fold it into ``obs.devtel``
+while that is enabled.
 """
 from .ops import (attn_colmax, flash_attention, kv_slot_update, launch_counts,
                   mca_matmul, mca_matmul_ragged, reset_launch_counts)

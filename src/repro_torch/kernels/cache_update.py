@@ -20,6 +20,11 @@ Rows whose slot falls outside [0, S) are skipped.
 The checks raise on what the kernel does not take; they and the launch
 are kept cheap (integer device ids, the raw current stream, one ctypes
 call), since the call is bound by its host issue, not by its 8 KB.
+
+With ``telemetry=True`` the kernel also fills a ``[1, 8]`` int32 buffer
+(``kernels/telemetry.py``) in the reference's meaning of one launch per
+cache written: the entry point 1 launch and B rows, the layer write 2
+launches and 2B rows (rows whose slot is out of range counted).
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import functools
 import torch
 
 from . import _build
+from . import telemetry as _tel
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _INT32_RANGE = range(-2 ** 31, 2 ** 31)
@@ -38,9 +44,9 @@ _INT32_RANGE = range(-2 ** 31, 2 ** 31)
 def _lib():
     """The built library, its two C entry points set up once."""
     lib = _build.load("kv_slot_update")
-    lib.kv_slot_update.argtypes = [_P, _P, _P, _I, _I, _LL, _P]
+    lib.kv_slot_update.argtypes = [_P, _P, _P, _I, _I, _LL, _P, _P]
     lib.kv_slot_update_layer.argtypes = [_P, _P, _LL, _P, _P, _LL, _P, _P,
-                                         _LL, _I, _I, _I, _I, _P]
+                                         _LL, _I, _I, _I, _I, _P, _P]
     lib.kv_slot_update.restype = lib.kv_slot_update_layer.restype = _I
     return lib
 
@@ -51,11 +57,12 @@ def _stream(device_index: int) -> int:
 
 
 def kv_slot_update(cache: torch.Tensor, new: torch.Tensor,
-                   pos: torch.Tensor) -> torch.Tensor:
+                   pos: torch.Tensor, *, telemetry: bool = False):
     """cache: [B, S, ...] (written in place and returned); new: [B, 1, ...]
     with the same trailing dims and dtype; pos: [B] int32.  All on one
     CUDA device and contiguous (a per-layer view ``stack[l]`` of a
     layer-stacked cache qualifies).  Positions outside [0, S) are skipped.
+    With ``telemetry=True`` returns (cache, buffer).
     """
     dev = cache.get_device()
     if not (dev >= 0 and new.get_device() == dev
@@ -74,14 +81,16 @@ def kv_slot_update(cache: torch.Tensor, new: torch.Tensor,
     if not (cache.is_contiguous() and new.is_contiguous()
             and pos.is_contiguous()):
         raise ValueError("kv_slot_update kernel needs contiguous tensors")
+    tel = _tel.tel_buffer(cache.device) if telemetry else None
     if b == 0 or s == 0:
-        return cache
+        return (cache, _tel.mark(tel, 1, b)) if telemetry else cache
     row_bytes = new.numel() // b * new.element_size()
     _build.check(_lib().kv_slot_update(
         cache.data_ptr(), new.data_ptr(), pos.data_ptr(), b, s, row_bytes,
-        _stream(dev)), "kv_slot_update")
+        None if tel is None else tel.data_ptr(), _stream(dev)),
+        "kv_slot_update")
     kv_slot_update.launches += 1
-    return cache
+    return (cache, tel) if telemetry else cache
 
 
 kv_slot_update.launches = 0
@@ -96,7 +105,8 @@ def _describe(x) -> str:
 
 def kv_slot_update_layer(k_cache: torch.Tensor, k_new: torch.Tensor,
                          v_cache: torch.Tensor, v_new: torch.Tensor,
-                         slot_pos, t, *, window: int) -> None:
+                         slot_pos, t, *, window: int,
+                         telemetry: bool = False):
     """One launch writes a decode layer's K and V rows and ``slot_pos``.
 
     k_cache, v_cache: [B, S, ...] contiguous, written in place (their row
@@ -107,6 +117,7 @@ def kv_slot_update_layer(k_cache: torch.Tensor, k_new: torch.Tensor,
     ``window > 0`` wraps the slot to ``t % S``.  All tensors on one CUDA
     device.  The checks are one short-circuit expression (the call is
     bound by its host time); only a failing call builds a message.
+    Returns None, or the telemetry buffer with ``telemetry=True``.
     """
     ks, vs = k_cache.shape, v_cache.shape
     dev = k_cache.get_device()
@@ -144,13 +155,17 @@ def kv_slot_update_layer(k_cache: torch.Tensor, k_new: torch.Tensor,
                     ("v_cache", v_cache), ("v_new", v_new),
                     ("slot_pos", slot_pos), ("t", t))))
     b, s = ks[0], ks[1]
+    tel = _tel.tel_buffer(k_cache.device) if telemetry else None
     if b == 0 or s == 0:
-        return
+        return _tel.mark(tel, 2, 2 * b) if telemetry else None
     _build.check(_lib().kv_slot_update_layer(
         k_cache.data_ptr(), k_new.data_ptr(),
         k_new.numel() // b * k_new.element_size(),
         v_cache.data_ptr(), v_new.data_ptr(),
         v_new.numel() // b * v_new.element_size(),
         None if slot_pos is None else slot_pos.data_ptr(), t_ptr, t_stride,
-        t_val, b, s, int(window > 0), _stream(dev)), "kv_slot_update_layer")
+        t_val, b, s, int(window > 0),
+        None if tel is None else tel.data_ptr(), _stream(dev)),
+        "kv_slot_update_layer")
     kv_slot_update.launches += 1
+    return tel

@@ -12,6 +12,11 @@ never repeated.  bf16 runs on Hopper's ``wgmma`` with the softmax and the
 output in registers, K and V streamed by TMA through two-stage rings;
 f32 inputs take an FMA path.  Any ``sq`` and ``skv`` are taken (ragged
 edges are masked in the kernel); ``dh`` must be 32, 64 or 128.
+
+With ``telemetry=True`` the launcher also returns the ``[1, 8]`` int32
+buffer the kernel fills (``kernels/telemetry.py``): lane 0 = 1 launch,
+lane 1 = the reference's score tiles of ``(block_q, block_k)``, which
+shape only that count.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import functools
 import torch
 
 from . import _build
+from . import telemetry as _tel
 
 HEAD_DIMS = (32, 64, 128)
 
@@ -28,10 +34,12 @@ HEAD_DIMS = (32, 64, 128)
 @functools.lru_cache(maxsize=None)
 def _fn(lib_name: str, symbol: str, n_ptr: int):
     """A bound C entry point of ``csrc/<lib_name>.cu`` taking ``n_ptr``
-    pointers, then (b, hq, hkv, sq, skv, dh, scale, causal, stream)."""
+    pointers, then (b, hq, hkv, sq, skv, dh, scale, causal, tel, tel_bq,
+    tel_bk, stream)."""
     fn = getattr(_build.load(lib_name), symbol)
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -69,26 +77,42 @@ def suffix(dtype: torch.dtype) -> str:
     return "bf16" if dtype == torch.bfloat16 else "f32"
 
 
+def tel_args(telemetry: bool, device, sq: int, skv: int, block_q: int,
+             block_k: int):
+    """(buffer or None, its C pointer, tel_bq, tel_bk) for an attention
+    launcher: the reference's tile, (0, 0) where it falls back."""
+    if not telemetry:
+        return None, None, 0, 0
+    tel = _tel.tel_buffer(device)
+    return (tel, tel.data_ptr()) + _tel.attn_blocks(sq, skv, block_q,
+                                                    block_k)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    scale: float, causal: bool = True):
+                    scale: float, causal: bool = True, telemetry: bool = False,
+                    block_q: int = 128, block_k: int = 128):
     """q: [B, Hq, Sq, dh]; k, v: [B, Hkv, Skv, dh]; Hq % Hkv == 0; all of one
     dtype (bf16 or f32), contiguous, on one CUDA device.  Returns (out
-    [B, Hq, Sq, dh] in q.dtype, lse [B, Hq, Sq] f32)."""
+    [B, Hq, Sq, dh] in q.dtype, lse [B, Hq, Sq] f32), and the telemetry
+    buffer third with ``telemetry=True``."""
     if v.shape != k.shape or v.dtype != k.dtype:
         raise ValueError(f"flash_attention: v {tuple(v.shape)} {v.dtype} "
                          f"must match k {tuple(k.shape)} {k.dtype}")
     b, hq, hkv, sq, skv, dh = check_qk("flash_attention", q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    tel, tel_ptr, bq, bk = tel_args(telemetry, q.device, sq, skv, block_q,
+                                    block_k)
     if out.numel() == 0:
-        return out, lse
+        return (out, lse, _tel.mark(tel, 1)) if telemetry else (out, lse)
     fn = _fn("flash_attention", f"flash_attention_{suffix(q.dtype)}", 5)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                     lse.data_ptr(), b, hq, hkv, sq, skv, dh, float(scale),
-                    int(bool(causal)), stream), "flash_attention")
+                    int(bool(causal)), tel_ptr, bq, bk, stream),
+                 "flash_attention")
     flash_attention.launches += 1
-    return out, lse
+    return (out, lse, tel) if telemetry else (out, lse)
 
 
 flash_attention.launches = 0

@@ -16,6 +16,11 @@ memory, so repeated calls give the same bits.  f32 takes a plain FMA
 path.  Ragged row and column edges are masked, so any ``m`` and ``f`` are
 taken; a ragged block never spans two row tiles and skips the samples
 past its tile's count.
+
+With ``telemetry=True`` each launcher also returns the ``[1, 8]`` int32
+buffer the kernel fills (``kernels/telemetry.py``): lane 0 = 1 launch,
+lane 1 = sampled blocks in the reference's units (``block_m`` and
+``block_f`` shape only that count).
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import functools
 import torch
 
 from . import _build
+from . import telemetry as _tel
 
 DEFAULT_BLOCK = 128
 
@@ -32,13 +38,14 @@ DEFAULT_BLOCK = 128
 @functools.lru_cache(maxsize=None)
 def _fn(variant: str, dtype: torch.dtype):
     """The bound C entry point of ``variant`` ("fixed" or "ragged") for
-    ``dtype``, set up once."""
+    ``dtype``, set up once: pointers, ints, then the telemetry buffer, its
+    mode and the stream."""
     lib = _build.load("mca_matmul")
     suffix = "bf16" if dtype == torch.bfloat16 else "f32"
     fn = getattr(lib, f"mca_matmul_{variant}_{suffix}")
     n_ptr, n_int = (5, 5) if variant == "fixed" else (6, 6)
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [
-        ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -70,11 +77,13 @@ def _check_operands(x, w, block, *index_tensors):
 
 
 def mca_matmul_fixed(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
-                     inv_rp: torch.Tensor, *, block: int = DEFAULT_BLOCK
-                     ) -> torch.Tensor:
+                     inv_rp: torch.Tensor, *, block: int = DEFAULT_BLOCK,
+                     telemetry: bool = False, block_m: int = 128,
+                     block_f: int = 128):
     """x: [m, d], w: [d, f] (both bf16 or both f32, contiguous, one CUDA
     device); idx: [R] int32 block ids in [0, d/block); inv_rp: [R] f32.
-    Returns a new [m, f] tensor in x.dtype."""
+    Returns a new [m, f] tensor in x.dtype, and with ``telemetry=True``
+    the buffer (``mca_row_tiles(...) * R`` sampled blocks)."""
     _check_operands(x, w, block, idx, inv_rp)
     m, d = x.shape
     f = w.shape[1]
@@ -85,15 +94,20 @@ def mca_matmul_fixed(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
         raise ValueError("idx and inv_rp must both be [R]")
     dev = x.device
     out = torch.empty((m, f), dtype=x.dtype, device=dev)
+    tel, tiles = None, 0
+    if telemetry:
+        tel = _tel.tel_buffer(dev)
+        tiles = _tel.mca_row_tiles(m, d, f, block, block_m, block_f)
     if m == 0 or f == 0:
-        return out
+        return (out, _tel.mark(tel, 1, tiles * r)) if telemetry else out
     fn = _fn("fixed", x.dtype)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check(fn(x.data_ptr(), w.data_ptr(), idx.data_ptr(),
                     inv_rp.data_ptr(), out.data_ptr(), m, d, f, r, block,
-                    stream), "mca_matmul_fixed")
+                    None if tel is None else tel.data_ptr(), tiles, stream),
+                 "mca_matmul_fixed")
     mca_matmul_fixed.launches += 1
-    return out
+    return (out, tel) if telemetry else out
 
 
 mca_matmul_fixed.launches = 0
@@ -101,13 +115,16 @@ mca_matmul_fixed.launches = 0
 
 def mca_matmul_ragged(x: torch.Tensor, w: torch.Tensor, r_tile: torch.Tensor,
                       idx: torch.Tensor, inv_rp: torch.Tensor, *,
-                      block: int = DEFAULT_BLOCK) -> torch.Tensor:
+                      block: int = DEFAULT_BLOCK, telemetry: bool = False,
+                      block_m: int = 128, block_f: int = 128):
     """x: [m, d], w: [d, f] (both bf16 or both f32, contiguous, one CUDA
     device); r_tile: [m_tiles] int32; idx: [m_tiles, R_max] int32 block ids;
     inv_rp: [m_tiles, R_max] f32.  Row tile t is rows [t*bm, (t+1)*bm) with
     bm = m // m_tiles and sums its first r_tile[t] samples (clamped to
     [0, R_max]); entries past that are never read.  Returns a new [m, f]
-    tensor in x.dtype."""
+    tensor in x.dtype, and with ``telemetry=True`` the buffer
+    (``sum(r_tile)`` sampled blocks, clamped where the reference's kernel
+    takes the shape)."""
     _check_operands(x, w, block, r_tile, idx, inv_rp)
     m, d = x.shape
     f = w.shape[1]
@@ -125,16 +142,24 @@ def mca_matmul_ragged(x: torch.Tensor, w: torch.Tensor, r_tile: torch.Tensor,
         raise ValueError(f"m={m} is not a multiple of m_tiles={m_tiles}")
     dev = x.device
     out = torch.empty((m, f), dtype=x.dtype, device=dev)
+    tel, fits = None, True
+    if telemetry:
+        tel = _tel.tel_buffer(dev)
+        fits = _tel.ragged_fits(m, d, f, m_tiles, block, block_m, block_f)
     if m == 0 or f == 0:
-        return out
+        if not telemetry:
+            return out
+        counted = torch.clamp(r_tile, 0, r_max) if fits else r_tile
+        return out, _tel.mark(tel, 1, counted.sum())
     fn = _fn("ragged", x.dtype)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check(fn(x.data_ptr(), w.data_ptr(), r_tile.data_ptr(),
                     idx.data_ptr(), inv_rp.data_ptr(), out.data_ptr(),
-                    m_tiles, m // m_tiles, d, f, r_max, block, stream),
-                 "mca_matmul_ragged")
+                    m_tiles, m // m_tiles, d, f, r_max, block,
+                    None if tel is None else tel.data_ptr(), int(not fits),
+                    stream), "mca_matmul_ragged")
     mca_matmul_ragged.launches += 1
-    return out
+    return (out, tel) if telemetry else out
 
 
 mca_matmul_ragged.launches = 0

@@ -15,8 +15,20 @@ Accounting keeps the reference's names: every call counts
 these count executions, not traced call sites as under ``jax.jit``.  The
 kernel launchers also keep a plain integer ``launches`` count each
 (``launch_counts()``), which a run reads to show that its main path went
-through the kernels.  Device telemetry (``kernels.<op>.device_*``) is not
-ported yet.
+through the kernels.
+
+Device telemetry, while ``obs.devtel`` is enabled: every call, on either
+device, also emits ``kernels.<op>.device_launches`` and its work count
+(``device_sampled_blocks`` for the MCA matmuls, ``device_rows_written``
+for the KV write, ``device_tiles`` for flash and colmax).  The kernel (or
+the plain version) fills a ``[1, 8]`` telemetry buffer and one add folds
+it into devtel's device-side totals: no host read, so the counts survive
+where the host's do not (a replayed CUDA graph).  The counts are the
+reference's for the same call: its kernel's count where its Pallas kernel
+would take the shape, its fallback's value where it would fall back, in
+the caller's ``block_*`` units (``kernels/telemetry.py``).  The KV layer
+write keeps the reference's meaning of one launch per cache: it adds 2
+launches and 2B rows, while ``launch_counts()`` counts its one launch.
 
 No kernel has a backward yet (the reference's Pallas kernels have none
 either).  A CUDA launch writes into a fresh tensor that autograd would
@@ -32,12 +44,14 @@ from typing import Dict, Optional, Union
 import torch
 
 from repro_torch import obs
+from repro_torch.obs import devtel
 
 from . import attn_colmax as _colmax_mod
 from . import cache_update as _cache_mod
 from . import flash_attention as _flash_mod
 from . import mca_matmul as _mca_mod
 from . import ref as _ref
+from .telemetry import LANE_COUNT, LANE_LAUNCH
 
 #: the launchers whose ``launches`` counts ``launch_counts()`` reports
 _LAUNCHERS = {"mca_matmul_fixed": _mca_mod.mca_matmul_fixed,
@@ -55,6 +69,13 @@ _COUNTERS = {op: (f"kernels.{op}.fallback_calls", f"kernels.{op}.kernel_calls")
 
 def _count(op: str, used_kernel: bool, n: int = 1) -> None:
     obs.get_registry().counter(_COUNTERS[op][used_kernel]).inc(n)
+
+
+def _emit_tel(op: str, work_metric: str, tel: torch.Tensor) -> None:
+    """Fold a call's telemetry buffer into devtel (one device add)."""
+    devtel.emit_vec((f"kernels.{op}.device_launches",
+                     f"kernels.{op}.{work_metric}"),
+                    tel[0, LANE_LAUNCH:LANE_COUNT + 1])
 
 
 def _refuse_grad(op: str, *inputs: Optional[torch.Tensor]) -> None:
@@ -76,12 +97,17 @@ def mca_matmul(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
     x: [m, d]; w: [d, f]; idx: [R] int32; inv_rp: [R] f32 -> [m, f].
     """
     _refuse_grad("mca_matmul", x, w, inv_rp)
-    if x.device.type == "cpu":
-        _count("mca_matmul", False)
-        return _ref.ref_mca_matmul_fixed(x, w, idx, inv_rp, block)
-    _count("mca_matmul", True)
+    on_cpu = x.device.type == "cpu"
+    _count("mca_matmul", not on_cpu)
+    impl = _ref.ref_mca_matmul_fixed if on_cpu else _mca_mod.mca_matmul_fixed
+    tel_on = devtel.enabled()
     with obs.trace("mca_matmul"):
-        return _mca_mod.mca_matmul_fixed(x, w, idx, inv_rp, block=block)
+        out = impl(x, w, idx, inv_rp, block=block, telemetry=tel_on,
+                   block_m=block_m, block_f=block_f)
+    if tel_on:
+        out, tel = out
+        _emit_tel("mca_matmul", "device_sampled_blocks", tel)
+    return out
 
 
 def mca_matmul_ragged(x: torch.Tensor, w: torch.Tensor, r_tile: torch.Tensor,
@@ -100,13 +126,18 @@ def mca_matmul_ragged(x: torch.Tensor, w: torch.Tensor, r_tile: torch.Tensor,
         raise ValueError(f"x {tuple(x.shape)}: rows are not a multiple of "
                          f"{m_tiles} row tiles")
     _refuse_grad("mca_matmul_ragged", x, w, inv_rp)
-    if x.device.type == "cpu":
-        _count("mca_matmul_ragged", False)
-        return _ref.ref_mca_matmul_ragged(x, w, r_tile, idx, inv_rp, block)
-    _count("mca_matmul_ragged", True)
+    on_cpu = x.device.type == "cpu"
+    _count("mca_matmul_ragged", not on_cpu)
+    impl = _ref.ref_mca_matmul_ragged if on_cpu else \
+        _mca_mod.mca_matmul_ragged
+    tel_on = devtel.enabled()
     with obs.trace("mca_matmul_ragged"):
-        return _mca_mod.mca_matmul_ragged(x, w, r_tile, idx, inv_rp,
-                                          block=block)
+        out = impl(x, w, r_tile, idx, inv_rp, block=block, telemetry=tel_on,
+                   block_m=block_m, block_f=block_f)
+    if tel_on:
+        out, tel = out
+        _emit_tel("mca_matmul_ragged", "device_sampled_blocks", tel)
+    return out
 
 
 def kv_slot_update(cache: torch.Tensor, new: torch.Tensor,
@@ -118,12 +149,16 @@ def kv_slot_update(cache: torch.Tensor, new: torch.Tensor,
     reference donates its buffer and returns the aliased output).
     """
     _refuse_grad("kv_slot_update", cache, new)
-    if cache.device.type == "cpu":
-        _count("kv_slot_update", False)
-        return _ref.ref_kv_slot_update(cache, new, pos)
-    _count("kv_slot_update", True)
+    on_cpu = cache.device.type == "cpu"
+    _count("kv_slot_update", not on_cpu)
+    impl = _ref.ref_kv_slot_update if on_cpu else _cache_mod.kv_slot_update
+    tel_on = devtel.enabled()
     with obs.trace("kv_slot_update"):
-        return _cache_mod.kv_slot_update(cache, new, pos)
+        out = impl(cache, new, pos, telemetry=tel_on)
+    if tel_on:
+        out, tel = out
+        _emit_tel("kv_slot_update", "device_rows_written", tel)
+    return out
 
 
 def kv_slot_update_layer(k_cache: torch.Tensor, k_new: torch.Tensor,
@@ -143,20 +178,22 @@ def kv_slot_update_layer(k_cache: torch.Tensor, k_new: torch.Tensor,
 
     Counting: ``kernels.kv_slot_update.kernel_calls`` (or
     ``fallback_calls``) counts one per cache written, two per call, as
-    the reference's two ``kv_slot_update`` calls count; the launcher's
-    ``launch_counts()["kv_slot_update"]`` counts device launches, one per
-    call.
+    the reference's two ``kv_slot_update`` calls count, and so do the
+    device counts (``device_launches`` 2, ``device_rows_written`` 2B);
+    the launcher's ``launch_counts()["kv_slot_update"]`` counts device
+    launches, one per call.
     """
     _refuse_grad("kv_slot_update", k_cache, k_new, v_cache, v_new)
-    if k_cache.device.type == "cpu":
-        _count("kv_slot_update", False, 2)
-        _ref.ref_kv_slot_update_layer(k_cache, k_new, v_cache, v_new,
-                                      slot_pos, t, window=window)
-        return
-    _count("kv_slot_update", True, 2)
+    on_cpu = k_cache.device.type == "cpu"
+    _count("kv_slot_update", not on_cpu, 2)
+    impl = _ref.ref_kv_slot_update_layer if on_cpu else \
+        _cache_mod.kv_slot_update_layer
+    tel_on = devtel.enabled()
     with obs.trace("kv_slot_update"):
-        _cache_mod.kv_slot_update_layer(k_cache, k_new, v_cache, v_new,
-                                        slot_pos, t, window=window)
+        tel = impl(k_cache, k_new, v_cache, v_new, slot_pos, t,
+                   window=window, telemetry=tel_on)
+    if tel_on:
+        _emit_tel("kv_slot_update", "device_rows_written", tel)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -169,13 +206,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the diagonal offset ``skv - sq`` (suffix queries).
     """
     _refuse_grad("flash_attention", q, k, v)
-    if q.device.type == "cpu":
-        _count("flash_attention", False)
-        return _ref.ref_attention(q, k, v, scale=scale, causal=causal)
-    _count("flash_attention", True)
+    on_cpu = q.device.type == "cpu"
+    _count("flash_attention", not on_cpu)
+    impl = _ref.ref_attention if on_cpu else _flash_mod.flash_attention
+    tel_on = devtel.enabled()
     with obs.trace("flash_attention"):
-        return _flash_mod.flash_attention(q, k, v, scale=scale,
-                                          causal=causal)
+        out = impl(q, k, v, scale=scale, causal=causal, telemetry=tel_on,
+                   block_q=block_q, block_k=block_k)
+    if not tel_on:
+        return out
+    out, lse, tel = out
+    _emit_tel("flash_attention", "device_tiles", tel)
+    return out, lse
 
 
 def attn_colmax(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor, *,
@@ -185,14 +227,16 @@ def attn_colmax(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor, *,
     """Column max of A from (q, k, lse): [B, Hq, Skv] f32, or [B, Skv]
     reduced over heads (``reduce_heads``, the reference's default)."""
     _refuse_grad("attn_colmax", q, k, lse)
-    if q.device.type == "cpu":
-        _count("attn_colmax", False)
-        cm = _ref.ref_colmax(q, k, lse, scale=scale, causal=causal)
-    else:
-        _count("attn_colmax", True)
-        with obs.trace("attn_colmax"):
-            cm = _colmax_mod.attn_colmax(q, k, lse, scale=scale,
-                                         causal=causal)
+    on_cpu = q.device.type == "cpu"
+    _count("attn_colmax", not on_cpu)
+    impl = _ref.ref_colmax if on_cpu else _colmax_mod.attn_colmax
+    tel_on = devtel.enabled()
+    with obs.trace("attn_colmax"):
+        cm = impl(q, k, lse, scale=scale, causal=causal, telemetry=tel_on,
+                  block_q=block_q, block_k=block_k)
+    if tel_on:
+        cm, tel = cm
+        _emit_tel("attn_colmax", "device_tiles", tel)
     if reduce_heads:
         cm = torch.amax(cm, dim=1)        # [B, Skv]
     return cm

@@ -2,16 +2,22 @@
 annotations), with the reference's metric names.
 
 - metrics: ``obs.get_registry()`` / ``obs.scoped()`` (counters, gauges,
-  histograms);
+  histograms); ``obs.snapshot()`` snapshots the active registry and with
+  ``aggregate="psum"`` sums the additive leaves over the ranks of a
+  ``torch.distributed`` process group;
 - spans: ``obs.record_span`` / ``obs.mark`` / ``obs.export_chrome_trace``
   when enabled with ``obs.enable_tracing()`` / ``obs.tracing()``;
 - profiler hooks: ``obs.trace("name")`` over
   ``torch.profiler.record_function``;
+- device telemetry: ``obs.devtel`` accumulates the kernels' launch and
+  work counts on the device (``kernels.<op>.device_launches``, against
+  the host's ``kernel_calls``); turn it on with ``obs.devtel.enable()``
+  or ``obs.devtel.enabled_scope()``;
 - sink: ``obs.JsonlSink(path)`` appends structured JSON-lines records
   (flushed per write; fsync on close), ``obs.read_jsonl`` reads them.
-
-Not ported yet: device telemetry (``devtel``) and SPMD aggregation.
 """
+from . import devtel
+from .aggregate import snapshot
 from .registry import (Counter, Gauge, Histogram, Registry, get_registry,
                        scoped)
 from .sink import JsonlSink, read_jsonl
@@ -21,6 +27,7 @@ from .tracing import (enable_tracing, export_chrome_trace, mark, record_span,
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "Registry", "get_registry", "scoped",
-    "JsonlSink", "read_jsonl", "trace", "enable_tracing", "tracing",
-    "tracing_enabled", "record_span", "mark", "export_chrome_trace",
+    "snapshot", "devtel", "JsonlSink", "read_jsonl", "trace",
+    "enable_tracing", "tracing", "tracing_enabled", "record_span", "mark",
+    "export_chrome_trace",
 ]

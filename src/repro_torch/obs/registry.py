@@ -17,8 +17,9 @@ global state:
 Values recorded may be Python numbers or 0-d torch/numpy values; they are
 coerced to float at record time so snapshots never hold device buffers.
 
-Port of ``repro/obs/registry.py`` without the device-telemetry window
-(``obs.devtel`` is not ported yet, so snapshots hold host metrics only).
+Port of ``repro/obs/registry.py``.  Device telemetry (``obs.devtel``) is
+windowed per registry: a snapshot's ``counters`` hold the devtel totals
+accumulated since the registry was created or reset.
 """
 from __future__ import annotations
 
@@ -27,6 +28,8 @@ import math
 import threading
 from collections import deque
 from typing import Deque, Dict, Iterator, List, Optional
+
+from . import devtel
 
 
 def _as_float(v) -> float:
@@ -123,6 +126,9 @@ class Registry:
         self._hists: Dict[str, Histogram] = {}
         self._spans: Deque[dict] = deque(maxlen=self.MAX_SPANS)
         self.spans_dropped = 0
+        # device-telemetry window: only accumulation since creation, so
+        # obs.scoped() isolation extends to devtel
+        self._dev_base = devtel.totals()
 
     def counter(self, name: str) -> Counter:
         # a hot path (every kernel call counts): a dict read is atomic, so
@@ -153,15 +159,22 @@ class Registry:
         with self._lock:
             return list(self._spans)
 
-    def snapshot(self) -> Dict[str, Dict]:
-        """Plain-dict view of every metric (JSON-serializable); spans are
-        not included — use :meth:`spans` / ``obs.export_chrome_trace``.
+    def snapshot(self, include_device: bool = True) -> Dict[str, Dict]:
+        """Plain-dict view of every metric (JSON-serializable).
+
+        Device-telemetry totals accumulated since this registry was
+        created (``kernels.<op>.device_launches`` etc., see obs.devtel)
+        are merged into ``counters`` (one device-to-host read per device,
+        none if devtel was never enabled); spans are not included — use
+        :meth:`spans` / ``obs.export_chrome_trace``.
         """
         with self._lock:
             counters = dict(self._counters)
             gauges = dict(self._gauges)
             hists = dict(self._hists)
         counter_vals = {k: c.value for k, c in counters.items()}
+        if include_device:
+            counter_vals.update(devtel.since(self._dev_base))
         return {
             "counters": {k: counter_vals[k] for k in sorted(counter_vals)},
             "gauges": {k: g.value for k, g in sorted(gauges.items())},
@@ -169,12 +182,14 @@ class Registry:
         }
 
     def reset(self) -> None:
+        dev_base = devtel.totals()
         with self._lock:
             self._counters.clear()
             self._gauges.clear()
             self._hists.clear()
             self._spans.clear()
             self.spans_dropped = 0
+            self._dev_base = dev_base
 
 
 _GLOBAL = Registry()

@@ -16,7 +16,9 @@ P to bf16 for PV; the reference's bf16 tolerance) and 2e-4 of it in f32,
 lse within 1e-3; ``attn_colmax`` within 1e-3 (its values lie in [0, 1]).
 Causal rows that see no key (sq > skv) are pinned to out = 0 and lse =
 -1e30 and left out of the comparison with the plain version, which
-averages V there.
+averages V there.  Telemetry: a kernel's outputs with its telemetry
+buffer on are bitwise those with it off, and the buffer equals the plain
+version's (the reference's counts) exactly.
 """
 import numpy as np
 import pytest
@@ -671,6 +673,202 @@ def test_full_width_decode_launches_once_per_layer(cuda):
     assert ops.launch_counts()["kv_slot_update"] == cfg.n_layers * steps
     assert c["kernels.kv_slot_update.kernel_calls"] == 2 * cfg.n_layers * steps
     assert c.get("kernels.kv_slot_update.fallback_calls", 0) == 0
+
+
+# -------------------------------------------------------------- telemetry
+TEL_MCA_CASES = [
+    # (m, d, f, R, dtype, block_m): kernel-fit shapes, a 2-row-tile one, a
+    # reference fallback (200 % 128), the caller's block_m, f32
+    (128, 3072, 3072, 4, "bfloat16", 128), (24, 3072, 3072, 2, "bfloat16", 128),
+    (256, 3072, 3072, 4, "bfloat16", 128), (200, 3072, 256, 2, "bfloat16", 128),
+    (256, 3072, 256, 1, "bfloat16", 64), (48, 256, 128, 2, "float32", 128),
+]
+
+
+def _same_outputs(off, on):
+    offs = off if isinstance(off, tuple) else (off,)
+    ons = on[:-1]
+    assert len(offs) == len(ons)
+    for a, b in zip(offs, ons):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("m,d,f,r,dtype,block_m", TEL_MCA_CASES)
+def test_mca_matmul_fixed_telemetry(cuda, m, d, f, r, dtype, block_m):
+    """Telemetry on: bitwise the same output, and the buffer holds the
+    reference's counts (1 launch, row tiles x R or R)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mca_matmul import mca_matmul_fixed
+    x, w, idx, inv_rp = _mca_inputs(m, d, f, r, getattr(torch, dtype),
+                                    seed=m + r)
+    off = mca_matmul_fixed(x, w, idx, inv_rp, block=128)
+    on = mca_matmul_fixed(x, w, idx, inv_rp, block=128, telemetry=True,
+                          block_m=block_m)
+    _, want = ref.ref_mca_matmul_fixed(x, w, idx, inv_rp, 128,
+                                       telemetry=True, block_m=block_m)
+    torch.cuda.synchronize()
+    _same_outputs(off, on)
+    assert torch.equal(on[1], want), (on[1], want)
+
+
+@pytest.mark.parametrize("m,d,f,block,r_tile,rmax", RAGGED_CASES + [
+    (512, 3072, 3072, 128, (9, 0, 2, 4), 4)])          # clamped to R_max
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_mca_matmul_ragged_telemetry(cuda, m, d, f, block, r_tile, rmax,
+                                     dtype):
+    from repro_torch.core import amm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mca_matmul import mca_matmul_ragged
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(m + f)
+    x = torch.randn((m, d), generator=g, device="cuda").to(dt)
+    w = (torch.randn((d, f), generator=g, device="cuda") / d ** 0.5).to(dt)
+    n_t = len(r_tile)
+    rt = torch.tensor(r_tile, dtype=torch.int32, device="cuda")
+    idx, inv_rp = amm.draw_block_samples(g, amm.block_probs(w, block),
+                                         n_t * rmax)
+    idx = idx.reshape(n_t, rmax).contiguous()
+    inv_rp = inv_rp.reshape(n_t, rmax).contiguous()
+    bm = m // n_t               # the caller's tile: the reference's kernel
+    for block_m in (bm, 128):   # takes it; 128 may send it to the fallback
+        off = mca_matmul_ragged(x, w, rt, idx, inv_rp, block=block)
+        on = mca_matmul_ragged(x, w, rt, idx, inv_rp, block=block,
+                               telemetry=True, block_m=block_m)
+        _, want = ref.ref_mca_matmul_ragged(x, w, rt, idx, inv_rp, block,
+                                            telemetry=True, block_m=block_m)
+        torch.cuda.synchronize()
+        _same_outputs(off, on)
+        assert torch.equal(on[1], want), (block_m, on[1], want)
+
+
+TEL_ATTN_CASES = ATTN_CASES + [(1, 2, 2, 192, 192, 64, True)]   # 64 x 64
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,dh,causal", TEL_ATTN_CASES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("blk", [128, 64])
+def test_attention_telemetry(cuda, b, hq, hkv, sq, skv, dh, causal, dtype,
+                             blk):
+    """flash and colmax with telemetry on: bitwise the same outputs, and
+    the reference's score tiles of (blk, blk) (0 where it falls back)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import telemetry as tel
+    from repro_torch.kernels.attn_colmax import attn_colmax
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v = _attn_inputs(b, hq, hkv, sq, skv, dh, getattr(torch, dtype),
+                           seed=sq + skv + dh)
+    kw = dict(scale=dh ** -0.5, causal=causal)
+    bk = dict(block_q=blk, block_k=blk)
+    off = flash_attention(q, k, v, **kw)
+    on = flash_attention(q, k, v, telemetry=True, **kw, **bk)
+    cm_off = attn_colmax(q, k, off[1], **kw)
+    cm_on = attn_colmax(q, k, off[1], telemetry=True, **kw, **bk)
+    tiles = tel.attn_tiles(b, hq, sq, skv, *tel.attn_blocks(sq, skv, blk,
+                                                            blk), causal)
+    _, _, want = ref.ref_attention(q, k, v, telemetry=True, **kw, **bk)
+    torch.cuda.synchronize()
+    _same_outputs(off, on)
+    _same_outputs(cm_off, cm_on)
+    assert want[0, :2].tolist() == [1, tiles]
+    assert torch.equal(on[2], want) and torch.equal(cm_on[1], want)
+
+
+def test_attention_telemetry_empty_side(cuda):
+    """skv 0 (flash writes out 0, lse -1e30 without its kernel) and sq 0
+    (colmax 0): one launch, no tile."""
+    from repro_torch.kernels.attn_colmax import attn_colmax
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v = _attn_inputs(2, 4, 2, 96, 0, 128, torch.bfloat16, seed=12)
+    _, _, t1 = flash_attention(q, k, v, scale=0.1, telemetry=True)
+    q0, k0, _ = _attn_inputs(2, 4, 2, 0, 96, 128, torch.bfloat16, seed=13)
+    _, t2 = attn_colmax(q0, k0, torch.empty((2, 4, 0), device="cuda"),
+                        scale=0.1, telemetry=True)
+    torch.cuda.synchronize()
+    assert t1.tolist() == t2.tolist() == [[1, 0, 0, 0, 0, 0, 0, 0]]
+
+
+@pytest.mark.parametrize("case", ["single", "gqa", "mla", "out_of_range"])
+def test_kv_slot_update_telemetry(cuda, case):
+    """The entry point counts 1 launch and B rows, the layer write 2 and
+    2B (the reference's two calls), rows out of range included; the
+    writes are bitwise those with telemetry off."""
+    from repro_torch.kernels import cache_update, ref
+    g = torch.Generator(device="cuda").manual_seed(3)
+    b, s = 4, 64
+    tail, v_tail = {"mla": ((256,), (32,))}.get(case, ((2, 128), (2, 128)))
+
+    def rand(shape):
+        return torch.randn(shape, generator=g, device="cuda").bfloat16()
+
+    k, v = rand((b, s) + tail), rand((b, s) + v_tail)
+    kn, vn = rand((b, 1) + tail), rand((b, 1) + v_tail)
+    t = torch.tensor([3, 70, 5, -2] if case == "out_of_range" else
+                     [3, 9, 5, 60], dtype=torch.int32, device="cuda")
+    if case == "single":
+        off = cache_update.kv_slot_update(k.clone(), kn, t)
+        on, buf = cache_update.kv_slot_update(k.clone(), kn, t,
+                                              telemetry=True)
+        _, want = ref.ref_kv_slot_update(k.clone(), kn, t, telemetry=True)
+        torch.cuda.synchronize()
+        assert torch.equal(on, off) and torch.equal(buf, want)
+        assert buf[0, :2].tolist() == [1, b]
+        return
+    spos = None if case == "mla" else torch.full((b, s), -1,
+                                                 dtype=torch.int32,
+                                                 device="cuda")
+    outs = []
+    for telemetry in (False, True):
+        kc, vc = k.clone(), v.clone()
+        sp = None if spos is None else spos.clone()
+        buf = cache_update.kv_slot_update_layer(kc, kn, vc, vn, sp, t,
+                                                window=0,
+                                                telemetry=telemetry)
+        outs.append(([kc, vc] + ([sp] if sp is not None else []), buf))
+    torch.cuda.synchronize()
+    for a, c in zip(outs[0][0], outs[1][0]):
+        assert torch.equal(a, c)
+    assert outs[0][1] is None
+    assert outs[1][1][0, :2].tolist() == [2, 2 * b]
+    want = ref.ref_kv_slot_update_layer(k.clone(), kn, v.clone(), vn,
+                                        None, t, window=0, telemetry=True)
+    assert torch.equal(outs[1][1], want)
+
+
+def test_devtel_decode_burst_matches_launch_counts(cuda):
+    """A short MCA-on burst on the card with devtel on: the device counts
+    equal the host's under the layer-write rule (2 device launches per
+    layer-write launch, B rows each), the MCA matmul's equal its kernel
+    calls and launches, and the tier histogram the stats' tokens."""
+    from repro_torch import obs, serve
+    from repro_torch.core.policy import MCAConfig
+    from repro_torch.kernels import ops
+    from repro_torch.obs import devtel
+    mca = MCAConfig(enabled=True, alpha=0.2, block=128, use_kernel=True)
+    _, _, gpu, gparams = _reduced_pair(d_model=256, n_heads=2, n_kv_heads=1,
+                                       d_head=128, mca=mca, dtype="bfloat16")
+    eng = serve.Engine(gpu, gparams, batch_size=2, max_len=64,
+                       mca_enabled=True)
+    ops.reset_launch_counts()
+    with devtel.enabled_scope(), obs.scoped() as reg:
+        sb = serve.SlotBatcher(eng, check_every=4)
+        for i in range(3):
+            sb.submit(serve.Request(uid=i, prompt=np.arange(1, 17) + i,
+                                    max_new=6))
+        sb.run()
+        c = reg.snapshot()["counters"]
+    n = ops.launch_counts()
+    assert n["kv_slot_update"] > 0 and n["mca_matmul_fixed"] > 0
+    assert c["kernels.kv_slot_update.device_launches"] == \
+        2 * n["kv_slot_update"] == c["kernels.kv_slot_update.kernel_calls"]
+    assert c["kernels.kv_slot_update.device_rows_written"] == \
+        2 * 2 * n["kv_slot_update"]
+    assert c["kernels.mca_matmul.device_launches"] == \
+        n["mca_matmul_fixed"] == c["kernels.mca_matmul.kernel_calls"]
+    hist = sum(v for k, v in c.items()
+               if k.startswith("mca.device_tier_hist.t"))
+    occ = sum(v for k, v in c.items()
+              if k.startswith("serve.tier_occupancy.t"))
+    assert hist == occ > 0
 
 
 # --------------------------------------------------------------- training
