@@ -21,9 +21,13 @@ Phases, each of which must pass:
              a host-int t, a window's wrap, layer 7 of the stacked cache;
              phase 9's rows: olmoe-1b-7b's K and V of 16 x 128 with
              slot_pos, minicpm3-4b's ckv (256) and kr (32) with no
-             slot_pos, each with a per-row and a host-int t); the MCA
-             matmul also at phase 9's widths (d = f = 2048 at R = 1, 2, 4;
-             d = f = 2560 at R = 4; d 256, f 2560 at R = 1);
+             slot_pos, each with a per-row and a host-int t; phase 11's:
+             recurrentgemma-9b's K and V of 1 x 256 into a window of 2,048
+             slots with slot_pos [4, 2048], a per-row t, a host-int t and
+             t >= 2048, the wrap); the MCA matmul also at phase 9's widths
+             (d = f = 2048 at R = 1, 2, 4; d = f = 2560 at R = 4; d 256,
+             f 2560 at R = 1) and phase 11's (d 4096, f 256 and 4096, at
+             R = 1, 2, 4);
              ``flash_attention`` out within 2e-2
              of max|out| in bf16 (P is rounded to bf16 for PV) and 2e-4 in
              f32, lse within 1e-3, ``attn_colmax`` within 1e-3, at
@@ -78,7 +82,9 @@ Phases, each of which must pass:
              one call goes (each piece of the issue path timed alone);
              phase 9's shapes: ``FAMILY_MCA_TIMED`` and the MLA layer write
              (ckv and kr of minicpm3-4b's decode, two ``index_put_`` as
-             its library yardstick).
+             its library yardstick); phase 11's: ``HYBRID_MCA_TIMED`` and
+             recurrentgemma-9b's layer write (window 2,048, t wrapped,
+             three ``index_put_``).
 8. train   — the training path (``repro_torch.launch.train``), after the
              serve engine is gone:
              (a) starcoder2-3b at full width (bf16, random weights from
@@ -135,6 +141,29 @@ Phases, each of which must pass:
              sum(r_tile)); (b) after phase 6: one profiled decode burst
              with devtel on (launches beside phase 6's); each timed
              kernel's device time with its buffer off, on, on, off.
+11. ssm-hybrid — the SSM and hybrid families, after phase 9 (nothing else
+             resident): (a) reduced mamba2-2.7b (2 layers) and
+             recurrentgemma-9b (5 layers, so the pattern has a remainder)
+             as in phase 4, on equal-length prompts; (b) mamba2-2.7b (MCA
+             off: no attention, no site) then recurrentgemma-9b (MCA on
+             v_proj and o_proj as in phase 5) at full width (depth not
+             cut, bf16, random weights from seed 0), Engine(batch 4,
+             max_len 512): ``generate`` of 4 prompts of 256 tokens, 32
+             new, then a ContinuousBatcher of 4 requests of 128 tokens, 16
+             new; every request ok; kv_slot_update once per attention
+             layer per decode step (recurrentgemma 12, mamba2 0; kernel
+             calls twice that), mca_matmul_fixed at the routing's count
+             (mamba2: every kernel 0), no fallback, flops_reduction > 1
+             with MCA on; a second generation of the same prompts gives
+             the same tokens; prefill and decode p50, tokens/s, peak
+             memory, wall and one profiled prefill and 8-step burst;
+             (c) recurrentgemma-9b's window, MCA off, batch 2 x 2,560
+             tokens, max_len 2,624: the banded prefill (every attention
+             layer takes it) against the chunked one, last-position
+             logits within 2e-2 of max |logit|; the rolling tail (slot p %
+             2048 holds p for p = 512..2559); 16 decode steps from t =
+             2560 wrap onto slots 512..527 in every attention layer, every
+             logit finite; two generations give the same tokens.
 
 Phase 10 runs between phases 5b and 7.  Builds four sources (one
 ``nvcc`` each, in parallel).  Ends with a
@@ -166,6 +195,10 @@ FAMILY_MCA_CASES = [(128, 2048, 2048, 1), (128, 2048, 2048, 2),
                     (128, 2048, 2048, 4), (128, 2560, 2560, 4),
                     (128, 256, 2560, 1)]
 FAMILY_MCA_TIMED = [(128, 2048, 2048, 4), (128, 256, 2560, 1)]
+# phase 11's shapes: recurrentgemma-9b's attention layers, v_proj d 4096 ->
+# f 256 (one KV head) and o_proj 4096 -> 4096, K = 32 blocks
+HYBRID_MCA_CASES = [(128, 4096, f, r) for f in (256, 4096) for r in (1, 2, 4)]
+HYBRID_MCA_TIMED = [(128, 4096, 256, 4), (128, 4096, 4096, 4)]
 # (m, R) of every sampled tier of the serve path: a prefill bucket of n
 # tokens (16..256) fills the 1-, 2- and 4-block tiers up to n, n/2, 3n/8
 SERVE_MR = [(6, 4), (8, 2), (12, 4), (16, 1), (16, 2), (24, 4), (32, 1),
@@ -197,6 +230,7 @@ KV_SHAPE = (4, 512, 256)          # one layer's K (or V) cache, flattened
 KV_STACK = (30, 4, 512, 2, 128)   # layer-stacked cache of the serve path
 OLMOE_KV_TAIL = (16, 128)         # olmoe-1b-7b: a K or V row of 4 KB
 MLA_TAILS = ((256,), (32,))       # minicpm3-4b: ckv and kr rows, no slot_pos
+HYBRID_KV = (2048, (1, 256))      # recurrentgemma-9b: window slots, K/V row
 
 
 def log(msg: str) -> None:
@@ -292,7 +326,8 @@ def phase_kernels():
     from repro_torch.kernels import cache_update, ref
     from repro_torch.kernels.mca_matmul import mca_matmul_fixed
     errs = {"mca_matmul_fixed": 0.0, "kv_slot_update": 0.0}
-    cases = [(c, "sampled") for c in MCA_CASES + FAMILY_MCA_CASES] + [
+    cases = [(c, "sampled") for c in MCA_CASES + FAMILY_MCA_CASES
+             + HYBRID_MCA_CASES] + [
         ((128, 3072, 3072, 24), "exact")] + [
         (c, "telemetry") for c in TEL_MCA_CASES]
     for (m, d, f, r), mode in cases:
@@ -472,6 +507,48 @@ def _check_family_layer_writes(g):
     log("[kernels] kv_slot_update_layer at "
         f"{'; '.join(c[0] for c in cases)}, per-row and host-int t: bitwise "
         "equal to the plain version, untouched rows included")
+    _check_hybrid_layer_writes(g)
+
+
+def _check_hybrid_layer_writes(g):
+    """Phase 11's layer write, bitwise against the plain version, whole
+    tensors compared: recurrentgemma-9b's K and V rows (1 x 256) into a
+    rolling window of 2,048 slots with slot_pos [4, 2048], for a per-row
+    t, a host-int t and t >= 2048 (the wrap onto the oldest slots)."""
+    import torch
+    from repro_torch.kernels import cache_update, ref
+    slots, tail = HYBRID_KV
+    cases = [("per-row t", 0, None, False), ("host-int t", 0, None, True),
+             ("t in [2048, 8192), the wrap", slots, 4 * slots, False)]
+    for what, t_lo, t_hi, host_int in cases:
+        k, v, kn, vn, spos, t = _layer_inputs(g, s=slots, tail=tail,
+                                              t_lo=t_lo, t_hi=t_hi)
+        if host_int:
+            t = slots // 3
+        got, want = [k.clone(), v.clone(), spos.clone()], [k, v, spos]
+        on = [x.clone() for x in got]
+        cache_update.kv_slot_update_layer(*_kv_args(got, kn, vn), t,
+                                          window=slots)
+        tel = cache_update.kv_slot_update_layer(*_kv_args(on, kn, vn), t,
+                                                window=slots, telemetry=True)
+        want_tel = ref.ref_kv_slot_update_layer(*_kv_args(want, kn, vn), t,
+                                                window=slots, telemetry=True)
+        torch.cuda.synchronize()
+        for name, a, w in zip(("K", "V", "slot_pos"), got, want):
+            if not torch.equal(a, w):
+                raise AssertionError(f"kv_slot_update_layer hybrid {what}: "
+                                     f"{name} != plain version")
+        _tel_held(f"kv_slot_update_layer hybrid [4,2048,1,256] {what}",
+                  tuple(got), tuple(on) + (tel,), want_tel)
+    log("[kernels] kv_slot_update_layer recurrentgemma-9b K, V "
+        "[4,2048,1,256] + slot_pos [4,2048], window 2048, at "
+        f"{'; '.join(c[0] for c in cases)}: bitwise equal to the plain "
+        "version, untouched rows included")
+
+
+def _kv_args(kvs, kn, vn):
+    """(K cache, new K, V cache, new V, slot_pos) of a layer write."""
+    return kvs[0], kn, kvs[1], vn, kvs[2]
 
 
 def _held(what, got, want, tol):
@@ -625,11 +702,13 @@ def _check_attention_telemetry(shape, q, k, v, out, lse, cm, scale, causal,
 
 
 # ------------------------------------------------------------- phase 4
-def _card_vs_cpu(arch, tag):
-    """A reduced ``arch`` (f32, 2 layers, vocab 128, MCA off, TF32 off)
-    served on the card and on the CPU from the same params: the same
-    greedy tokens (and the same again in a second card run), and the
-    forward's hidden states and logits within 1e-4."""
+def _card_vs_cpu(arch, tag, n_layers=2, ragged=True):
+    """A reduced ``arch`` (f32, ``n_layers`` layers, vocab 128, MCA off,
+    TF32 off) served on the card and on the CPU from the same params: the
+    same greedy tokens (and the same again in a second card run), and the
+    forward's hidden states and logits within 1e-4.  The prompts are
+    ragged (one left-padded) unless ``ragged`` is off: the SSM and hybrid
+    families serve equal-length prompts only."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -638,14 +717,16 @@ def _card_vs_cpu(arch, tag):
     from repro_torch.serve import Engine
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = reduced(get_config(arch), n_layers=2, vocab_size=128)
+    cfg = reduced(get_config(arch), n_layers=n_layers, vocab_size=128)
     cpu = build_model(cfg, device="cpu")
     params = cpu.init(0)
     gpu = build_model(cfg, device="cuda")
     gparams = _to_device(params, "cuda")
     prompts = np.random.default_rng(0).integers(1, 128, (2, 12))
-    lens = np.asarray([12, 7])
-    prompts[1, :5] = 0
+    lens = None
+    if ragged:
+        lens = np.asarray([12, 7])
+        prompts[1, :5] = 0
     toks, hid, logits = [], [], []
     for model, p in ((cpu, params), (gpu, gparams), (gpu, gparams)):
         eng = Engine(model, p, batch_size=2, max_len=32)
@@ -656,7 +737,8 @@ def _card_vs_cpu(arch, tag):
         logits.append(_logits(p, cfg, h)[..., :128].cpu().numpy())
     diff = float(np.abs(hid[0] - hid[1]).max())
     ldiff = float(np.abs(logits[0] - logits[1]).max())
-    log(f"{tag} {arch} reduced f32 tokens cpu={toks[0].tolist()} "
+    log(f"{tag} {arch} reduced f32 ({n_layers} layers) tokens "
+        f"cpu={toks[0].tolist()} "
         f"gpu={toks[1].tolist()} hidden max|diff|={diff:.3e} logits "
         f"max|diff|={ldiff:.3e}; second card run "
         f"{'identical' if np.array_equal(toks[1], toks[2]) else 'DIFFERS'}")
@@ -1015,6 +1097,31 @@ def _us(x) -> str:
     return "not measured" if x is None else f"{x:.2f} us"
 
 
+def _profile_summary(tag, name, wall, avgs):
+    """Log and return one profiled window: wall, device busy time and
+    share, kernel launches, the largest device and host items."""
+    dev = _device_items(avgs)
+    busy = sum(e.self_device_time_total for e in dev) / 1e6
+    top_dev = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
+    host = [e for e in avgs if not str(e.device_type).endswith("CUDA")]
+    top_host = sorted(host, key=lambda e: -e.self_cpu_time_total)[:5]
+    out = {"wall_ms": wall * 1e3, "device_busy_ms": busy * 1e3,
+           "device_busy_share": busy / wall,
+           "kernel_launches": sum(e.count for e in dev),
+           "top_device": [(e.key[:60], e.self_device_time_total / 1e3,
+                           e.count) for e in top_dev],
+           "top_host": [(e.key[:60], e.self_cpu_time_total / 1e3, e.count)
+                        for e in top_host]}
+    log(f"{tag} {name}: wall {wall * 1e3:.1f} ms under the profiler, "
+        f"device busy {busy * 1e3:.1f} ms ({100 * busy / wall:.1f}%), "
+        f"{out['kernel_launches']} kernel launches")
+    for key, ms, count in out["top_device"]:
+        log(f"{tag}   device {ms:8.3f} ms  x{count:<5d} {key}")
+    for key, ms, count in out["top_host"]:
+        log(f"{tag}   host   {ms:8.3f} ms  x{count:<5d} {key}")
+    return out
+
+
 def phase_profile(engine, tag="[profile]"):
     """Where one full-width prefill (256-token bucket) and one decode
     burst (8 steps, 4 live slots) spend their time: device busy share,
@@ -1038,27 +1145,9 @@ def phase_profile(engine, tag="[profile]"):
 
     for name, fn in (("prefill_256", prefill), ("decode_burst_8", burst)):
         wall, avgs = _profile(fn)
+        out[name] = _profile_summary(tag, name, wall, avgs)
         dev = _device_items(avgs)
-        busy = sum(e.self_device_time_total for e in dev) / 1e6
-        top_dev = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
         host = [e for e in avgs if not str(e.device_type).endswith("CUDA")]
-        top_host = sorted(host, key=lambda e: -e.self_cpu_time_total)[:5]
-        out[name] = {
-            "wall_ms": wall * 1e3, "device_busy_ms": busy * 1e3,
-            "device_busy_share": busy / wall,
-            "kernel_launches": sum(e.count for e in dev),
-            "top_device": [(e.key[:60], e.self_device_time_total / 1e3,
-                            e.count) for e in top_dev],
-            "top_host": [(e.key[:60], e.self_cpu_time_total / 1e3, e.count)
-                         for e in top_host]}
-        log(f"{tag} {name}: wall {wall * 1e3:.1f} ms under the "
-            f"profiler, device busy {busy * 1e3:.1f} ms "
-            f"({100 * busy / wall:.1f}%), "
-            f"{out[name]['kernel_launches']} kernel launches")
-        for key, ms, count in out[name]["top_device"]:
-            log(f"{tag}   device {ms:8.3f} ms  x{count:<5d} {key}")
-        for key, ms, count in out[name]["top_host"]:
-            log(f"{tag}   host   {ms:8.3f} ms  x{count:<5d} {key}")
         for kern in (MCA_KERNEL, "kv_slot_update_kernel"):
             hits = [e for e in dev if kern in e.key]
             log(f"{tag}   port kernel {kern!r}: "
@@ -1529,12 +1618,59 @@ def _numbers_mla_write():
                 library_device_us=lib_dev)
 
 
+def _numbers_hybrid_write():
+    """The layer write at recurrentgemma-9b's decode shape (B = 4, K and V
+    rows of 1 x 256 bf16, a window of 2,048 slots with slot_pos [4, 2048],
+    per-row t past the window so the slot wraps): kernel per call, device
+    and host time, its bound, the plain version and three ``index_put_``
+    (K, V, slot_pos at t % 2048) as the library yardstick."""
+    import torch
+    from repro_torch.kernels import cache_update, ref
+    g = torch.Generator(device="cuda").manual_seed(12)
+    slots, tail = HYBRID_KV
+    k, v, kn, vn, spos, t = _layer_inputs(g, s=slots, tail=tail, t_lo=slots,
+                                          t_hi=4 * slots)
+    b = k.shape[0]
+    row = kn[0].numel() * kn.element_size()
+    bound, by = _bound_ms(4 * b * row + 4 * b + 4 * b, 0)
+
+    def call():
+        cache_update.kv_slot_update_layer(k, kn, v, vn, spos, t,
+                                          window=slots)
+
+    rows_idx = torch.arange(b, device="cuda")
+    slot = (t % slots).long()
+
+    def lib_call():
+        k.index_put_((rows_idx, slot), kn[:, 0])
+        v.index_put_((rows_idx, slot), vn[:, 0])
+        spos.index_put_((rows_idx, slot), t)
+
+    ms = cuda_time_ms(call)
+    plain = cuda_time_ms(lambda: ref.ref_kv_slot_update_layer(
+        k, kn, v, vn, spos, t, window=slots))
+    lib = cuda_time_ms(lib_call)
+    dev_us, lib_dev = _device_pair_us(call, "kv_slot_update_kernel",
+                                      lib_call)
+    host = host_us(call)
+    log(f"[numbers] kv_slot_update_layer recurrentgemma-9b K, V "
+        f"[4,2048,1,256] bf16 + slot_pos [4,2048], window 2048, t wrapped: "
+        f"kernel {ms * 1e3:.2f} us per call (device {_us(dev_us)}, host "
+        f"{host:.2f} us to issue), plain {plain * 1e3:.2f} us, 3 x "
+        f"index_put_ {lib * 1e3:.2f} us per call (device {_us(lib_dev)}), "
+        f"bound {bound * 1e3:.4f} us ({by})")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=lib, device_us=dev_us, host_us=host,
+                library_device_us=lib_dev)
+
+
 def phase_numbers():
     out = {"families": {}}
-    for case in FAMILY_MCA_TIMED:
+    for case in FAMILY_MCA_TIMED + HYBRID_MCA_TIMED:
         out["families"][f"mca_matmul_fixed {case}"] = _numbers_fixed(
             case, plain_too=True)
     out["families"]["kv_slot_update_layer MLA"] = _numbers_mla_write()
+    out["families"]["kv_slot_update_layer hybrid"] = _numbers_hybrid_write()
     shapes = list(MCA_CASES)
     for m, r in SERVE_MR:
         for f in (256, 3072):
@@ -1862,6 +1998,7 @@ def _expected_mca(cfg, prefill_tokens):
     units, ``cap // min(128, cap)`` row tiles x the tier's R blocks."""
     from repro_torch.core import schedule
     from repro_torch.core.policy import _caps_for
+    from repro_torch.models import stack
     mca = cfg.mca
     if cfg.attn_type == "mla":
         dims = (cfg.mla_kv_lora, cfg.n_heads * cfg.mla_v_dim)
@@ -1879,7 +2016,8 @@ def _expected_mca(cfg, prefill_tokens):
                 if block >= 128 and cap % min(128, cap) == 0:
                     n_launch += 1
                     n_blocks += cap // min(128, cap) * ladder[t]
-    return cfg.n_layers * n_launch, cfg.n_layers * n_blocks
+    n_attn = sum(k.startswith("attn") for k in stack.layer_kinds(cfg))
+    return n_attn * n_launch, n_attn * n_blocks
 
 
 def _serve_family(arch, sites):
@@ -2010,6 +2148,367 @@ def phase_families():
         for k, v in total.items():
             launches[k] = launches.get(k, 0) + v
     out["phase_s"] = time.perf_counter() - t0
+    return launches, out
+
+
+# ------------------------------------------------------------ phase 11
+# (arch, MCA sites) of the SSM and hybrid families, one after the other
+SSM_HYBRID = [("mamba2-2.7b", ()), ("recurrentgemma-9b", ("v_proj", "o_proj"))]
+SSM_HYBRID_GEN = (4, 256, 32)      # generate: prompts, prompt tokens, new
+SSM_HYBRID_WAVE = (4, 128, 16)     # ContinuousBatcher: requests, tokens, new
+WINDOW_RUN = (2, 2560, 2624, 16)   # batch, prompt, max_len, decode steps
+ALL_KERNELS = SERVE_KERNELS + ENTRY_KERNELS
+
+
+def _check_family_counts(what, cfg, snap, launches, steps, routed):
+    """Launches of a family's run: one layer write per attention layer
+    per decode step (the reference's two kernel calls), mca_matmul_fixed
+    at the routing's count, no fallback; a model with no attention layer
+    (or MCA off) launches only what its layers need."""
+    from repro_torch.models import stack
+    c = snap["counters"]
+    n_attn = sum(k.startswith("attn") for k in stack.layer_kinds(cfg))
+    kv_calls = c.get("kernels.kv_slot_update.kernel_calls", 0)
+    mca_calls = c.get("kernels.mca_matmul.kernel_calls", 0)
+    fallbacks = {k: v for k, v in c.items() if k.endswith("fallback_calls")}
+    want_mca = _expected_mca(cfg, routed)[0] if cfg.mca.enabled else 0
+    red = snap["gauges"].get("serve.flops_reduction", 1.0)
+    log(f"[ssm-hybrid] {what}: {n_attn} attention layers, {steps} decode "
+        f"steps, prefills of {routed} tokens; launches {launches}; "
+        f"kv_slot_update kernel_calls {kv_calls}, mca_matmul kernel_calls "
+        f"{mca_calls} (routing {want_mca}), fallbacks {fallbacks}, "
+        f"flops_reduction {red:.3f}")
+    ok = (launches["kv_slot_update"] == n_attn * steps
+          and kv_calls == 2 * n_attn * steps
+          and launches["mca_matmul_fixed"] == mca_calls == want_mca
+          and not any(fallbacks.values())
+          and all(launches[k] == 0 for k in ENTRY_KERNELS))
+    if cfg.mca.enabled:
+        ok = ok and want_mca > 0 and red > 1.0
+    else:
+        ok = ok and red == 1.0
+    if not ok:
+        raise AssertionError(f"{what}: kernel launches or MCA accounting do "
+                             "not add up")
+
+
+def _profile_wave(engine, prompts, tag):
+    """One profiled prefill of ``prompts`` (the wave path: Model.prefill
+    and the last position's logits) and one 8-step decode burst from it."""
+    import torch
+    batch_in = {"tokens": engine._ids(prompts)}
+    box = {}
+
+    def prefill():
+        box["cache"], box["logits"], _ = engine._prefill(
+            batch_in, engine.mca_enabled)
+
+    def burst():
+        for _ in range(8):
+            box["tok"], box["cache"], box["t"], box["bad"] = \
+                engine._decode_step(box["tok"], box["cache"], box["t"],
+                                    box["bad"])
+
+    prefill()                                      # warm up
+    out = {"prefill": _profile_summary(tag, "prefill", *_profile(prefill))}
+    box["tok"] = engine._argmax(box["logits"])
+    box["t"] = torch.full((), prompts.shape[1], dtype=torch.int32,
+                          device="cuda")
+    box["bad"] = torch.zeros((), dtype=torch.bool, device="cuda")
+    burst()                                        # warm up
+    out["decode_burst_8"] = _profile_summary(tag, "decode_burst_8",
+                                             *_profile(burst))
+    if bool(box["bad"]):
+        raise AssertionError(f"{tag}: non-finite logits in the profiled "
+                             "burst")
+    return {k: {kk: v[kk] for kk in ("wall_ms", "device_busy_ms",
+                                     "device_busy_share", "kernel_launches",
+                                     "top_device")}
+            for k, v in out.items()}
+
+
+def _serve_ssm_hybrid(arch, sites):
+    """(b) ``arch`` at full width (bf16, random weights from seed 0, depth
+    not cut), MCA on its sites (none: MCA off): Engine.generate, then a
+    ContinuousBatcher, with the launch checks; two generations of the same
+    prompts give the same tokens; a profiled prefill and burst.  Returns
+    (launches, numbers, the engine)."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import MCAConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serve import ContinuousBatcher, Engine, Request
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    mca = MCAConfig(enabled=bool(sites), alpha=0.2, block=128,
+                    use_kernel=True, sites=sites or ("v_proj", "o_proj"))
+    cfg = get_config(arch, mca=mca)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in _leaves(params))
+    torch.cuda.synchronize()
+    log(f"[ssm-hybrid] {arch}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {n_params / 1e9:.3f} B params ({cfg.dtype}) made "
+        f"on the card in {time.perf_counter() - t_phase:.1f}s; MCA sites "
+        f"{sites or 'none (MCA off)'}")
+    engine = Engine(model, params, batch_size=4, max_len=512,
+                    mca_enabled=bool(sites))
+    routed = []
+    inner = engine._prefill
+
+    def prefill(batch_in, mca_on):
+        routed.append(int(batch_in["tokens"].numel()))
+        return inner(batch_in, mca_on)
+
+    engine._prefill = prefill
+    rng = np.random.default_rng(11)
+    launches, nums = {}, {"params": n_params}
+    b, s, new = SSM_HYBRID_GEN
+    prompts = rng.integers(1, cfg.vocab_size, (b, s))
+    with obs.scoped() as reg:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        gen = engine.generate(prompts, new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches["generate"] = ops.launch_counts()
+        snap = reg.snapshot()
+    if gen.shape != (b, new) or gen.min() < 0 or gen.max() >= cfg.vocab_size:
+        raise AssertionError(f"{arch}: generate gave {gen.shape} tokens "
+                             f"in [{gen.min()}, {gen.max()}]")
+    _check_family_counts(f"{arch} generate", cfg, snap,
+                         launches["generate"], new - 1, routed)
+    h, c = snap["histograms"], snap["counters"]
+    nums["generate"] = {
+        "prefill_s": h["serve.prefill_seconds"]["p50"],
+        "decode_step_p50_s": h["serve.decode_step_seconds"]["p50"],
+        "tokens_per_s": c["serve.generated_tokens"] / wall, "wall_s": wall,
+        "flops_reduction": snap["gauges"]["serve.flops_reduction"]}
+    n_req, s_w, new_w = SSM_HYBRID_WAVE
+    reqs = [Request(uid=i, prompt=rng.integers(1, cfg.vocab_size, s_w),
+                    max_new=new_w) for i in range(n_req)]
+    del routed[:]
+    with obs.scoped() as reg:
+        cb = ContinuousBatcher(engine)
+        for r in reqs:
+            cb.submit(r)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        cb.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches["wave"] = ops.launch_counts()
+        snap = reg.snapshot()
+    _check_requests(f"{arch} ContinuousBatcher", reqs, cfg.vocab_size, new_w)
+    _check_family_counts(f"{arch} ContinuousBatcher", cfg, snap,
+                         launches["wave"], new_w - 1, routed)
+    h, c = snap["histograms"], snap["counters"]
+    nums["wave"] = {
+        "prefill_s": h["serve.prefill_seconds"]["p50"],
+        "decode_step_p50_s": h["serve.decode_step_seconds"]["p50"],
+        "tokens_per_s": c["serve.generated_tokens"] / wall, "wall_s": wall,
+        "flops_reduction": snap["gauges"]["serve.flops_reduction"]}
+    engine._prefill = inner
+    nums["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # greedy decode with the same key is deterministic: a second
+    # generation of the same prompts gives the first one's tokens
+    again = engine.generate(prompts, 8)
+    if not np.array_equal(again, gen[:, :8]):
+        raise AssertionError(f"{arch}: two generations of the same prompts "
+                             "gave different tokens")
+    nums["profile"] = _profile_wave(engine, prompts,
+                                    f"[ssm-hybrid] {arch} profile")
+    nums["phase_s"] = time.perf_counter() - t_phase
+    total = {k: launches["generate"][k] + launches["wave"][k]
+             for k in launches["generate"]}
+    log(f"[ssm-hybrid] {arch}: " + json.dumps(nums)
+        + "; two generations of the same prompts gave the same tokens")
+    return total, nums, engine
+
+
+class _CountBanded:
+    """Counts the calls of ``models.attention.banded_onepass`` (one per
+    attention layer that takes the banded branch) while installed."""
+
+    def __enter__(self):
+        from repro_torch.models import attention
+        self.calls = 0
+        self._orig = orig = attention.banded_onepass
+
+        def counted(*a, **k):
+            self.calls += 1
+            return orig(*a, **k)
+
+        attention.banded_onepass = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention
+        attention.banded_onepass = self._orig
+
+
+def _prefill_logits(model, params, batch_in, max_len):
+    """(cache, last-position logits over the vocab) of one prefill."""
+    from repro_torch.models.api import _logits
+    cache, hid, _ = model.prefill(params, batch_in, max_len)
+    return cache, _logits(params, model.cfg,
+                          hid[:, -1:])[..., :model.cfg.vocab_size]
+
+
+def _banded_f32(cfg, batch_in, max_len):
+    """(c1) The banded path's arithmetic at full width: recurrentgemma-9b
+    in f32 (TF32 off), depth cut to one pattern (rec, rec, attn: one
+    attention layer, window 2,048), the banded prefill against the
+    chunked one, last-position logits within 1e-4 of max |logit| (the
+    same f32 function summed in another order)."""
+    import gc
+    import torch
+    from repro_torch.models import build_model
+    c = cfg.replace(dtype="float32", n_layers=len(cfg.block_pattern))
+    chunked = build_model(c)
+    params = chunked.init(torch.Generator(device="cuda").manual_seed(1))
+    _, want = _prefill_logits(chunked, params, batch_in, max_len)
+    with _CountBanded() as runs:
+        _, got = _prefill_logits(build_model(c.replace(banded_local=True)),
+                                 params, batch_in, max_len)
+    err = _held("[ssm-hybrid] window f32, full width, 3 layers: banded "
+                "prefill last-position logits vs chunked", got, want,
+                1e-4 * float(want.abs().max()))
+    if runs.calls != 1:
+        raise AssertionError(f"f32: {runs.calls} banded layers, want 1")
+    del params, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return err
+
+
+def _window_run(engine):
+    """(c) recurrentgemma-9b at full width, MCA off, through its rolling
+    2,048-slot window, prompts of 2 x 2,560 tokens: (c1) the banded path
+    in f32 at one pattern's depth; (c2) in bf16 at full depth, the banded
+    prefill (every attention layer takes it) against the chunked one,
+    last-position logits within 2e-2 of max |logit| or, where the
+    model's own bf16 rounding noise is larger, within twice that noise
+    (the chunked path with chunk 256 against 512: the same function
+    rounded at other points); the prefill's tail branch (slot p % 2048
+    holds p for p = 512..2559); 16 decode steps from t = 2560 that wrap
+    onto slots 512..527 in every attention layer (12 layer writes a step,
+    every logit finite); two generations of the same prompts with the
+    same tokens."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.core.policy import MCAConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, stack
+    from repro_torch.serve import Engine
+    t0 = time.perf_counter()
+    b, s, max_len, steps = WINDOW_RUN
+    params = engine.params
+    cfg = engine.model.cfg.replace(mca=MCAConfig())          # MCA off
+    slots = cfg.window
+    n_attn = stack.layer_kinds(cfg).count("attn_ffn")
+    toks = np.random.default_rng(13).integers(1, cfg.vocab_size, (b, s))
+    batch_in = {"tokens": torch.as_tensor(toks, device="cuda")}
+    err_f32 = _banded_f32(cfg, batch_in, max_len)
+    banded = build_model(cfg.replace(banded_local=True))
+    _, want = _prefill_logits(build_model(cfg), params, batch_in, max_len)
+    _, other = _prefill_logits(
+        build_model(cfg.replace(attn_chunk=cfg.attn_chunk // 2)), params,
+        batch_in, max_len)
+    noise = float((other - want).abs().max())
+    del other
+    gc.collect()
+    with _CountBanded() as runs:
+        cache, got = _prefill_logits(banded, params, batch_in, max_len)
+    tol = max(2e-2 * float(want.abs().max()), 2 * noise)
+    log(f"[ssm-hybrid] window bf16: the chunked prefill with chunk "
+        f"{cfg.attn_chunk // 2} against {cfg.attn_chunk} differs by "
+        f"{noise:.3e} in the last-position logits (max |logit| "
+        f"{float(want.abs().max()):.3e}): the model's bf16 rounding noise")
+    err = _held("[ssm-hybrid] window bf16: banded prefill last-position "
+                "logits vs chunked", got, want, tol)
+    if runs.calls != n_attn:
+        raise AssertionError(f"the banded prefill took the banded path in "
+                             f"{runs.calls} of {n_attn} attention layers")
+    spos = cache["layers"]["slot_pos"]                  # [n_attn, B, slots]
+    first = s - slots                                   # oldest position
+    ar = torch.arange(slots, device="cuda", dtype=torch.int32)
+    tail = first + (ar - first) % slots                  # slot p % slots: p
+    if not bool((spos == tail).all()):
+        raise AssertionError(f"the prefill's rolling tail: slot_pos is not "
+                             f"p at slot p % {slots} for p = {first}.."
+                             f"{s - 1}")
+    tok = torch.argmax(got, dim=-1).to(torch.int32)
+    ops.reset_launch_counts()
+    for i in range(steps):
+        logits, cache = banded.decode(params, tok, cache, torch.tensor(
+            s + i, dtype=torch.int32, device="cuda"))
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"non-finite logits at decode step {i}")
+        tok = torch.argmax(logits[..., :cfg.vocab_size], dim=-1).to(
+            torch.int32)
+    torch.cuda.synchronize()
+    kv = ops.launch_counts()["kv_slot_update"]
+    wrapped = tail.clone()
+    new_t = torch.arange(s, s + steps, device="cuda", dtype=torch.int32)
+    wrapped[new_t % slots] = new_t      # the oldest slots take t = s, ...
+    if kv != n_attn * steps or not bool((spos == wrapped).all()):
+        raise AssertionError(f"decode past the window: {kv} layer writes "
+                             f"(want {n_attn * steps}), or slot_pos of "
+                             f"slots {s % slots}.. is not {s}..{s + steps - 1}"
+                             " in every attention layer")
+    log(f"[ssm-hybrid] window: {n_attn} attention layers took the banded "
+        f"path; slot_pos after the prefill = p at slot p % {slots} for p = "
+        f"{first}..{s - 1}; {steps} decode steps from t = {s}: {kv} layer "
+        f"writes, slots {s % slots}..{(s + steps - 1) % slots} now hold "
+        f"{s}..{s + steps - 1} (they held {first}..{first + steps - 1}) in "
+        "every attention layer, every logit finite")
+    del cache
+    gc.collect()
+    eng = Engine(banded, params, batch_size=b, max_len=max_len)
+    outs = [eng.generate(toks, steps + 1) for _ in range(2)]
+    if not np.array_equal(outs[0], outs[1]):
+        raise AssertionError("window: two generations of the same prompts "
+                             "gave different tokens")
+    nums = {"logits_err_f32": err_f32, "logits_err": err,
+            "logits_tol": tol, "noise_floor": noise,
+            "max_logit": float(want.abs().max()), "layer_writes": kv,
+            "seconds": time.perf_counter() - t0}
+    log(f"[ssm-hybrid] window: two generations of the same prompts gave "
+        f"the same tokens; {json.dumps(nums)}")
+    return nums
+
+
+def phase_ssm_hybrid():
+    """Phase 11: the SSM and hybrid families, after phase 9 with nothing
+    else resident: (a) reduced mamba2-2.7b (2 layers) and recurrentgemma-9b
+    (5 layers: a remainder), card against CPU on equal-length prompts;
+    (b) both at full width, one after the other; (c) recurrentgemma-9b's
+    window at full width."""
+    t0 = time.perf_counter()
+    out = {"parity": {
+        "mamba2-2.7b": _card_vs_cpu("mamba2-2.7b", "[ssm-hybrid]",
+                                    ragged=False),
+        "recurrentgemma-9b": _card_vs_cpu("recurrentgemma-9b",
+                                          "[ssm-hybrid]", n_layers=5,
+                                          ragged=False)}}
+    launches = {k: 0 for k in ALL_KERNELS}
+    for arch, sites in SSM_HYBRID:
+        total, out[arch], engine = _serve_ssm_hybrid(arch, sites)
+        for k, v in total.items():
+            launches[k] += v
+        if arch == "recurrentgemma-9b":
+            out["window"] = _window_run(engine)
+        del engine
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[ssm-hybrid] phase 11 passed in {out['phase_s']:.1f}s")
     return launches, out
 
 
@@ -2301,13 +2800,17 @@ def main() -> int:
     nums = phase_numbers()
     train_nums = phase_train()
     fam_launches, fam_nums = phase_families()
+    ssm_launches, ssm_nums = phase_ssm_hybrid()
     for k in SERVE_KERNELS:
-        launches[k] += fam_launches[k]
-        per[k] += f"; phase 9: {fam_launches[k]}"
+        launches[k] += fam_launches[k] + ssm_launches[k]
+        per[k] += (f"; phase 9: {fam_launches[k]}; phase 11: "
+                   f"{ssm_launches[k]}")
     per["mca_matmul_fixed"] += (" (per prefill of <= 256 tokens: olmoe "
                                 "16 x 2 x 3 = 96, minicpm3 62 x (1 + 3) "
-                                "= 248)")
-    per["kv_slot_update"] += (" (per decode step: olmoe 16, minicpm3 62)")
+                                "= 248; recurrentgemma-9b: 12 attention "
+                                "layers x the routing's tiers; mamba2: 0)")
+    per["kv_slot_update"] += (" (per decode step: olmoe 16, minicpm3 62, "
+                              "recurrentgemma-9b 12, mamba2-2.7b 0)")
     meta = {
         "mca_matmul_fixed": ("src/repro_torch/csrc/mca_matmul.cu",
                              "src/repro/kernels/mca_matmul.py:84"),
@@ -2332,9 +2835,11 @@ def main() -> int:
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f}s "
         f"(phase 8: {train_nums['phase_s']:.1f}s, phase 9: "
         f"{fam_nums['phase_s']:.1f}s, phase 10: "
-        f"{devtel_nums['phase_s']:.1f}s)")
+        f"{devtel_nums['phase_s']:.1f}s, phase 11: "
+        f"{ssm_nums['phase_s']:.1f}s)")
     log(json.dumps({"serve": serve_nums, "train": train_nums,
                     "families": fam_nums, "devtel": devtel_nums,
+                    "ssm_hybrid": ssm_nums,
                     "family_kernels": nums["families"], "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -3,9 +3,10 @@
 Port of ``repro/configs/__init__.py``, holding the architectures ported so
 far: the dense GQA models (starcoder2-3b, the serving and training model;
 chatglm3-6b, partial rotary; qwen3-32b, qk-norm; bert-base, the paper's
-encoder), the MoE models (olmoe-1b-7b, granite-moe-1b-a400m) and the MLA
-model minicpm3-4b.  The SSM, hybrid, VLM and audio models follow with
-their families (ROADMAP.md).
+encoder), the MoE models (olmoe-1b-7b, granite-moe-1b-a400m), the MLA
+model minicpm3-4b, the SSM model mamba2-2.7b and the hybrid (RG-LRU and
+local attention) model recurrentgemma-9b.  The VLM and audio models
+follow with their families (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ ARCHS = {
     "chatglm3-6b": "chatglm3_6b",
     "minicpm3-4b": "minicpm3_4b",
     "bert-base": "bert_base",
+    "mamba2-2.7b": "mamba2_2p7b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 

@@ -3,9 +3,12 @@
 The reference keeps a params pytree whose per-layer leaves are stacked on
 a leading ``[L, ...]`` axis (``lax.scan`` over layers); the port keeps a
 list of per-layer dicts.  Weights share the ``[d_in, d_out]`` layout, so
-conversion is an unstack plus a copy, with no reshaping.  With tied
-embeddings there is no ``lm_head``: the port's head is the embedding
-table, as in the reference.
+conversion is an unstack plus a copy, with no reshaping.  The hybrid
+(RecurrentGemma) tree keeps its layers as ``{"groups": {"pos{i}":
+[n_groups, ...] leaves}, "rem": [dicts]}``; it is interleaved into layer
+order, layer ``gidx * len(pattern) + i`` being ``groups["pos{i}"][gidx]``
+and the remainder following.  With tied embeddings there is no
+``lm_head``: the port's head is the embedding table, as in the reference.
 """
 from __future__ import annotations
 
@@ -58,6 +61,12 @@ def params_from_jax(tree: Mapping[str, Any],
     out = {k: _convert(v, device, dtype) for k, v in tree.items()
            if k != "layers"}
     layers = tree["layers"]
-    out["layers"] = [_convert(_unstack(layers, i), device, dtype)
-                     for i in range(_n_layers(layers))]
+    if "groups" in layers:                          # the hybrid stack
+        groups = layers["groups"]
+        pat = [groups[f"pos{i}"] for i in range(len(groups))]
+        flat = [_unstack(pos, gidx) for gidx in range(_n_layers(pat[0]))
+                for pos in pat] + list(layers["rem"])
+    else:
+        flat = [_unstack(layers, i) for i in range(_n_layers(layers))]
+    out["layers"] = [_convert(layer, device, dtype) for layer in flat]
     return out

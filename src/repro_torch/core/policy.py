@@ -43,7 +43,7 @@ class MCAConfig:
     capacity_fracs: Tuple[float, ...] = (1.0, 0.5, 0.375, 0.25)
     sites: Tuple[str, ...] = ("v_proj", "o_proj")
     use_kernel: bool = False        # route per-tier matmuls to the kernel
-    fast_colmax: bool = False       # fused conservative colmax (not ported)
+    fast_colmax: bool = False       # fused conservative colmax (one pass)
 
     def active(self, site: str) -> bool:
         return self.enabled and site in self.sites

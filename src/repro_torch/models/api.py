@@ -1,14 +1,20 @@
 """Top-level model API: build_model(cfg) -> Model(init/loss/prefill/...).
 
-Port of the decoder-only LM path of ``repro/models/api.py`` (families
-``dense`` and ``moe``, GQA or MLA attention, optional absolute sinusoidal
-positions).
+Port of the decoder-only LM path of ``repro/models/api.py``: the
+families ``dense`` and ``moe`` (GQA or MLA attention, optional absolute
+sinusoidal positions), ``ssm`` (Mamba-2) and ``hybrid`` (RecurrentGemma:
+RG-LRU blocks and local GQA attention).
 Parameters are nested dicts of tensors that mirror the reference's
-pytree, except that ``params["layers"]`` is a list of per-layer dicts
-instead of ``[L, ...]``-stacked leaves (``convert.params_from_jax``
-unstacks them).  The decode cache keeps the reference's layer-stacked
-layout: ``cache["layers"][name]`` is ``[L, B, ...]`` and each layer works
-on the contiguous view ``[l]``.
+pytree, except that ``params["layers"]`` is a list of per-layer dicts in
+layer order instead of ``[L, ...]``-stacked leaves (the hybrid's
+``groups``/``rem`` tree included; ``convert.params_from_jax`` unstacks
+and interleaves them).  The decode cache keeps the reference's
+layer-stacked layout: ``cache["layers"][name]`` is ``[n, B, ...]`` over
+the n layers that hold that leaf, and each layer works on the contiguous
+view of its own index.  A hybrid cache stacks its attention layers' K, V
+and ``slot_pos`` ([n_attn, B, slots, ...]) and its recurrent layers'
+f32 state ``h`` and conv tails ([n_rec, ...]), and has no ``pos_off``,
+as the reference's has none.
 
 Decode and slot insertion update the cache IN PLACE and return it (the
 reference donates the cache buffers instead); the loss path writes no
@@ -18,8 +24,11 @@ As in the reference, decode adds no position embedding (``_lm_decode``),
 so a sinusoidal model's decode does not match its forward (ROADMAP.md,
 Queue 3).
 
-Not ported yet: the SSM / hybrid / VLM / audio / encoder-decoder
-families.
+As in the reference, the SSM and hybrid families refuse ``pos_offset``
+(their recurrent state has no padding mask), so they serve waves of
+equal-length prompts only, and no per-slot insertion.
+
+Not ported yet: the VLM / audio / encoder-decoder families.
 """
 from __future__ import annotations
 
@@ -33,7 +42,7 @@ from repro_torch._device import resolve_device
 from repro_torch.core.amm import fold_in
 from . import attention as attn
 from . import ffn as ffn_mod
-from . import stack
+from . import rglru, ssm, stack
 from .common import (apply_norm, dense_init, embed_tokens, init_embedding,
                      init_norm, sinusoidal_pos_emb)
 from .config import ModelConfig
@@ -126,10 +135,13 @@ def _init_lm(seed, cfg, device):
     distributions (``dense_init``: N(0, 1/d_in); ``embed_init``: N(0,
     0.02^2); norms at their identity values in f32)."""
     g = _generator(seed, device)
-    kind = stack.layer_kind(cfg)
     params = {"embed": init_embedding(g, cfg, device),
-              "final_norm": init_norm(cfg, device),
-              "layers": stack.init_stack(g, cfg, cfg.n_layers, kind, device)}
+              "final_norm": init_norm(cfg, device)}
+    if cfg.family == "hybrid":
+        params["layers"] = stack.init_hybrid(g, cfg, device)
+    else:
+        params["layers"] = stack.init_stack(g, cfg, cfg.n_layers,
+                                            stack.layer_kind(cfg), device)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(g, cfg.d_model, cfg.padded_vocab,
                                        cfg.torch_dtype, device)
@@ -155,9 +167,13 @@ def _lm_embed(params, cfg, batch):
 def _lm_hidden(params, cfg, batch, mca_key=None):
     x = _lm_embed(params, cfg, batch)
     pos = torch.arange(x.shape[1], device=x.device)[None]
-    x, aux, stats = stack.stack_forward(params["layers"], cfg, x, pos=pos,
-                                        mca_key=mca_key,
-                                        kind=stack.layer_kind(cfg))
+    if cfg.family == "hybrid":
+        x, aux, stats = stack.hybrid_forward(params["layers"], cfg, x,
+                                             pos=pos, mca_key=mca_key)
+    else:
+        x, aux, stats = stack.stack_forward(params["layers"], cfg, x,
+                                            pos=pos, mca_key=mca_key,
+                                            kind=stack.layer_kind(cfg))
     return apply_norm(params["final_norm"], cfg, x), aux, stats
 
 
@@ -221,40 +237,67 @@ def _lm_prefill(params, cfg, batch, max_len, mca_key=None):
     x = _lm_embed(params, cfg, batch)
     b, s = x.shape[0], x.shape[1]
     dev = x.device
-    kind = stack.layer_kind(cfg)
     ar = torch.arange(s, device=dev)[None]
     off = batch.get("pos_offset")
     if off is None:
         pos, kv_valid = ar, None
         off_arr = torch.zeros((b,), dtype=torch.int32, device=dev)
     else:
+        if cfg.family in ("ssm", "hybrid"):
+            raise NotImplementedError(
+                f"pos_offset prefill is not supported for {cfg.family!r} "
+                "models (recurrent state has no padding mask)")
         off_arr = off.to(torch.int32)
         pos = ar - off_arr[:, None]
         kv_valid = ar >= off_arr[:, None]
 
+    # a sliding-window cache has window slots, a global one max_len; the
+    # hybrid's attention layers use cfg.window in prefill and decode alike
     slots = cfg.window if cfg.window > 0 else max_len
     layers = _init_layers_cache(cfg, b, max_len, dev)
     stats = stack.zero_carry_stats(cfg, dev)
-    for i, p_l in enumerate(params["layers"]):
+    for i, (p_l, (kind, j)) in enumerate(zip(params["layers"],
+                                             _cache_slots(cfg))):
         key_l = None if mca_key is None else fold_in(mca_key, i)
-        x, _, st, kv = stack.layer_forward(p_l, cfg, x, pos=pos,
-                                           mca_key=key_l, kind=kind,
-                                           kv_valid=kv_valid)
+        x, _, st, pieces = stack.layer_forward(p_l, cfg, x, pos=pos,
+                                               mca_key=key_l, kind=kind,
+                                               kv_valid=kv_valid)
         stats = stack.add_stats(stats, st)
-        if cfg.attn_type == "mla":
-            _pad_seq_cache(kv[0], max_len, out=layers["ckv"][i])
-            _pad_seq_cache(kv[1], max_len, out=layers["kr"][i])
+        if kind == "ssm":
+            layers["state"][j].copy_(pieces[0])
+            layers["conv"][j].copy_(pieces[1])
+        elif kind == "rec_ffn":
+            layers["conv"][j].copy_(pieces[0])
+            layers["h"][j].copy_(pieces[1])
+        elif cfg.attn_type == "mla":
+            _pad_seq_cache(pieces[0], max_len, out=layers["ckv"][j])
+            _pad_seq_cache(pieces[1], max_len, out=layers["kr"][j])
         else:
-            _, spos = _pad_seq_cache(kv[0], slots, out=layers["k"][i])
-            _pad_seq_cache(kv[1], slots, out=layers["v"][i])
-            layers["slot_pos"][i] = spos
+            _, spos = _pad_seq_cache(pieces[0], slots, out=layers["k"][j])
+            _pad_seq_cache(pieces[1], slots, out=layers["v"][j])
+            layers["slot_pos"][j] = spos
     x = apply_norm(params["final_norm"], cfg, x)
+    if cfg.family == "hybrid":
+        return {"layers": layers}, x, stats
     return {"layers": layers, "pos_off": off_arr}, x, stats
+
+
+def _write_back(cache_l, new):
+    """Copy a recurrent layer's new state into its cache views."""
+    for name, leaf in new.items():
+        cache_l[name].copy_(leaf)
 
 
 def _decode_layer(p_l, cfg, xx, cache_l, t, kind, pos_off=None):
     h = apply_norm(p_l["ln1"], cfg, xx)
-    if cfg.attn_type == "mla":
+    if kind == "ssm":
+        y, new = ssm.mamba2_decode(p_l["mixer"], cfg, h, cache_l)
+        _write_back(cache_l, new)
+        return xx + y, cache_l
+    if kind == "rec_ffn":
+        y, new = rglru.recurrent_decode(p_l["mixer"], cfg, h, cache_l)
+        _write_back(cache_l, new)
+    elif cfg.attn_type == "mla":
         y, cache_l, _ = attn.mla_decode(p_l["mixer"], cfg, h, cache_l, t=t,
                                         pos_off=pos_off)
     else:
@@ -273,39 +316,84 @@ def _lm_decode(params, cfg, tokens, cache, t):
     """tokens: [B, 1]; t: int, 0-d or [B] int32 tensor.  Updates ``cache``
     in place; returns (logits [B, 1, Vp] f32, cache)."""
     x = embed_tokens(params["embed"], tokens)
-    kind = stack.layer_kind(cfg)
-    pos_off = cache.get("pos_off")
+    pos_off = cache.get("pos_off")              # None for the hybrid
     layers = cache["layers"]
-    for i, p_l in enumerate(params["layers"]):
-        cache_l = {name: leaf[i] for name, leaf in layers.items()}
+    for p_l, (kind, j) in zip(params["layers"], _cache_slots(cfg)):
+        cache_l = {name: layers[name][j] for name in _cache_names(cfg, kind)}
         x, _ = _decode_layer(p_l, cfg, x, cache_l, t, kind, pos_off=pos_off)
     x = apply_norm(params["final_norm"], cfg, x)
     return _logits(params, cfg, x), cache
 
 
+def _cache_names(cfg, kind):
+    """The cache leaves a layer of ``kind`` reads and writes."""
+    if kind == "ssm":
+        return ("state", "conv")
+    if kind == "rec_ffn":
+        return ("h", "conv")
+    if cfg.attn_type == "mla":
+        return ("ckv", "kr")
+    return ("k", "v", "slot_pos")
+
+
+def _cache_slots(cfg):
+    """(kind, index into that kind's layer-stacked leaves) of each layer
+    in layer order: the layer index itself, except in the hybrid, whose
+    attention and recurrent layers each count among their own kind."""
+    seen = {}
+    out = []
+    for kind in stack.layer_kinds(cfg):
+        out.append((kind, seen.get(kind, 0)))
+        seen[kind] = out[-1][1] + 1
+    return out
+
+
 def _init_layers_cache(cfg, batch, max_len, device):
-    """The layer-stacked decode cache: {"ckv", "kr"} for MLA, {"k", "v",
-    "slot_pos"} for GQA, each leaf [L, B, ...]."""
-    init = attn.init_mla_cache if cfg.attn_type == "mla" \
-        else attn.init_gqa_cache
-    return init(cfg, batch, max_len, cfg.torch_dtype, device,
-                n_layers=cfg.n_layers)
+    """The layer-stacked decode cache, each leaf [n, B, ...] over the n
+    layers of its kind: {"k", "v", "slot_pos"} for GQA, {"ckv", "kr"} for
+    MLA, {"state" (f32), "conv"} for SSM, and for the hybrid the GQA
+    leaves of its attention layers with {"h" (f32), "conv"} of its
+    recurrent ones."""
+    dt = cfg.torch_dtype
+    kinds = stack.layer_kinds(cfg)
+    layers = {}
+    for kind in dict.fromkeys(kinds):
+        n = kinds.count(kind)
+        if kind == "ssm":
+            layers.update(ssm.init_mamba2_cache(cfg, batch, dt, device,
+                                                n_layers=n))
+        elif kind == "rec_ffn":
+            layers.update(rglru.init_recurrent_cache(cfg, batch, dt, device,
+                                                     n_layers=n))
+        elif cfg.attn_type == "mla":
+            layers.update(attn.init_mla_cache(cfg, batch, max_len, dt,
+                                              device, n_layers=n))
+        else:
+            layers.update(attn.init_gqa_cache(cfg, batch, max_len, dt,
+                                              device, n_layers=n))
+    return layers
 
 
 def _lm_init_cache(cfg, batch, max_len, device):
-    return {"layers": _init_layers_cache(cfg, batch, max_len, device),
+    layers = _init_layers_cache(cfg, batch, max_len, device)
+    if cfg.family == "hybrid":                  # the reference's has none
+        return {"layers": layers}
+    return {"layers": layers,
             "pos_off": torch.zeros((batch,), dtype=torch.int32,
                                    device=device)}
 
 
 # ================================================================ factory
 def _check_supported(cfg: ModelConfig) -> None:
-    if (cfg.family not in ("dense", "moe")
-            or cfg.attn_type not in ("gqa", "mla")
-            or cfg.is_encoder_decoder or cfg.frontend != "none"):
+    ported = (cfg.family == "ssm"
+              or (cfg.family == "hybrid" and cfg.attn_type == "gqa")
+              or (cfg.family in ("dense", "moe")
+                  and cfg.attn_type in ("gqa", "mla")))
+    if not ported or cfg.is_encoder_decoder or cfg.frontend != "none":
         raise NotImplementedError(
-            f"{cfg.name}: only the decoder-only dense and MoE families with "
-            "GQA or MLA attention are ported so far (see ROADMAP.md)")
+            f"{cfg.name}: only the decoder-only dense and MoE (GQA or MLA "
+            "attention), SSM and hybrid families are ported so far (see "
+            "ROADMAP.md)")
 
 
 def build_model(cfg: ModelConfig,

@@ -12,9 +12,11 @@ Scores and softmax run in f32 (bf16 operands are upcast exactly, as
 ``preferred_element_type=float32`` does); A@V casts A to V's dtype first,
 as the reference does.
 
-Not ported yet: the banded local passes (``cfg.banded_local``), the
-fused conservative colmax (``mca.fast_colmax``), cross attention and the
-mesh-dependent head layouts.
+The option paths of ``gqa_attention`` are ported with it: the fused
+conservative colmax (``mca.fast_colmax``) and the banded local passes
+(``cfg.banded_local``, causal sliding-window self-attention over
+gathered key bands).  Not ported yet: cross attention (``kv_x``, with the
+encoder-decoder family) and the mesh-dependent head layouts.
 """
 from __future__ import annotations
 
@@ -171,6 +173,121 @@ def onepass_attention(q, k, v, *, scale, causal, window, chunk, q_offset=0,
     return out.to(v.dtype), m, m + torch.log(safe_l)
 
 
+def chunked_lse_colmax_fused(q, k, *, scale, causal, window, chunk,
+                             q_offset=0, kv_valid=None, q_valid=None):
+    """One-pass lse + CONSERVATIVE colmax (``mca.fast_colmax``).
+
+    The exact colmax needs the final lse (a second sweep of the scores).
+    Folding max_i exp(s_ij - lse_running_i) into pass 1 uses a partial lse
+    (<= the final one), so every column max is OVERestimated: Eq. 9 then
+    gives at least the exact schedule's samples and the Theorem-2 bound
+    holds, at no extra sweep.  Returns (m, lse, colmax [B,Skv] clipped
+    to 1)."""
+    b, sq, hkv, g, _ = q.shape
+    skv = k.shape[1]
+    m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=q.device)
+    cms = []
+    for ci in range(skv // chunk):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        s = _scores(q, k[:, sl], scale)
+        mask = _chunk_masks(sq, chunk, ci, q_offset, causal, window,
+                            q.device)
+        if kv_valid is not None:
+            mask = mask & kv_valid[:, None, None, None, sl]
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        l = l * torch.exp(m - m_new) + torch.sum(
+            torch.exp(s - m_new[..., None]), dim=-1)
+        m = m_new
+        lse_run = m + torch.log(torch.where(l == 0, 1.0, l))
+        a_over = torch.where(mask, torch.exp(s - lse_run[..., None]), 0.0)
+        if q_valid is not None:
+            a_over = torch.where(q_valid[:, None, None, :, None], a_over, 0.0)
+        cms.append(torch.amax(a_over, dim=(1, 2, 3)))       # [B, C]
+    safe_l = torch.where(l == 0.0, 1.0, l)
+    colmax = torch.clamp(torch.cat(cms, dim=1), max=1.0)
+    return m, m + torch.log(safe_l), colmax
+
+
+# ------------------------------------------------------- banded (local)
+def _band_starts(sq: int, window: int, cq: int):
+    """First key of each query chunk's band (host ints) and the band
+    length ``window + cq``."""
+    band = window + cq
+    return [max(0, (i + 1) * cq - band) for i in range(sq // cq)], band
+
+
+def _band_mask(i, start, chunk_q, band, window, device):
+    qpos = i * chunk_q + torch.arange(chunk_q, device=device)
+    kpos = start + torch.arange(band, device=device)
+    d = qpos[:, None] - kpos[None, :]
+    return ((d >= 0) & (d < window))[None, None, None]
+
+
+def banded_lse_colmax(q, k, *, scale, window, chunk_q):
+    """Local attention over gathered key bands: query chunk i (``chunk_q``
+    rows) scores only its band of ``window + chunk_q`` keys, which covers
+    every key its rows may see, so no out-of-window score is computed and
+    the lse is final in one pass; colmax comes with it (exp(s - lse) per
+    band, scatter-maxed onto the key positions).  Needs Sq = Skv >= the
+    band.  Returns (m, lse [B,Hkv,G,Sq], colmax [B,Skv])."""
+    b, sq = q.shape[:2]
+    starts, band = _band_starts(sq, window, chunk_q)
+    ms, lses, cms = [], [], []
+    for i, start in enumerate(starts):
+        s = _scores(q[:, i * chunk_q:(i + 1) * chunk_q],
+                    k[:, start:start + band], scale)  # [B,hkv,g,Cq,band]
+        mask = _band_mask(i, start, chunk_q, band, window, q.device)
+        s = torch.where(mask, s, NEG_INF)
+        m = torch.amax(s, dim=-1)
+        l = torch.sum(torch.exp(s - m[..., None]), dim=-1)
+        lse = m + torch.log(torch.where(l == 0, 1.0, l))
+        a = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+        ms.append(m)
+        lses.append(lse)
+        cms.append(torch.amax(a, dim=(1, 2, 3)))            # [B, band]
+    # scatter-max the band colmaxes onto absolute key positions
+    kpos = (torch.as_tensor(starts, device=q.device)[:, None]
+            + torch.arange(band, device=q.device)[None]).reshape(-1)
+    colmax = torch.zeros((b, sq), dtype=torch.float32,
+                         device=q.device).scatter_reduce(
+        1, kpos[None].expand(b, -1), torch.cat(cms, dim=1), reduce="amax")
+    return torch.cat(ms, dim=-1), torch.cat(lses, dim=-1), colmax
+
+
+def banded_av(q, k, v, lse, *, scale, window, chunk_q):
+    """O = A @ V over the gathered bands, given the final lse.  Returns
+    [B,Sq,Hkv,G,dv] in v.dtype."""
+    sq = q.shape[1]
+    starts, band = _band_starts(sq, window, chunk_q)
+    outs = []
+    for i, start in enumerate(starts):
+        rows = slice(i * chunk_q, (i + 1) * chunk_q)
+        keys = slice(start, start + band)
+        s = _scores(q[:, rows], k[:, keys], scale)
+        mask = _band_mask(i, start, chunk_q, band, window, q.device)
+        a = torch.where(mask, torch.exp(s - lse[..., rows, None]), 0.0)
+        outs.append(_av(a, v[:, keys]).to(v.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def banded_onepass(q, k, v, *, scale, window, chunk_q):
+    """MCA-off local attention: out + (m, lse) from two band passes."""
+    m, lse, _ = banded_lse_colmax(q, k, scale=scale, window=window,
+                                  chunk_q=chunk_q)
+    out = banded_av(q, k, v, lse, scale=scale, window=window,
+                    chunk_q=chunk_q)
+    return out, m, lse
+
+
+def _use_banded(cfg, window, skv, causal, kv_x):
+    cq = pick_chunk(skv, cfg.attn_chunk)
+    return (cfg.banded_local and window > 0 and causal and kv_x is None
+            and skv % cq == 0 and skv >= window + cq)
+
+
 # ------------------------------------------------------------ GQA module
 def init_gqa(g: torch.Generator, cfg, device):
     dt = cfg.torch_dtype
@@ -221,11 +338,11 @@ def _acc_stats(acc, s):
     return out
 
 
-def _check_supported(cfg, kv_x):
-    if cfg.banded_local or cfg.mca.fast_colmax or kv_x is not None:
+def _check_supported(kv_x):
+    if kv_x is not None:
         raise NotImplementedError(
-            "banded local attention, fast_colmax and cross attention are "
-            "not ported yet")
+            "cross attention (kv_x) is not ported yet: it comes with the "
+            "encoder-decoder family")
 
 
 def gqa_attention(p, cfg, x, *, pos, mca_key: Optional[int] = None,
@@ -236,7 +353,7 @@ def gqa_attention(p, cfg, x, *, pos, mca_key: Optional[int] = None,
     x: [B, S, d]; kv_valid: optional [B, S] bool marking real
     (non-left-padding) tokens.  Returns (y, (k, v) or None, stats, rowmax).
     """
-    _check_supported(cfg, kv_x)
+    _check_supported(kv_x)
     causal = cfg.causal if causal is None else causal
     window = cfg.window if window is None else window
     b, sq, _ = x.shape
@@ -259,18 +376,35 @@ def gqa_attention(p, cfg, x, *, pos, mca_key: Optional[int] = None,
 
     chunk = pick_chunk(skv, cfg.attn_chunk)
     passes = dict(scale=scale, causal=causal, window=window, chunk=chunk)
+    bands = dict(scale=scale, window=window, chunk_q=chunk)
+    # the banded gather path has no padding mask: ragged (left-padded)
+    # batches take the chunked passes
+    banded = _use_banded(cfg, window, skv, causal, kv_x) and kv_valid is None
     if cfg.mca.active("v_proj") and mca_key is not None:
-        m, lse = chunked_lse(qg, k, kv_valid=kv_valid, **passes)
-        colmax = chunked_colmax(qg, k, lse, kv_valid=kv_valid,
-                                q_valid=q_valid, **passes)
+        if banded:
+            m, lse, colmax = banded_lse_colmax(qg, k, **bands)
+        elif cfg.mca.fast_colmax:
+            m, lse, colmax = chunked_lse_colmax_fused(
+                qg, k, kv_valid=kv_valid, q_valid=q_valid, **passes)
+        else:
+            m, lse = chunked_lse(qg, k, kv_valid=kv_valid, **passes)
+            colmax = chunked_colmax(qg, k, lse, kv_valid=kv_valid,
+                                    q_valid=q_valid, **passes)
         kv, s_v = mca_project(fold_in(mca_key, 1), src, p["wv"], colmax,
                               skv, cfg.mca, "v_proj")
         stats = _acc_stats(stats, s_v)
         v = _split_heads(kv, hkv, dh)
-        out = chunked_av(qg, k, v, lse, kv_valid=kv_valid, **passes)
+        if banded:
+            out = banded_av(qg, k, v, lse, **bands)
+        else:
+            out = chunked_av(qg, k, v, lse, kv_valid=kv_valid, **passes)
     else:
         v = _split_heads(src @ p["wv"], hkv, dh)
-        out, m, lse = onepass_attention(qg, k, v, kv_valid=kv_valid, **passes)
+        if banded:
+            out, m, lse = banded_onepass(qg, k, v, **bands)
+        else:
+            out, m, lse = onepass_attention(qg, k, v, kv_valid=kv_valid,
+                                            **passes)
     rowmax = torch.exp(torch.amax(m - lse, dim=(1, 2)))        # [B, Sq]
     if q_valid is not None:
         # padding query rows carry garbage lse; zero importance keeps them

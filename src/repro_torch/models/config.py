@@ -3,8 +3,9 @@
 Port of ``repro/models/config.py`` with the same fields and defaults, so a
 config means the same model in both packages; ``torch_dtype`` replaces
 ``jnp_dtype``.  The port runs the decoder-only dense and MoE families
-with GQA or MLA attention so far (``models/api.py`` raises for the
-others).
+with GQA or MLA attention, the SSM family and the hybrid family so far
+(``models/api.py`` raises for the VLM, audio and encoder-decoder
+families).
 """
 from __future__ import annotations
 

@@ -1,14 +1,17 @@
-"""Layer stacks: init / forward for the homogeneous attention stacks.
+"""Layer stacks: init / forward for every decoder-only family.
 
-Port of the ``attn_ffn`` and ``attn_moe`` parts of
-``repro/models/stack.py``, with a GQA or an MLA mixer.  The reference
-scans over layer-stacked parameters; here ``params["layers"]`` is a list
-of per-layer dicts and the forward is a Python loop (PyTorch runs
-eagerly).  The SSM and hybrid stacks are not ported yet.
+Port of ``repro/models/stack.py``: the layer kinds ``attn_ffn`` and
+``attn_moe`` (a GQA or an MLA mixer), ``ssm`` (a Mamba-2 mixer, no FFN)
+and ``rec_ffn`` (an RG-LRU recurrent block), and the hybrid
+(RecurrentGemma) stack.  The reference scans over layer-stacked
+parameters (the hybrid stack over repeating block-pattern groups, with
+an unrolled remainder); here ``params["layers"]`` is one flat list of
+per-layer dicts in layer order and the forward is a Python loop (PyTorch
+runs eagerly).  A hybrid layer's kind comes from ``layer_kinds``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.utils.checkpoint
@@ -16,6 +19,7 @@ import torch.utils.checkpoint
 from repro_torch.core.amm import fold_in
 from . import attention as attn
 from . import ffn as ffn_mod
+from . import rglru, ssm
 from .common import apply_norm, init_norm
 
 
@@ -38,14 +42,33 @@ def layer_kind(cfg) -> str:
     return "attn_ffn"
 
 
+def hybrid_layout(cfg):
+    """Returns (n_groups, pattern_kinds, remainder_kinds)."""
+    pat = tuple("rec_ffn" if k == "rec" else "attn_ffn"
+                for k in cfg.block_pattern)
+    n_groups = cfg.n_layers // len(pat)
+    rem = cfg.n_layers - n_groups * len(pat)
+    return n_groups, pat, pat[:rem]
+
+
+def layer_kinds(cfg) -> List[str]:
+    """Every layer's kind in layer order: the hybrid's groups then its
+    remainder (layer l has the kind of pattern position l % len(pat)),
+    one kind for the other families."""
+    if cfg.family != "hybrid":
+        return [layer_kind(cfg)] * cfg.n_layers
+    n_groups, pat, rem = hybrid_layout(cfg)
+    return list(pat) * n_groups + list(rem)
+
+
 def init_layer(g: torch.Generator, cfg, kind: str, device):
-    if kind not in ("attn_ffn", "attn_moe") \
-            or cfg.attn_type not in ("gqa", "mla"):
-        raise NotImplementedError(
-            f"layer kind {kind!r} / attn_type {cfg.attn_type!r} is not "
-            "ported yet (GQA or MLA attention, dense or MoE FFN only)")
     p: Dict[str, Any] = {"ln1": init_norm(cfg, device)}
-    if cfg.attn_type == "mla":
+    if kind == "ssm":
+        p["mixer"] = ssm.init_mamba2(g, cfg, device)
+        return p
+    if kind == "rec_ffn":
+        p["mixer"] = rglru.init_recurrent_block(g, cfg, device)
+    elif cfg.attn_type == "mla":
         p["mixer"] = attn.init_mla(g, cfg, device)
     else:
         p["mixer"] = attn.init_gqa(g, cfg, device)
@@ -60,21 +83,32 @@ def init_layer(g: torch.Generator, cfg, kind: str, device):
 def layer_forward(p, cfg, x, *, pos, mca_key: Optional[int], kind: str,
                   causal=None, window=None, kv_valid=None):
     """One residual block.  Returns (x, aux, stats, cache pieces): the
-    cache pieces are (k, v) for GQA and (ckv, kr) for MLA; aux is the MoE
-    router's load-balance loss, None for a dense FFN (no tensor, so a
-    dense layer launches nothing for it)."""
+    cache pieces are (k, v) for GQA, (ckv, kr) for MLA, (state,
+    conv_tail) for ``ssm`` and (conv_tail, h_last) for ``rec_ffn``; aux
+    is the MoE router's load-balance loss, None otherwise (no tensor, so
+    such a layer launches nothing for it)."""
     stats = zero_carry_stats(cfg, x.device)
     h = apply_norm(p["ln1"], cfg, x)
-    if cfg.attn_type == "mla":
-        y, kv, st, _ = attn.mla_attention(p["mixer"], cfg, h, pos=pos,
-                                          mca_key=mca_key, return_cache=True,
-                                          kv_valid=kv_valid)
+    if kind == "ssm":
+        y, state, tail = ssm.mamba2_forward(p["mixer"], cfg, h,
+                                            return_state=True)
+        return x + y, None, stats, (state, tail)
+    if kind == "rec_ffn":
+        y, tail, h_last = rglru.recurrent_block_with_state(p["mixer"], cfg,
+                                                           h)
+        cache = (tail, h_last)
+    elif cfg.attn_type == "mla":
+        y, cache, st, _ = attn.mla_attention(p["mixer"], cfg, h, pos=pos,
+                                             mca_key=mca_key,
+                                             return_cache=True,
+                                             kv_valid=kv_valid)
+        stats = add_stats(stats, st)
     else:
-        y, kv, st, _ = attn.gqa_attention(p["mixer"], cfg, h, pos=pos,
-                                          mca_key=mca_key, causal=causal,
-                                          window=window, return_kv=True,
-                                          kv_valid=kv_valid)
-    stats = add_stats(stats, st)
+        y, cache, st, _ = attn.gqa_attention(p["mixer"], cfg, h, pos=pos,
+                                             mca_key=mca_key, causal=causal,
+                                             window=window, return_kv=True,
+                                             kv_valid=kv_valid)
+        stats = add_stats(stats, st)
     x = x + y
     h = apply_norm(p["ln2"], cfg, x)
     if kind == "attn_moe":
@@ -83,16 +117,17 @@ def layer_forward(p, cfg, x, *, pos, mca_key: Optional[int], kind: str,
     else:
         y = ffn_mod.ffn(p["ffn"], cfg, h)
         aux = None
-    return x + y, aux, stats, kv
+    return x + y, aux, stats, cache
 
 
 def init_stack(g: torch.Generator, cfg, n_layers: int, kind: str, device):
     return [init_layer(g, cfg, kind, device) for _ in range(n_layers)]
 
 
-def stack_forward(params, cfg, x, *, pos, mca_key: Optional[int], kind: str,
+def stack_forward(params, cfg, x, *, pos, mca_key: Optional[int], kind,
                   causal=None, window=None):
     """Loop over layers. Returns (x, aux, stats), aux summed over layers.
+    ``kind`` is one layer kind, or a list of one per layer.
 
     Under autograd with ``cfg.remat`` each layer is recomputed in the
     backward (``torch.utils.checkpoint``, the reference's
@@ -101,15 +136,16 @@ def stack_forward(params, cfg, x, *, pos, mca_key: Optional[int], kind: str,
     seeded from the layer's integer key, never from the global RNG, so
     the RNG state is not stashed.
     """
+    kinds = [kind] * len(params) if isinstance(kind, str) else kind
     stats = zero_carry_stats(cfg, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for i, p_l in enumerate(params):
         key_l = None if mca_key is None else fold_in(mca_key, i)
 
-        def run(xx, p_l=p_l, key_l=key_l):
+        def run(xx, p_l=p_l, key_l=key_l, kind_l=kinds[i]):
             out, aux_l, st, _ = layer_forward(p_l, cfg, xx, pos=pos,
-                                              mca_key=key_l, kind=kind,
+                                              mca_key=key_l, kind=kind_l,
                                               causal=causal, window=window)
             return out, aux_l, st
 
@@ -122,3 +158,22 @@ def stack_forward(params, cfg, x, *, pos, mca_key: Optional[int], kind: str,
             aux = aux + aux_l
         stats = add_stats(stats, st)
     return x, aux, stats
+
+
+# ============================================================ hybrid stack
+def init_hybrid(g: torch.Generator, cfg, device):
+    """One flat list of per-layer dicts in layer order (the reference
+    keeps ``{"groups": {"pos{i}": [n_groups, ...]}, "rem": [...]}``;
+    ``convert.params_from_jax`` interleaves it into this order)."""
+    return [init_layer(g, cfg, kind, device) for kind in layer_kinds(cfg)]
+
+
+def hybrid_forward(params, cfg, x, *, pos, mca_key: Optional[int]):
+    """The hybrid stack: attention layers see ``cfg.window`` (the
+    default), recurrent ones no window.  Layer l draws its MCA key from
+    ``fold_in(mca_key, l)``: the reference folds in ``gidx * len(pat) +
+    i`` for grouped layers and ``n_groups * len(pat) + i`` for the
+    remainder, and both are the flat layer index, so the flat list draws
+    the same keys."""
+    return stack_forward(params, cfg, x, pos=pos, mca_key=mca_key,
+                         kind=layer_kinds(cfg))

@@ -39,6 +39,22 @@ def model_pair(arch="starcoder2-3b", j_mca=None, t_mca=None, seed=0, **kw):
     return jm, jp, tm, tp
 
 
+def tree_spec(tree, path=""):
+    """{leaf path: shape} of a params tree (dicts, lists, torch or numpy
+    leaves), independent of the order of dict keys (JAX sorts them)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(tree_spec(v, f"{path}/{k}"))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(tree_spec(v, f"{path}/{i}"))
+        return out
+    return {path: tuple(tree.shape)}
+
+
 def spy_mca_project(monkeypatch):
     """Record (importance, seq_len, d, cfg) of every port mca_project call
     made from the attention module."""

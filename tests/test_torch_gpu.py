@@ -32,7 +32,11 @@ MCA_CASES = [(64, 3072, 256, 1), (128, 3072, 256, 4), (24, 3072, 3072, 2),
              (48, 256, 264, 3),
              # olmoe-1b-7b v_proj/o_proj, minicpm3-4b o_proj and w_uv
              (128, 2048, 2048, 1), (128, 2048, 2048, 2), (128, 2048, 2048, 4),
-             (128, 2560, 2560, 4), (128, 256, 2560, 1)]
+             (128, 2560, 2560, 4), (128, 256, 2560, 1),
+             # recurrentgemma-9b v_proj (one KV head of 256) and o_proj
+             (128, 4096, 256, 1), (128, 4096, 256, 2), (128, 4096, 256, 4),
+             (128, 4096, 4096, 1), (128, 4096, 4096, 2),
+             (128, 4096, 4096, 4)]
 
 
 @pytest.fixture
@@ -242,6 +246,13 @@ LAYER_CASES = [
     ("mla_rows", 4, 512, (256,), (32,), "bfloat16", "rows", 0, False, None),
     ("mla_host_int_t", 4, 512, (256,), (32,), "bfloat16", "int", 0, False,
      None),
+    # recurrentgemma-9b: one KV head of 256 into a window of 2,048 slots
+    ("hybrid_rows", 4, 2048, (1, 256), (1, 256), "bfloat16", "rows", 2048,
+     True, None),
+    ("hybrid_host_int_t", 4, 2048, (1, 256), (1, 256), "bfloat16", "int",
+     2048, True, None),
+    ("hybrid_wrap", 4, 2048, (1, 256), (1, 256), "bfloat16", "wrap", 2048,
+     True, None),
 ]
 
 
@@ -564,10 +575,10 @@ def test_flash_kernel_is_deterministic(cuda):
         assert torch.equal(out, runs[0][0]) and torch.equal(lse, runs[0][1])
 
 
-def _reduced_pair(arch="starcoder2-3b", **kw):
+def _reduced_pair(arch="starcoder2-3b", n_layers=2, **kw):
     from repro_torch.configs import get_config
     from repro_torch.models import build_model, reduced
-    cfg = reduced(get_config(arch), n_layers=2, vocab_size=128, **kw)
+    cfg = reduced(get_config(arch), n_layers=n_layers, vocab_size=128, **kw)
     cpu = build_model(cfg, device="cpu")
     params = cpu.init(0)
     gpu = build_model(cfg, device="cuda")
@@ -623,6 +634,29 @@ def test_reduced_families_serve_on_card_as_on_cpu(cuda, arch):
     assert outs[0] == outs[1] == outs[2]
     launches = ops.launch_counts()["kv_slot_update"]
     assert launches > 0 and launches % 2 == 0           # 2 layers
+
+
+@pytest.mark.parametrize("arch,n_layers", [("mamba2-2.7b", 2),
+                                           ("recurrentgemma-9b", 5)])
+def test_reduced_ssm_hybrid_generate_on_card_as_on_cpu(cuda, arch, n_layers):
+    """The SSM and hybrid families (MCA off, f32, equal-length prompts
+    that run past the hybrid's window of 32): the card generates the
+    CPU's tokens, twice the same; one layer write per attention layer per
+    decode step (mamba2: none)."""
+    from repro_torch import serve
+    from repro_torch.kernels import ops
+    cpu, params, gpu, gparams = _reduced_pair(arch, n_layers=n_layers)
+    prompts = np.random.default_rng(2).integers(1, 128, (2, 30)).astype(
+        np.int32)
+    outs = []
+    for model, p in ((cpu, params), (gpu, gparams), (gpu, gparams)):
+        ops.reset_launch_counts()
+        outs.append(serve.Engine(model, p, batch_size=2,
+                                 max_len=48).generate(prompts, 8))
+    np.testing.assert_array_equal(outs[0], outs[1])
+    np.testing.assert_array_equal(outs[1], outs[2])
+    n_attn = 0 if arch == "mamba2-2.7b" else 1
+    assert ops.launch_counts()["kv_slot_update"] == n_attn * 7
 
 
 def test_mca_serving_on_card_takes_the_kernels(cuda):
@@ -682,6 +716,8 @@ TEL_MCA_CASES = [
     (128, 3072, 3072, 4, "bfloat16", 128), (24, 3072, 3072, 2, "bfloat16", 128),
     (256, 3072, 3072, 4, "bfloat16", 128), (200, 3072, 256, 2, "bfloat16", 128),
     (256, 3072, 256, 1, "bfloat16", 64), (48, 256, 128, 2, "float32", 128),
+    (128, 4096, 256, 4, "bfloat16", 128), (128, 4096, 4096, 1, "bfloat16",
+                                           128),
 ]
 
 

@@ -17,7 +17,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from _torch_parity import (assert_routing_margins, model_pair,  # noqa: E402
-                           spy_mca_project)
+                           spy_mca_project, tree_spec)
 
 from repro import obs as jobs  # noqa: E402
 from repro.core.policy import MCAConfig as JMCAConfig  # noqa: E402
@@ -378,7 +378,8 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
             build_model(cfg)
     assert build_model(cfg, device="cpu").device.type == "cpu"
     with pytest.raises(NotImplementedError):
-        build_model(cfg.replace(family="ssm"), device="cpu")
+        build_model(cfg.replace(family="vlm", frontend="patch"),
+                    device="cpu")
 
 
 @pytest.mark.parametrize("change", [
@@ -391,11 +392,24 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
     dict(is_encoder_decoder=True, n_encoder_layers=2),
     dict(attn_type="none")])
 def test_build_model_refuses_the_families_not_ported(change):
-    """The dense and MoE families with GQA or MLA build; SSM, hybrid,
-    VLM, audio and encoder-decoder configs still raise."""
+    """The dense and MoE families with GQA or MLA, and the SSM and hybrid
+    families, build on the CPU with the reference's parameter tree; VLM,
+    audio, encoder-decoder and attention-free dense configs still
+    raise."""
     cfg = reduced(get_config("starcoder2-3b")).replace(**change)
-    with pytest.raises(NotImplementedError, match="not ported|ported so"):
-        build_model(cfg, device="cpu")
+    if cfg.family not in ("ssm", "hybrid"):
+        with pytest.raises(NotImplementedError,
+                           match="not ported|ported so"):
+            build_model(cfg, device="cpu")
+        return
+    from repro.configs import get_config as j_get_config
+    from repro.models import build_model as j_build_model
+    from repro.models import reduced as j_reduced
+    jcfg = j_reduced(j_get_config("starcoder2-3b")).replace(**change)
+    jp = j_build_model(jcfg).init(jax.random.PRNGKey(0))
+    want = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    assert tree_spec(build_model(cfg, device="cpu").init(0)) == \
+        tree_spec(want)
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-1b-a400m",
