@@ -24,10 +24,14 @@ Phases, each of which must pass:
              slot_pos, each with a per-row and a host-int t; phase 11's:
              recurrentgemma-9b's K and V of 1 x 256 into a window of 2,048
              slots with slot_pos [4, 2048], a per-row t, a host-int t and
-             t >= 2048, the wrap); the MCA matmul also at phase 9's widths
-             (d = f = 2048 at R = 1, 2, 4; d = f = 2560 at R = 4; d 256,
-             f 2560 at R = 1) and phase 11's (d 4096, f 256 and 4096, at
-             R = 1, 2, 4);
+             t >= 2048, the wrap; phase 12's: whisper-small's K and V of
+             12 x 64 into 320 slots and internvl2-1b's of 2 x 64 into 576,
+             with slot_pos, each with a per-row and a host-int t); the MCA
+             matmul also at phase 9's widths (d = f = 2048 at R = 1, 2,
+             4; d = f = 2560 at R = 4; d 256, f 2560 at R = 1), phase 11's
+             (d 4096, f 256 and 4096, at R = 1, 2, 4) and phase 12's (d =
+             f = 768, K = 6; d 896, K = 7, f 128 and 896; R = 1, 2, 4; at
+             m 128 and at the rows phase 12 routes, m 384..2,048);
              ``flash_attention`` out within 2e-2
              of max|out| in bf16 (P is rounded to bf16 for PV) and 2e-4 in
              f32, lse within 1e-3, ``attn_colmax`` within 1e-3, at
@@ -84,7 +88,8 @@ Phases, each of which must pass:
              (ckv and kr of minicpm3-4b's decode, two ``index_put_`` as
              its library yardstick); phase 11's: ``HYBRID_MCA_TIMED`` and
              recurrentgemma-9b's layer write (window 2,048, t wrapped,
-             three ``index_put_``).
+             three ``index_put_``); phase 12's: ``ENCDEC_VLM_MCA_TIMED``
+             and the layer writes of ``ENCDEC_VLM_KV``.
 8. train   — the training path (``repro_torch.launch.train``), after the
              serve engine is gone:
              (a) starcoder2-3b at full width (bf16, random weights from
@@ -164,6 +169,33 @@ Phases, each of which must pass:
              2048 holds p for p = 512..2559); 16 decode steps from t =
              2560 wrap onto slots 512..527 in every attention layer, every
              logit finite; two generations give the same tokens.
+12. encdec-vlm — the encoder-decoder and VLM families, after phase 11
+             (nothing else resident), through the Model API (the
+             reference serves them through ``prefill`` and ``decode``:
+             ``Engine`` builds no frames or patches): (a) reduced
+             whisper-small and internvl2-1b (f32, 2 layers, 2 encoder
+             layers, 32 frames, 8 patches, MCA off), card against CPU:
+             the same greedy tokens over 8 decode steps (twice on the
+             card), hidden states and logits within 1e-4; (b) both at
+             full width (depth not cut, bf16, random weights from seed 0,
+             MCA on v_proj and o_proj as in phase 5), 4 rows: whisper
+             frames [4, 1500, 768] and 256-token prompts, max_len 320;
+             internvl patches [4, 256, 896] and 256 text tokens, max_len
+             576; prefill then 32 decode steps, t on the device; every
+             logit finite, kv_slot_update once per decoder layer per
+             step (12, 24), mca_matmul_fixed at the routing's count (the
+             encoder's B x 1,500 tokens and whisper's cross v_proj take
+             the plain gather: no capacity is a multiple of 128), no
+             fallback, ``forward_hidden``'s flops_reduction > 1; a second
+             run gives the same tokens; prefill time, decode step p50
+             (each step synchronised), tokens/s, peak memory, one profiled
+             prefill and 8-step burst; (c) full width in f32 (MCA and
+             TF32 off): prefill S - 1 tokens, decode the last, logits
+             within 1e-4 of max |logit| of the forward's last position.
+13. path-shapes — every (m, d, f, R, dtype, block) that the main paths
+             of phases 4-12 gave ``mca_matmul_fixed`` (recorded at the
+             wrapper the MCA dispatch calls) is held against the plain
+             version as in phase 3, unless phase 3 held it already.
 
 Phase 10 runs between phases 5b and 7.  Builds four sources (one
 ``nvcc`` each, in parallel).  Ends with a
@@ -199,6 +231,20 @@ FAMILY_MCA_TIMED = [(128, 2048, 2048, 4), (128, 256, 2560, 1)]
 # f 256 (one KV head) and o_proj 4096 -> 4096, K = 32 blocks
 HYBRID_MCA_CASES = [(128, 4096, f, r) for f in (256, 4096) for r in (1, 2, 4)]
 HYBRID_MCA_TIMED = [(128, 4096, 256, 4), (128, 4096, 4096, 4)]
+# phase 12's shapes: whisper-small v_proj/o_proj (d = f = 768, K = 6: the
+# ladder (1, 2, 4, 6)); internvl2-1b v_proj (d 896, K = 7, odd; f 128,
+# one column tile) and o_proj (d = f = 896); at m 128 and at the rows
+# phase 12 routes to the tiers of 1, 2 and 4 blocks: 1,024 / 512 / 384 of
+# whisper's 4 x 256 decoder tokens, 2,048 / 1,024 / 768 of internvl's
+# 4 x (256 + 256) positions (phase 12 fails on a shape not held here)
+ENCDEC_VLM_MCA_CASES = [(128, d, f, r) for d, f in ((768, 768), (896, 128),
+                                                    (896, 896))
+                        for r in (1, 2, 4)] + [
+    (m, 768, 768, r) for m, r in ((1024, 1), (512, 2), (384, 4))] + [
+    (m, 896, f, r) for f in (128, 896)
+    for m, r in ((2048, 1), (1024, 2), (768, 4))]
+ENCDEC_VLM_MCA_TIMED = [(128, 768, 768, 4), (128, 896, 128, 4),
+                        (128, 896, 896, 4)]
 # (m, R) of every sampled tier of the serve path: a prefill bucket of n
 # tokens (16..256) fills the 1-, 2- and 4-block tiers up to n, n/2, 3n/8
 SERVE_MR = [(6, 4), (8, 2), (12, 4), (16, 1), (16, 2), (24, 4), (32, 1),
@@ -224,6 +270,7 @@ ATTN_TIMED = ATTN_CASES[0]
 # and counts R); ATTN_TIMED is also counted in 64 x 64 tiles
 TEL_MCA_CASES = [(200, 3072, 256, 2)]
 TEL_CHECKED = []                  # (what, [launches, count]) of phase 3
+MCA_HELD = set()                  # (m, d, f, R) phase 3 held: bf16, block 128
 SERVE_KERNELS = ("mca_matmul_fixed", "kv_slot_update")
 ENTRY_KERNELS = ("flash_attention", "attn_colmax", "mca_matmul_ragged")
 KV_SHAPE = (4, 512, 256)          # one layer's K (or V) cache, flattened
@@ -231,6 +278,9 @@ KV_STACK = (30, 4, 512, 2, 128)   # layer-stacked cache of the serve path
 OLMOE_KV_TAIL = (16, 128)         # olmoe-1b-7b: a K or V row of 4 KB
 MLA_TAILS = ((256,), (32,))       # minicpm3-4b: ckv and kr rows, no slot_pos
 HYBRID_KV = (2048, (1, 256))      # recurrentgemma-9b: window slots, K/V row
+# phase 12's self-attention caches: (model, max_len, K/V row)
+ENCDEC_VLM_KV = [("whisper-small", 320, (12, 64)),    # rows of 1,536 bytes
+                 ("internvl2-1b", 576, (2, 64))]      # rows of 256 bytes
 
 
 def log(msg: str) -> None:
@@ -291,7 +341,7 @@ def phase_build():
 
 
 # ------------------------------------------------------------- phase 3
-def _mca_inputs(m, d, f, r, seed, dtype=None):
+def _mca_inputs(m, d, f, r, seed, dtype=None, block=128):
     import torch
     from repro_torch.core import amm
     dtype = dtype or torch.bfloat16
@@ -299,8 +349,60 @@ def _mca_inputs(m, d, f, r, seed, dtype=None):
     x = torch.randn((m, d), generator=g, device="cuda").to(dtype)
     w = (torch.randn((d, f), generator=g, device="cuda")
          / d ** 0.5).to(dtype)
-    idx, inv_rp = amm.draw_block_samples(g, amm.block_probs(w, 128), r)
+    idx, inv_rp = amm.draw_block_samples(g, amm.block_probs(w, block), r)
     return x, w, idx, inv_rp
+
+
+class _MCAShapes:
+    """While installed, records (m, d, f, R, dtype, block) of every call
+    the MCA dispatch makes to ``repro_torch.kernels.mca_matmul`` (the
+    wrapper that launches mca_matmul_fixed) and passes the call on
+    unchanged; ``phase_path_shapes`` holds what it saw."""
+
+    def __enter__(self):
+        import repro_torch.kernels as kernels
+        self._pkg, self._inner = kernels, kernels.mca_matmul
+        self.seen = set()
+
+        def recorded(x, w, idx, inv_rp, *, block=128, **kw):
+            self.seen.add((x.shape[0], x.shape[1], w.shape[1], idx.shape[0],
+                           str(x.dtype).split(".")[-1], block))
+            return self._inner(x, w, idx, inv_rp, block=block, **kw)
+        kernels.mca_matmul = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._pkg.mca_matmul = self._inner
+
+
+def phase_path_shapes(seen):
+    """Phase 13: every (m, d, f, R, dtype, block) the main paths of
+    phases 4-12 gave mca_matmul_fixed, held against the plain version
+    as phase 3 holds its cases; a shape phase 3 held is not run again.
+    Returns the max abs error of the shapes run here."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mca_matmul import mca_matmul_fixed
+    todo = sorted(sh for sh in seen if sh[4:] != ("bfloat16", 128)
+                  or sh[:4] not in MCA_HELD)
+    worst = 0.0
+    for m, d, f, r, dt, block in todo:
+        dtype = getattr(torch, dt)
+        x, w, idx, inv_rp = _mca_inputs(m, d, f, r, seed=m + f + r,
+                                        dtype=dtype, block=block)
+        want = ref.ref_mca_matmul_fixed(x, w, idx, inv_rp, block).float()
+        got = mca_matmul_fixed(x, w, idx, inv_rp, block=block)
+        torch.cuda.synchronize()
+        rel = 1e-2 if dtype == torch.bfloat16 else 1e-4
+        worst = max(worst, _held(
+            f"[path-shapes] mca_matmul_fixed m={m} d={d} f={f} R={r} {dt} "
+            f"block {block}", got, want, rel * float(want.abs().max())))
+    log(f"[path-shapes] mca_matmul_fixed ran at {len(seen)} shapes on the "
+        f"main paths: {len(seen) - len(todo)} held in phase 3, {len(todo)} "
+        f"held here, max|err| {worst:.3e}")
+    if not seen:
+        raise AssertionError("no mca_matmul_fixed call was recorded")
+    return worst
 
 
 def _tel_held(what, off, on, want):
@@ -327,7 +429,7 @@ def phase_kernels():
     from repro_torch.kernels.mca_matmul import mca_matmul_fixed
     errs = {"mca_matmul_fixed": 0.0, "kv_slot_update": 0.0}
     cases = [(c, "sampled") for c in MCA_CASES + FAMILY_MCA_CASES
-             + HYBRID_MCA_CASES] + [
+             + HYBRID_MCA_CASES + ENCDEC_VLM_MCA_CASES] + [
         ((128, 3072, 3072, 24), "exact")] + [
         (c, "telemetry") for c in TEL_MCA_CASES]
     for (m, d, f, r), mode in cases:
@@ -344,6 +446,7 @@ def phase_kernels():
                     f"R={r}", got, want, 1e-2 * float(want.abs().max()))
         if mode == "sampled":
             errs["mca_matmul_fixed"] = max(errs["mca_matmul_fixed"], err)
+            MCA_HELD.add((m, d, f, r))
         _tel_held(f"mca_matmul_fixed m={m} d={d} f={f} R={r}", got,
                   mca_matmul_fixed(x, w, idx, inv_rp, block=128,
                                    telemetry=True),
@@ -463,20 +566,23 @@ def _check_layer_write(g):
 
 
 def _check_family_layer_writes(g):
-    """Phase 9's layer writes, bitwise against the plain version, whole
-    tensors compared: olmoe-1b-7b's K and V rows (16 x 128) with slot_pos,
-    and minicpm3-4b's latent rows (ckv 256 and kr 32 wide, 512 and 64
-    bytes) with no slot_pos; each with a per-row t and a host-int t."""
+    """Phase 9's and phase 12's layer writes, bitwise against the plain
+    version, whole tensors compared: olmoe-1b-7b's K and V rows (16 x
+    128) with slot_pos, minicpm3-4b's latent rows (ckv 256 and kr 32
+    wide, 512 and 64 bytes) with no slot_pos, whisper-small's self K and
+    V rows (12 x 64) into 320 slots and internvl2-1b's (2 x 64) into 576,
+    with slot_pos; each with a per-row t and a host-int t."""
     import torch
     from repro_torch.kernels import cache_update, ref
-    s = KV_STACK[2]
-    cases = [("olmoe K, V [4,512,16,128] + slot_pos", OLMOE_KV_TAIL, None,
-              True),
-             ("MLA ckv [4,512,256], kr [4,512,32], no slot_pos",
-              MLA_TAILS[0], MLA_TAILS[1], False)]
-    for what, tail, v_tail, with_spos in cases:
+    cases = [("olmoe K, V [4,512,16,128] + slot_pos", KV_STACK[2],
+              OLMOE_KV_TAIL, None, True),
+             ("MLA ckv [4,512,256], kr [4,512,32], no slot_pos", KV_STACK[2],
+              MLA_TAILS[0], MLA_TAILS[1], False)] + [
+        (f"{arch} K, V [4,{slots},{tail[0]},{tail[1]}] + slot_pos", slots,
+         tail, None, True) for arch, slots, tail in ENCDEC_VLM_KV]
+    for what, s, tail, v_tail, with_spos in cases:
         for host_int in (False, True):
-            k, v, kn, vn, spos, t = _layer_inputs(g, tail=tail,
+            k, v, kn, vn, spos, t = _layer_inputs(g, s=s, tail=tail,
                                                   v_tail=v_tail)
             if host_int:
                 t = s // 3
@@ -1618,25 +1724,26 @@ def _numbers_mla_write():
                 library_device_us=lib_dev)
 
 
-def _numbers_hybrid_write():
-    """The layer write at recurrentgemma-9b's decode shape (B = 4, K and V
-    rows of 1 x 256 bf16, a window of 2,048 slots with slot_pos [4, 2048],
-    per-row t past the window so the slot wraps): kernel per call, device
-    and host time, its bound, the plain version and three ``index_put_``
-    (K, V, slot_pos at t % 2048) as the library yardstick."""
+def _numbers_gqa_write(what, slots, tail, window, seed):
+    """The layer write at a model's decode shape (B = 4, K and V rows of
+    ``tail`` bf16 into ``slots`` slots with slot_pos [4, slots], per-row
+    t; with a window, t past it so the slot wraps): kernel per call,
+    device and host time, its bound, the plain version and three
+    ``index_put_`` (K, V, slot_pos at t % slots) as the library
+    yardstick."""
     import torch
     from repro_torch.kernels import cache_update, ref
-    g = torch.Generator(device="cuda").manual_seed(12)
-    slots, tail = HYBRID_KV
-    k, v, kn, vn, spos, t = _layer_inputs(g, s=slots, tail=tail, t_lo=slots,
-                                          t_hi=4 * slots)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    k, v, kn, vn, spos, t = _layer_inputs(
+        g, s=slots, tail=tail, t_lo=slots if window else 0,
+        t_hi=4 * slots if window else None)
     b = k.shape[0]
     row = kn[0].numel() * kn.element_size()
     bound, by = _bound_ms(4 * b * row + 4 * b + 4 * b, 0)
 
     def call():
         cache_update.kv_slot_update_layer(k, kn, v, vn, spos, t,
-                                          window=slots)
+                                          window=window)
 
     rows_idx = torch.arange(b, device="cuda")
     slot = (t % slots).long()
@@ -1648,13 +1755,14 @@ def _numbers_hybrid_write():
 
     ms = cuda_time_ms(call)
     plain = cuda_time_ms(lambda: ref.ref_kv_slot_update_layer(
-        k, kn, v, vn, spos, t, window=slots))
+        k, kn, v, vn, spos, t, window=window))
     lib = cuda_time_ms(lib_call)
     dev_us, lib_dev = _device_pair_us(call, "kv_slot_update_kernel",
                                       lib_call)
     host = host_us(call)
-    log(f"[numbers] kv_slot_update_layer recurrentgemma-9b K, V "
-        f"[4,2048,1,256] bf16 + slot_pos [4,2048], window 2048, t wrapped: "
+    log(f"[numbers] kv_slot_update_layer {what} K, V "
+        f"[{b},{slots},{tail[0]},{tail[1]}] bf16 + slot_pos [{b},{slots}]"
+        f"{f', window {window}, t wrapped' if window else ''}: "
         f"kernel {ms * 1e3:.2f} us per call (device {_us(dev_us)}, host "
         f"{host:.2f} us to issue), plain {plain * 1e3:.2f} us, 3 x "
         f"index_put_ {lib * 1e3:.2f} us per call (device {_us(lib_dev)}), "
@@ -1670,7 +1778,14 @@ def phase_numbers():
         out["families"][f"mca_matmul_fixed {case}"] = _numbers_fixed(
             case, plain_too=True)
     out["families"]["kv_slot_update_layer MLA"] = _numbers_mla_write()
-    out["families"]["kv_slot_update_layer hybrid"] = _numbers_hybrid_write()
+    out["families"]["kv_slot_update_layer hybrid"] = _numbers_gqa_write(
+        "recurrentgemma-9b", *HYBRID_KV, window=HYBRID_KV[0], seed=12)
+    for case in ENCDEC_VLM_MCA_TIMED:
+        out["families"][f"mca_matmul_fixed {case}"] = _numbers_fixed(
+            case, plain_too=True)
+    for i, (arch, slots, tail) in enumerate(ENCDEC_VLM_KV):
+        out["families"][f"kv_slot_update_layer {arch}"] = _numbers_gqa_write(
+            arch, slots, tail, window=0, seed=20 + i)
     shapes = list(MCA_CASES)
     for m, r in SERVE_MR:
         for f in (256, 3072):
@@ -1989,17 +2104,32 @@ FAMILY_WAVE = 4                   # ContinuousBatcher requests of 32 tokens
 FAMILY_NEW = 16                   # new tokens per request
 
 
-def _expected_mca(cfg, prefill_tokens):
-    """(launches, sampled blocks) of mca_matmul_fixed for the prefills
-    that routed these token counts: a launch for every sampled tier of
-    v_proj and o_proj in every layer whose capacity the dispatch sends to
-    the kernel (``cap % min(128, cap) == 0``, block >= 128), counted from
-    the same ladders and capacities; each counts, in the reference's
-    units, ``cap // min(128, cap)`` row tiles x the tier's R blocks."""
+def _mca_launches(mca, d, n):
+    """(launches, sampled blocks) of mca_matmul_fixed for one MCA
+    projection of n tokens at input width d: a launch for every sampled
+    tier whose capacity the dispatch sends to the kernel (``cap % min(128,
+    cap) == 0``, block >= 128), counted from the routing's own ladder and
+    capacities; each counts, in the reference's units, ``cap // min(128,
+    cap)`` row tiles x the tier's R blocks."""
     from repro_torch.core import schedule
     from repro_torch.core.policy import _caps_for
+    block = mca.block_for(d)
+    ladder = schedule.tier_ladder(d, block, mca.n_tiers, mca.r_min_blocks)
+    caps = _caps_for(n, len(ladder), mca.capacity_fracs)
+    n_launch = n_blocks = 0
+    for t in range(len(ladder) - 1):
+        cap = caps[t]
+        if block >= 128 and cap % min(128, cap) == 0:
+            n_launch += 1
+            n_blocks += cap // min(128, cap) * ladder[t]
+    return n_launch, n_blocks
+
+
+def _expected_mca(cfg, prefill_tokens):
+    """(launches, sampled blocks) of mca_matmul_fixed for the prefills
+    that routed these token counts: v_proj and o_proj of every attention
+    layer (``_mca_launches``)."""
     from repro_torch.models import stack
-    mca = cfg.mca
     if cfg.attn_type == "mla":
         dims = (cfg.mla_kv_lora, cfg.n_heads * cfg.mla_v_dim)
     else:
@@ -2007,15 +2137,9 @@ def _expected_mca(cfg, prefill_tokens):
     n_launch = n_blocks = 0
     for n in prefill_tokens:
         for d in dims:
-            block = mca.block_for(d)
-            ladder = schedule.tier_ladder(d, block, mca.n_tiers,
-                                          mca.r_min_blocks)
-            caps = _caps_for(n, len(ladder), mca.capacity_fracs)
-            for t in range(len(ladder) - 1):
-                cap = caps[t]
-                if block >= 128 and cap % min(128, cap) == 0:
-                    n_launch += 1
-                    n_blocks += cap // min(128, cap) * ladder[t]
+            la, bl = _mca_launches(cfg.mca, d, n)
+            n_launch += la
+            n_blocks += bl
     n_attn = sum(k.startswith("attn") for k in stack.layer_kinds(cfg))
     return n_attn * n_launch, n_attn * n_blocks
 
@@ -2512,6 +2636,315 @@ def phase_ssm_hybrid():
     return launches, out
 
 
+# ------------------------------------------------------------ phase 12
+# (arch, prompt tokens, max_len) at full width; batch 4, 32 decode steps
+ENCDEC_VLM = [("whisper-small", 256, 320), ("internvl2-1b", 256, 576)]
+ENCDEC_VLM_B, ENCDEC_VLM_STEPS = 4, 32
+ENCDEC_VLM_DVF = (2, 128)          # (c): batch, tokens (the last decoded)
+
+
+def _encdec_vlm_batch(cfg, b, s, seed, device):
+    """Tokens [b, s] and the family's stub features from ``seed``: frames
+    [b, encoder_len, d] or patches [b, n_patch_tokens, d]; and the first
+    decode position (s, or s + the patches, which positions count)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(1, cfg.vocab_size, (b, s))
+    name, n = (("frames", cfg.encoder_len) if cfg.is_encoder_decoder
+               else ("patches", cfg.n_patch_tokens))
+    feats = rng.standard_normal((b, n, cfg.d_model), dtype=np.float32)
+    batch = {"tokens": torch.as_tensor(toks, device=device),
+             name: torch.as_tensor(feats, device=device)}
+    return batch, s if cfg.is_encoder_decoder else s + n
+
+
+def _first_token(model, params, batch, max_len, key=None):
+    """``Model.prefill`` and the greedy token after it: (cache, token
+    [B, 1] int32, its logits, the prefill's stats)."""
+    import torch
+    from repro_torch.models.api import _logits
+    cfg = model.cfg
+    cache, hid, stats = model.prefill(params, batch, max_len, key)
+    logits = _logits(params, cfg, hid[:, -1:])
+    tok = torch.argmax(logits[..., :cfg.vocab_size], -1).to(torch.int32)
+    return cache, tok, logits, stats
+
+
+def _decode_greedy(model, params, tok, cache, t0, steps, clock=None):
+    """``steps`` greedy ``Model.decode`` steps from ``tok`` at position
+    ``t0``, t on the device: (the new tokens, the last logits, a device
+    flag of any non-finite logit, each step's time by ``clock``)."""
+    import torch
+    vocab = model.cfg.vocab_size
+    out, step_s, bad = [], [], torch.zeros((), dtype=torch.bool,
+                                           device=model.device)
+    t = torch.full((), t0, dtype=torch.int32, device=model.device)
+    logits = None
+    for _ in range(steps):
+        t_a = clock() if clock else 0.0
+        logits, cache = model.decode(params, tok, cache, t)
+        tok = torch.argmax(logits[..., :vocab], -1).to(torch.int32)
+        step_s.append((clock() if clock else 0.0) - t_a)
+        bad |= ~torch.isfinite(logits).all()
+        out.append(tok)
+        t = t + 1
+    return out, logits, bad, step_s
+
+
+def _greedy(model, params, batch, t0, steps, max_len, key=None,
+            times=None):
+    """``Model.prefill`` then ``steps`` greedy ``Model.decode`` steps from
+    position ``t0``, t on the device.  Returns (tokens [B, steps + 1] on
+    the host, the last logits, the prefill's stats, whether any logit was
+    non-finite).  With ``times`` (a dict) each call is synchronised and
+    timed: ``prefill_s`` and the list ``step_s``."""
+    import torch
+    on_card = model.device.type == "cuda"
+
+    def clock():
+        if on_card and times is not None:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    with torch.no_grad():
+        t_a = clock()
+        cache, tok, logits, stats = _first_token(model, params, batch,
+                                                 max_len, key)
+        t_b = clock()
+        out, last, bad, step_s = _decode_greedy(model, params, tok, cache,
+                                                t0, steps, clock)
+        bad |= ~torch.isfinite(logits).all()
+    if times is not None:
+        times.update(prefill_s=t_b - t_a, step_s=step_s)
+    return (torch.cat([tok] + out, 1).cpu().numpy(),
+            logits if last is None else last, stats, bool(bad))
+
+
+def _encdec_vlm_card_vs_cpu(arch):
+    """(a) reduced ``arch`` (f32, 2 layers, 2 encoder layers, 32 frames or
+    8 patches, vocab 128, MCA off, TF32 off) through prefill and 8 decode
+    steps on the card and on the CPU from the same params: the same
+    greedy tokens (and again in a second card run), the forward's hidden
+    states and logits within 1e-4."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, reduced
+    from repro_torch.models.api import _logits
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = reduced(get_config(arch), n_layers=2, vocab_size=128)
+    cpu = build_model(cfg, device="cpu")
+    params = cpu.init(0)
+    gpu = build_model(cfg, device="cuda")
+    gparams = _to_device(params, "cuda")
+    toks, hid, logits = [], [], []
+    for model, p in ((cpu, params), (gpu, gparams), (gpu, gparams)):
+        batch, t0 = _encdec_vlm_batch(cfg, 2, 12, 0, model.device)
+        toks.append(_greedy(model, p, batch, t0, 8, t0 + 16)[0])
+        with torch.no_grad():
+            h, _, _ = model.forward_hidden(p, batch)
+        hid.append(h.float().cpu().numpy())
+        logits.append(_logits(p, cfg, h)[..., :128].cpu().numpy())
+    diff = float(np.abs(hid[0] - hid[1]).max())
+    ldiff = float(np.abs(logits[0] - logits[1]).max())
+    log(f"[encdec-vlm] {arch} reduced f32 (2 layers"
+        f"{', 2 encoder layers' if cfg.is_encoder_decoder else ''}) tokens "
+        f"cpu={toks[0].tolist()} gpu={toks[1].tolist()} hidden "
+        f"max|diff|={diff:.3e} logits max|diff|={ldiff:.3e}; second card "
+        f"run {'identical' if np.array_equal(toks[1], toks[2]) else 'DIFFERS'}")
+    if not (np.array_equal(toks[0], toks[1])
+            and np.array_equal(toks[1], toks[2])
+            and diff <= 1e-4 and ldiff <= 1e-4):
+        raise AssertionError(f"reduced {arch} on the card != on the CPU")
+    return {"hidden_diff": diff, "logits_diff": ldiff}
+
+
+def _encdec_vlm_expected_mca(cfg, b, s):
+    """(encoder, decoder) launches of mca_matmul_fixed in one prefill, from
+    the routing: whisper's encoder v_proj and o_proj and its cross v_proj
+    route B x encoder_len tokens, its self v_proj, self o_proj and cross
+    o_proj B x S; the VLM's v_proj and o_proj route B x (P + S)."""
+    mca = cfg.mca
+    d_v, d_o = cfg.d_model, cfg.n_heads * cfg.d_head
+    if not cfg.is_encoder_decoder:
+        return 0, _expected_mca(cfg, [b * (s + cfg.n_patch_tokens)])[0]
+    n_enc, n_dec = b * cfg.encoder_len, b * s
+    enc = cfg.n_encoder_layers * (_mca_launches(mca, d_v, n_enc)[0]
+                                  + _mca_launches(mca, d_o, n_enc)[0])
+    dec = cfg.n_layers * (_mca_launches(mca, d_v, n_dec)[0]
+                          + 2 * _mca_launches(mca, d_o, n_dec)[0]
+                          + _mca_launches(mca, d_v, n_enc)[0])
+    return enc, dec
+
+
+def _profile_encdec_vlm(model, params, batch, t0, max_len, tag):
+    """One profiled prefill and one profiled 8-step decode burst."""
+    import torch
+    box = {}
+
+    def prefill():
+        box["cache"], box["tok"], _, _ = _first_token(model, params, batch,
+                                                      max_len, 0)
+
+    def burst():
+        _decode_greedy(model, params, box["tok"], box["cache"], t0, 8)
+
+    out = {}
+    with torch.no_grad():
+        for name, fn in (("prefill", prefill), ("decode_burst_8", burst)):
+            fn()                                             # warm up
+            out[name] = _profile_summary(tag, name, *_profile(fn))
+    return {k: {kk: v[kk] for kk in ("wall_ms", "device_busy_ms",
+                                     "device_busy_share", "kernel_launches",
+                                     "top_device")}
+            for k, v in out.items()}
+
+
+def _serve_encdec_vlm(arch, s, max_len):
+    """(b) ``arch`` at full width (bf16, random weights from seed 0, depth
+    not cut), MCA on v_proj and o_proj (alpha 0.2, block 128, use_kernel),
+    through ``build_model`` -> ``prefill`` -> 32 ``decode`` steps of 4
+    rows: every logit finite, one layer write per decoder layer per step,
+    mca_matmul_fixed at the routing's count, no fallback,
+    ``flops_reduction`` > 1 from ``forward_hidden`` (the encoder
+    included), a second run with the same tokens; prefill time, decode
+    step p50, tokens/s, peak memory and one profiled prefill and burst."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import MCAConfig, flops_reduction
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    mca = MCAConfig(enabled=True, alpha=0.2, block=128, use_kernel=True,
+                    sites=("v_proj", "o_proj"))
+    cfg = get_config(arch, mca=mca)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in _leaves(params))
+    b, steps = ENCDEC_VLM_B, ENCDEC_VLM_STEPS
+    batch, t0 = _encdec_vlm_batch(cfg, b, s, 12, "cuda")
+    torch.cuda.synchronize()
+    log(f"[encdec-vlm] {arch}: {cfg.n_layers} decoder layers"
+        f"{f' + {cfg.n_encoder_layers} encoder' if cfg.is_encoder_decoder else ''}"
+        f", d_model {cfg.d_model}, {n_params / 1e9:.3f} B params "
+        f"({cfg.dtype}) made on the card in "
+        f"{time.perf_counter() - t_phase:.1f}s; inputs "
+        f"{ {k: list(v.shape) for k, v in batch.items()} }, decode from t = "
+        f"{t0}, max_len {max_len}")
+    times = {}
+    with obs.scoped() as reg:
+        ops.reset_launch_counts()
+        toks, _, _, bad = _greedy(model, params, batch, t0, steps, max_len,
+                                  key=0, times=times)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        c = reg.snapshot()["counters"]
+    enc_want, dec_want = _encdec_vlm_expected_mca(cfg, b, s)
+    kv_calls = c.get("kernels.kv_slot_update.kernel_calls", 0)
+    mca_calls = c.get("kernels.mca_matmul.kernel_calls", 0)
+    fallbacks = {k: v for k, v in c.items() if k.endswith("fallback_calls")}
+    with torch.no_grad():
+        _, _, st = model.forward_hidden(params, batch, 0)
+    red = float(flops_reduction(st))
+    log(f"[encdec-vlm] {arch}: launches {launches}; kv_slot_update "
+        f"kernel_calls {kv_calls} ({cfg.n_layers} layers x {steps} steps = "
+        f"{cfg.n_layers * steps} launches); mca_matmul_fixed kernel_calls "
+        f"{mca_calls}, from the routing {enc_want} (encoder) + {dec_want} "
+        f"(decoder); fallbacks {fallbacks}; forward flops_reduction "
+        f"{red:.3f}; any non-finite logit: {bad}")
+    if not (not bad and launches["kv_slot_update"] == cfg.n_layers * steps
+            and kv_calls == 2 * cfg.n_layers * steps
+            and launches["mca_matmul_fixed"] == mca_calls
+            == enc_want + dec_want > 0
+            and not any(fallbacks.values())
+            and all(launches[k] == 0 for k in ENTRY_KERNELS)
+            and red > 1.0):
+        raise AssertionError(f"{arch}: non-finite logits, or kernel launches "
+                             "or MCA accounting do not add up")
+    again = _greedy(model, params, batch, t0, steps, max_len, key=0)[0]
+    if not np.array_equal(again, toks):
+        raise AssertionError(f"{arch}: two runs of the same inputs gave "
+                             "different tokens")
+    step_s = np.asarray(times["step_s"])
+    nums = {"params": n_params, "prefill_s": times["prefill_s"],
+            "decode_step_p50_s": float(np.median(step_s)),
+            "tokens_per_s": b * steps / float(step_s.sum()),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "flops_reduction": red, "mca_launches": mca_calls,
+            "kv_launches": launches["kv_slot_update"]}
+    nums["profile"] = _profile_encdec_vlm(model, params, batch, t0, max_len,
+                                          f"[encdec-vlm] {arch} profile")
+    nums["seconds"] = time.perf_counter() - t_phase
+    log(f"[encdec-vlm] {arch}: " + json.dumps(nums)
+        + "; two runs of the same inputs gave the same tokens")
+    del params, model
+    return launches, nums
+
+
+def _decode_vs_forward(arch):
+    """(c) ``arch`` at full width in f32 (TF32 off, MCA off, random
+    weights from seed 1): prefill S - 1 tokens and decode the last; its
+    logits against the forward's last position, within 1e-4 of
+    max|logit| (the reference's test_decode_matches_forward)."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.api import _logits
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(arch, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(1))
+    b, s = ENCDEC_VLM_DVF
+    batch, t_end = _encdec_vlm_batch(cfg, b, s, 14, "cuda")
+    pre = dict(batch, tokens=batch["tokens"][:, :-1])
+    with torch.no_grad():
+        cache, _, _ = model.prefill(params, pre, t_end + 8)
+        got, _ = model.decode(params, batch["tokens"][:, -1:], cache,
+                              torch.tensor(t_end - 1, dtype=torch.int32,
+                                           device="cuda"))
+        hid, _, _ = model.forward_hidden(params, batch)
+        want = _logits(params, cfg, hid[:, -1:])
+    got, want = got[..., :cfg.vocab_size], want[..., :cfg.vocab_size]
+    err = _held(f"[encdec-vlm] {arch} f32 full width: decode of position "
+                f"{t_end - 1} vs the forward's last logits", got, want,
+                1e-4 * float(want.abs().max()))
+    out = {"err": err, "max_logit": float(want.abs().max())}
+    del params, model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_encdec_vlm():
+    """Phase 12: the encoder-decoder and VLM families, after phase 11
+    with nothing else resident: (a) reduced whisper-small and internvl2-1b,
+    card against CPU; (b) both at full width with MCA on, one after the
+    other; (c) full-width f32 decode against forward."""
+    t0 = time.perf_counter()
+    out = {"parity": {arch: _encdec_vlm_card_vs_cpu(arch)
+                      for arch, _, _ in ENCDEC_VLM}}
+    launches = {k: 0 for k in ALL_KERNELS}
+    for arch, s, max_len in ENCDEC_VLM:
+        got, out[arch] = _serve_encdec_vlm(arch, s, max_len)
+        for k, v in got.items():
+            launches[k] += v
+    out["decode_vs_forward"] = {arch: _decode_vs_forward(arch)
+                                for arch, _, _ in ENCDEC_VLM}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[encdec-vlm] phase 12 passed in {out['phase_s']:.1f}s")
+    return launches, out
+
+
 # ------------------------------------------------------------ phase 10
 class _BurstReads:
     """Counts the host's reads of CUDA tensors (``.cpu()``, ``.item()``,
@@ -2790,27 +3223,35 @@ def main() -> int:
         f"{torch.version.cuda} | {kind} x {torch.cuda.device_count()}")
     phase_build()
     errs = phase_kernels()
-    phase_parity()
-    launches, per, serve_nums, engine = phase_serve()
-    launches.update(phase_entry(engine))
-    devtel_nums = phase_devtel(engine)
-    prof_off = phase_profile(engine)
-    phase_devtel_profiled(engine, prof_off, devtel_nums)
-    del engine
-    nums = phase_numbers()
-    train_nums = phase_train()
-    fam_launches, fam_nums = phase_families()
-    ssm_launches, ssm_nums = phase_ssm_hybrid()
+    with _MCAShapes() as path_shapes:
+        phase_parity()
+        launches, per, serve_nums, engine = phase_serve()
+        launches.update(phase_entry(engine))
+        devtel_nums = phase_devtel(engine)
+        prof_off = phase_profile(engine)
+        phase_devtel_profiled(engine, prof_off, devtel_nums)
+        del engine
+        nums = phase_numbers()
+        train_nums = phase_train()
+        fam_launches, fam_nums = phase_families()
+        ssm_launches, ssm_nums = phase_ssm_hybrid()
+        ev_launches, ev_nums = phase_encdec_vlm()
+    errs["mca_matmul_fixed"] = max(errs["mca_matmul_fixed"],
+                                   phase_path_shapes(path_shapes.seen))
     for k in SERVE_KERNELS:
-        launches[k] += fam_launches[k] + ssm_launches[k]
+        launches[k] += fam_launches[k] + ssm_launches[k] + ev_launches[k]
         per[k] += (f"; phase 9: {fam_launches[k]}; phase 11: "
-                   f"{ssm_launches[k]}")
+                   f"{ssm_launches[k]}; phase 12: {ev_launches[k]}")
     per["mca_matmul_fixed"] += (" (per prefill of <= 256 tokens: olmoe "
                                 "16 x 2 x 3 = 96, minicpm3 62 x (1 + 3) "
                                 "= 248; recurrentgemma-9b: 12 attention "
-                                "layers x the routing's tiers; mamba2: 0)")
+                                "layers x the routing's tiers; mamba2: 0; "
+                                "whisper-small 12 x 3 x 3 = 108, none on "
+                                "the encoder; internvl2-1b 24 x 2 x 3 = "
+                                "144)")
     per["kv_slot_update"] += (" (per decode step: olmoe 16, minicpm3 62, "
-                              "recurrentgemma-9b 12, mamba2-2.7b 0)")
+                              "recurrentgemma-9b 12, mamba2-2.7b 0, "
+                              "whisper-small 12, internvl2-1b 24)")
     meta = {
         "mca_matmul_fixed": ("src/repro_torch/csrc/mca_matmul.cu",
                              "src/repro/kernels/mca_matmul.py:84"),
@@ -2836,10 +3277,10 @@ def main() -> int:
         f"(phase 8: {train_nums['phase_s']:.1f}s, phase 9: "
         f"{fam_nums['phase_s']:.1f}s, phase 10: "
         f"{devtel_nums['phase_s']:.1f}s, phase 11: "
-        f"{ssm_nums['phase_s']:.1f}s)")
+        f"{ssm_nums['phase_s']:.1f}s, phase 12: {ev_nums['phase_s']:.1f}s)")
     log(json.dumps({"serve": serve_nums, "train": train_nums,
                     "families": fam_nums, "devtel": devtel_nums,
-                    "ssm_hybrid": ssm_nums,
+                    "ssm_hybrid": ssm_nums, "encdec_vlm": ev_nums,
                     "family_kernels": nums["families"], "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(smi)

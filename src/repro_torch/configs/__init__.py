@@ -1,12 +1,13 @@
 """Architecture registry: ``--arch <id>`` resolves through ARCHS.
 
-Port of ``repro/configs/__init__.py``, holding the architectures ported so
-far: the dense GQA models (starcoder2-3b, the serving and training model;
-chatglm3-6b, partial rotary; qwen3-32b, qk-norm; bert-base, the paper's
-encoder), the MoE models (olmoe-1b-7b, granite-moe-1b-a400m), the MLA
-model minicpm3-4b, the SSM model mamba2-2.7b and the hybrid (RG-LRU and
-local attention) model recurrentgemma-9b.  The VLM and audio models
-follow with their families (ROADMAP.md).
+Port of ``repro/configs/__init__.py``, with every architecture of the
+reference: the dense GQA models (starcoder2-3b, the serving and training
+model; chatglm3-6b, partial rotary; qwen3-32b, qk-norm; bert-base, the
+paper's encoder), the MoE models (olmoe-1b-7b, granite-moe-1b-a400m), the
+MLA model minicpm3-4b, the VLM internvl2-1b (a patch frontend stub), the
+encoder-decoder whisper-small (a frames frontend stub, cross attention),
+the SSM model mamba2-2.7b and the hybrid (RG-LRU and local attention)
+model recurrentgemma-9b.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ ARCHS = {
     "qwen3-32b": "qwen3_32b",
     "chatglm3-6b": "chatglm3_6b",
     "minicpm3-4b": "minicpm3_4b",
+    "internvl2-1b": "internvl2_1b",
+    "whisper-small": "whisper_small",
     "bert-base": "bert_base",
     "mamba2-2.7b": "mamba2_2p7b",
     "recurrentgemma-9b": "recurrentgemma_9b",
@@ -27,7 +30,7 @@ ARCHS = {
 
 def get_config(arch: str, **overrides):
     if arch not in ARCHS:
-        raise KeyError(f"unknown or not yet ported arch {arch!r}; "
+        raise KeyError(f"unknown arch {arch!r}; "
                        f"known: {sorted(ARCHS)}")
     mod = importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")
     return mod.config(**overrides)

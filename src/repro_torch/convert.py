@@ -7,8 +7,11 @@ conversion is an unstack plus a copy, with no reshaping.  The hybrid
 (RecurrentGemma) tree keeps its layers as ``{"groups": {"pos{i}":
 [n_groups, ...] leaves}, "rem": [dicts]}``; it is interleaved into layer
 order, layer ``gidx * len(pattern) + i`` being ``groups["pos{i}"][gidx]``
-and the remainder following.  With tied embeddings there is no
-``lm_head``: the port's head is the embedding table, as in the reference.
+and the remainder following.  An encoder-decoder's ``enc_layers`` and
+``dec_layers`` are unstacked the same way; every other entry (``embed``,
+``enc_norm``, a VLM's ``patch_proj``, ...) is copied as it is.  With
+tied embeddings there is no ``lm_head``: the port's head is the
+embedding table, as in the reference.
 """
 from __future__ import annotations
 
@@ -50,23 +53,27 @@ def _n_layers(tree) -> int:
     return int(np.asarray(tree).shape[0])
 
 
+_LAYER_STACKS = ("layers", "enc_layers", "dec_layers")
+
+
+def _flat_layers(layers):
+    """A reference layer stack -> per-layer trees in layer order."""
+    if "groups" in layers:                          # the hybrid stack
+        groups = layers["groups"]
+        pat = [groups[f"pos{i}"] for i in range(len(groups))]
+        return [_unstack(pos, gidx) for gidx in range(_n_layers(pat[0]))
+                for pos in pat] + list(layers["rem"])
+    return [_unstack(layers, i) for i in range(_n_layers(layers))]
+
+
 def params_from_jax(tree: Mapping[str, Any],
                     device: Optional[Union[str, torch.device]] = None,
                     dtype: Optional[torch.dtype] = None) -> dict:
-    """Reference LM params (nested dicts of numpy arrays, layer leaves
+    """Reference params (nested dicts of numpy arrays, layer leaves
     ``[L, ...]``) -> the port's params on ``device`` (the card unless
     ``"cpu"``; without a card ``None`` raises).  ``dtype`` casts floating
     leaves (``None`` keeps each leaf's own dtype)."""
     device = resolve_device(device)
-    out = {k: _convert(v, device, dtype) for k, v in tree.items()
-           if k != "layers"}
-    layers = tree["layers"]
-    if "groups" in layers:                          # the hybrid stack
-        groups = layers["groups"]
-        pat = [groups[f"pos{i}"] for i in range(len(groups))]
-        flat = [_unstack(pos, gidx) for gidx in range(_n_layers(pat[0]))
-                for pos in pat] + list(layers["rem"])
-    else:
-        flat = [_unstack(layers, i) for i in range(_n_layers(layers))]
-    out["layers"] = [_convert(layer, device, dtype) for layer in flat]
-    return out
+    return {k: ([_convert(layer, device, dtype) for layer in _flat_layers(v)]
+                if k in _LAYER_STACKS else _convert(v, device, dtype))
+            for k, v in tree.items()}

@@ -1,11 +1,15 @@
 """Top-level model API: build_model(cfg) -> Model(init/loss/prefill/...).
 
-Port of the decoder-only LM path of ``repro/models/api.py``: the
-families ``dense`` and ``moe`` (GQA or MLA attention, optional absolute
-sinusoidal positions), ``ssm`` (Mamba-2) and ``hybrid`` (RecurrentGemma:
-RG-LRU blocks and local GQA attention).
+Port of ``repro/models/api.py``: the decoder-only LM of the families
+``dense`` and ``moe`` (GQA or MLA attention, optional absolute
+sinusoidal positions), ``vlm`` (an LM whose prompt is prefixed by
+projected patch embeddings, ``batch["patches"]``), ``ssm`` (Mamba-2) and
+``hybrid`` (RecurrentGemma: RG-LRU blocks and local GQA attention); and
+the encoder-decoder (whisper: an encoder over ``batch["frames"]`` and a
+decoder of ``dec_attn_ffn`` layers with cross attention).
 Parameters are nested dicts of tensors that mirror the reference's
-pytree, except that ``params["layers"]`` is a list of per-layer dicts in
+pytree, except that ``params["layers"]`` (``enc_layers`` and
+``dec_layers`` of an encoder-decoder) is a list of per-layer dicts in
 layer order instead of ``[L, ...]``-stacked leaves (the hybrid's
 ``groups``/``rem`` tree included; ``convert.params_from_jax`` unstacks
 and interleaves them).  The decode cache keeps the reference's
@@ -20,15 +24,24 @@ Decode and slot insertion update the cache IN PLACE and return it (the
 reference donates the cache buffers instead); the loss path writes no
 tensor in place, so autograd can differentiate it.
 
-As in the reference, decode adds no position embedding (``_lm_decode``),
-so a sinusoidal model's decode does not match its forward (ROADMAP.md,
-Queue 3).
+As in the reference, the LM's decode adds no position embedding
+(``_lm_decode``), so a sinusoidal LM's decode does not match its forward
+(ROADMAP.md, Queue 3); the encoder-decoder's decode adds ``pe[t]``.
 
-As in the reference, the SSM and hybrid families refuse ``pos_offset``
-(their recurrent state has no padding mask), so they serve waves of
-equal-length prompts only, and no per-slot insertion.
+As in the reference, the SSM, hybrid and VLM families refuse
+``pos_offset``, so they serve waves of equal-length prompts only, and no
+per-slot insertion; so does the encoder-decoder, which the reference
+serves through ``prefill`` and ``decode`` only (``Engine`` builds no
+``frames`` or ``patches``).  A VLM's positions count its patch tokens:
+a decode step after S text tokens and P patches runs at t = S + P.
 
-Not ported yet: the VLM / audio / encoder-decoder families.
+The encoder-decoder's decode cache is ``{"layers": {"self": {"k", "v",
+"slot_pos"}, "cross_k", "cross_v"}}``, every leaf layer-stacked ``[L, B,
+...]``; the cross K and V ([L, B, S_enc, hkv, dh]) are written once by
+the prefill.  As in the reference, its prefill returns the decoder's MCA
+stats only, its loss metrics have no ``mca_tier_hist``, and its prefill
+draws the cross attention's samples from the layer key where the forward
+draws them from ``fold_in(layer key, 7)`` (ROADMAP.md, Queue 3).
 """
 from __future__ import annotations
 
@@ -145,11 +158,17 @@ def _init_lm(seed, cfg, device):
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(g, cfg.d_model, cfg.padded_vocab,
                                        cfg.torch_dtype, device)
+    if cfg.family == "vlm":
+        params["patch_proj"] = dense_init(g, cfg.d_model, cfg.d_model,
+                                          cfg.torch_dtype, device)
     return params
 
 
 def _lm_embed(params, cfg, batch):
     x = embed_tokens(params["embed"], batch["tokens"])
+    if cfg.family == "vlm" and "patches" in batch:
+        px = batch["patches"].to(x.dtype) @ params["patch_proj"]
+        x = torch.cat([px, x], dim=1)
     if cfg.add_sinusoidal_pos:
         pe = sinusoidal_pos_emb(x.shape[1], cfg.d_model, x.dtype, x.device)
         if "pos_offset" in batch:
@@ -179,6 +198,8 @@ def _lm_hidden(params, cfg, batch, mca_key=None):
 
 def _lm_loss(params, cfg, batch, mca_key=None):
     hidden, aux, stats = _lm_hidden(params, cfg, batch, mca_key)
+    if cfg.family == "vlm" and "patches" in batch:
+        hidden = hidden[:, batch["patches"].shape[1]:]
     loss = chunked_xent(hidden, _head(params, cfg), batch["labels"], cfg)
     metrics = {"loss": loss.detach(), "aux_loss": aux.detach(),
                "mca_exact_flops": stats["exact_flops"],
@@ -243,7 +264,7 @@ def _lm_prefill(params, cfg, batch, max_len, mca_key=None):
         pos, kv_valid = ar, None
         off_arr = torch.zeros((b,), dtype=torch.int32, device=dev)
     else:
-        if cfg.family in ("ssm", "hybrid"):
+        if cfg.family in ("ssm", "hybrid", "vlm"):
             raise NotImplementedError(
                 f"pos_offset prefill is not supported for {cfg.family!r} "
                 "models (recurrent state has no padding mask)")
@@ -383,17 +404,176 @@ def _lm_init_cache(cfg, batch, max_len, device):
                                    device=device)}
 
 
+# ====================================================== encoder-decoder ==
+def _init_encdec(seed, cfg, device):
+    g = _generator(seed, device)
+    params = {
+        "embed": init_embedding(g, cfg, device),
+        "enc_layers": stack.init_stack(g, cfg, cfg.n_encoder_layers,
+                                       "attn_ffn", device),
+        "enc_norm": init_norm(cfg, device),
+        "dec_layers": stack.init_stack(g, cfg, cfg.n_layers, "dec_attn_ffn",
+                                       device),
+        "final_norm": init_norm(cfg, device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(g, cfg.d_model, cfg.padded_vocab,
+                                       cfg.torch_dtype, device)
+    return params
+
+
+def _with_pe(x):
+    """x + the sinusoidal position embedding of its positions 0..S-1."""
+    return x + sinusoidal_pos_emb(x.shape[1], x.shape[2], x.dtype,
+                                  x.device)[None]
+
+
+def _encode(params, cfg, frames, mca_key=None):
+    """The encoder over frame embeddings [B, S_enc, d]: sinusoidal
+    positions, non-causal attention, no window.  Returns (enc_out,
+    stats)."""
+    x = _with_pe(frames.to(cfg.torch_dtype))
+    pos = torch.arange(x.shape[1], device=x.device)[None]
+    x, _, stats = stack.stack_forward(params["enc_layers"], cfg, x, pos=pos,
+                                      mca_key=mca_key, kind="attn_ffn",
+                                      causal=False, window=0)
+    return apply_norm(params["enc_norm"], cfg, x), stats
+
+
+def _encdec_hidden(params, cfg, batch, mca_key=None):
+    """(hidden, aux, stats, enc_out); the stats sum the encoder's (drawn
+    from ``fold_in(mca_key, 101)``) and the decoder's."""
+    enc_key = None if mca_key is None else fold_in(mca_key, 101)
+    enc_out, enc_stats = _encode(params, cfg, batch["frames"], enc_key)
+    x = _with_pe(embed_tokens(params["embed"], batch["tokens"]))
+    pos = torch.arange(x.shape[1], device=x.device)[None]
+    x, aux, stats = stack.stack_forward(
+        params["dec_layers"], cfg, x, pos=pos, mca_key=mca_key,
+        kind="dec_attn_ffn", enc_out=enc_out, causal=True, window=0)
+    stats = {k: stats[k] + enc_stats[k] for k in stats}
+    return apply_norm(params["final_norm"], cfg, x), aux, stats, enc_out
+
+
+def _encdec_loss(params, cfg, batch, mca_key=None):
+    hidden, aux, stats, _ = _encdec_hidden(params, cfg, batch, mca_key)
+    loss = chunked_xent(hidden, _head(params, cfg), batch["labels"], cfg)
+    return loss + aux, {"loss": loss.detach(), "aux_loss": aux.detach(),
+                        "mca_exact_flops": stats["exact_flops"],
+                        "mca_flops": stats["mca_flops"]}
+
+
+def _encdec_cache(cfg, batch, max_len, enc_len, device):
+    dt = cfg.torch_dtype
+    cross = (cfg.n_layers, batch, enc_len, cfg.n_kv_heads, cfg.d_head)
+    return {"layers": {
+        "self": attn.init_gqa_cache(cfg, batch, max_len, dt, device,
+                                    n_layers=cfg.n_layers),
+        "cross_k": torch.zeros(cross, dtype=dt, device=device),
+        "cross_v": torch.zeros(cross, dtype=dt, device=device)}}
+
+
+def _encdec_prefill(params, cfg, batch, max_len, mca_key=None):
+    """Encode the frames, run the prompt through the decoder; returns
+    (cache, last-norm hidden, the decoder's stats)."""
+    if batch.get("pos_offset") is not None:
+        raise NotImplementedError(
+            "pos_offset prefill is not supported for encoder-decoder models")
+    enc_key = None if mca_key is None else fold_in(mca_key, 101)
+    enc_out, _ = _encode(params, cfg, batch["frames"], enc_key)
+    x = _with_pe(embed_tokens(params["embed"], batch["tokens"]))
+    b, s = x.shape[0], x.shape[1]
+    pos = torch.arange(s, device=x.device)[None]
+    # the prefill fills max_len self slots whatever the window, as the
+    # reference's _gqa_prefill_cache(..., max_len, 0) does
+    cache = _encdec_cache(cfg.replace(window=0), b, max_len,
+                          enc_out.shape[1], x.device)
+    layers = cache["layers"]
+    self_c = layers["self"]
+    stats = stack.zero_carry_stats(cfg, x.device)
+    for i, p_l in enumerate(params["dec_layers"]):
+        key_l = None if mca_key is None else fold_in(mca_key, i)
+        h = apply_norm(p_l["ln1"], cfg, x)
+        y, (k, v), st, _ = attn.gqa_attention(p_l["mixer"], cfg, h, pos=pos,
+                                              mca_key=key_l, return_kv=True)
+        stats = stack.add_stats(stats, st)
+        x = x + y
+        _, spos = _pad_seq_cache(k, max_len, out=self_c["k"][i])
+        _pad_seq_cache(v, max_len, out=self_c["v"][i])
+        self_c["slot_pos"][i] = spos
+        h = apply_norm(p_l["ln_x"], cfg, x)
+        y, (ck, cv), st, _ = attn.gqa_attention(
+            p_l["cross"], cfg, h, pos=pos, mca_key=key_l, causal=False,
+            window=0, kv_x=enc_out, return_kv=True)
+        stats = stack.add_stats(stats, st)
+        x = x + y
+        layers["cross_k"][i].copy_(ck)
+        layers["cross_v"][i].copy_(cv)
+        h = apply_norm(p_l["ln2"], cfg, x)
+        x = x + ffn_mod.ffn(p_l["ffn"], cfg, h)
+    return cache, apply_norm(params["final_norm"], cfg, x), stats
+
+
+def _cross_decode(p, cfg, x, ck, cv):
+    """One-query cross attention against cached encoder K/V: f32 scores
+    and softmax, the probabilities cast to the cache's dtype for A@V."""
+    b = x.shape[0]
+    hkv, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    dh = cfg.d_head
+    q = (x @ p["wq"]).reshape(b, 1, hkv, g, dh)
+    s = torch.einsum("bqhgd,bshd->bhgqs", q.float(), ck.float())
+    a = torch.softmax(s * dh ** -0.5, dim=-1)
+    out = torch.einsum("bhgqs,bshd->bqhgd", a.to(cv.dtype), cv)
+    return out.reshape(b, 1, cfg.n_heads * dh) @ p["wo"]
+
+
+def _pe_row(t, n: int, d: int, dtype, device):
+    """Row ``t`` of an n-row sinusoidal table as [1, 1, d], ``t`` clamped
+    into [0, n - 1] as ``dynamic_slice_in_dim`` clamps it; a device ``t``
+    stays on the device."""
+    pe = sinusoidal_pos_emb(n, d, dtype, device)
+    if isinstance(t, torch.Tensor):
+        return pe[torch.clamp(t.reshape(()), 0, n - 1).long()][None, None]
+    return pe[min(max(int(t), 0), n - 1)][None, None]
+
+
+def _encdec_decode(params, cfg, tokens, cache, t):
+    """tokens: [B, 1]; t: int or 0-d int32 tensor.  Adds pe[t] (unlike
+    ``_lm_decode``), writes each layer's self K/V in place; returns
+    (logits [B, 1, Vp] f32, cache)."""
+    layers = cache["layers"]
+    self_c = layers["self"]
+    x = embed_tokens(params["embed"], tokens)
+    x = x + _pe_row(t, self_c["k"].shape[2], cfg.d_model, x.dtype, x.device)
+    for i, p_l in enumerate(params["dec_layers"]):
+        h = apply_norm(p_l["ln1"], cfg, x)
+        y, _, _ = attn.gqa_decode(
+            p_l["mixer"], cfg, h,
+            {name: leaf[i] for name, leaf in self_c.items()}, t=t)
+        x = x + y
+        h = apply_norm(p_l["ln_x"], cfg, x)
+        x = x + _cross_decode(p_l["cross"], cfg, h, layers["cross_k"][i],
+                              layers["cross_v"][i])
+        h = apply_norm(p_l["ln2"], cfg, x)
+        x = x + ffn_mod.ffn(p_l["ffn"], cfg, h)
+    x = apply_norm(params["final_norm"], cfg, x)
+    return _logits(params, cfg, x), cache
+
+
 # ================================================================ factory
 def _check_supported(cfg: ModelConfig) -> None:
-    ported = (cfg.family == "ssm"
-              or (cfg.family == "hybrid" and cfg.attn_type == "gqa")
-              or (cfg.family in ("dense", "moe")
-                  and cfg.attn_type in ("gqa", "mla")))
-    if not ported or cfg.is_encoder_decoder or cfg.frontend != "none":
+    if cfg.is_encoder_decoder:
+        ported = cfg.attn_type == "gqa"
+    else:
+        ported = (cfg.family == "ssm"
+                  or (cfg.family == "hybrid" and cfg.attn_type == "gqa")
+                  or (cfg.family in ("dense", "moe", "vlm", "audio")
+                      and cfg.attn_type in ("gqa", "mla")))
+    if not ported or cfg.frontend not in ("none", "patch", "frames"):
         raise NotImplementedError(
-            f"{cfg.name}: only the decoder-only dense and MoE (GQA or MLA "
-            "attention), SSM and hybrid families are ported so far (see "
-            "ROADMAP.md)")
+            f"{cfg.name}: this configuration is not ported: the port runs "
+            "the dense, MoE, VLM and audio families with GQA or MLA "
+            "attention, the encoder-decoder with GQA, the SSM family and "
+            "the hybrid family with GQA (see ROADMAP.md)")
 
 
 def build_model(cfg: ModelConfig,
@@ -401,6 +581,21 @@ def build_model(cfg: ModelConfig,
     """The model's entry points on ``device`` (the card unless ``"cpu"``)."""
     _check_supported(cfg)
     dev = resolve_device(device)
+    if cfg.is_encoder_decoder:
+        return Model(
+            cfg=cfg,
+            device=dev,
+            init=lambda seed=0: _init_encdec(seed, cfg, dev),
+            loss=lambda p, b, key=None: _encdec_loss(p, cfg, b, key),
+            forward_hidden=lambda p, b, key=None: _encdec_hidden(
+                p, cfg, b, key)[:3],
+            prefill=lambda p, b, max_len, key=None: _encdec_prefill(
+                p, cfg, b, max_len, key),
+            decode=lambda p, tok, cache, t: _encdec_decode(p, cfg, tok,
+                                                           cache, t),
+            init_cache=lambda batch, max_len: _encdec_cache(
+                cfg, batch, max_len, cfg.encoder_len, dev),
+        )
     return Model(
         cfg=cfg,
         device=dev,

@@ -1,8 +1,8 @@
 """Attention: memory-efficient chunked softmax attention with the MCA hooks,
 GQA module and KV-cache decode paths.
 
-Port of the GQA and MLA parts of ``repro/models/attention.py``.  Layout
-convention:
+Port of the GQA (self and cross) and MLA parts of
+``repro/models/attention.py``.  Layout convention:
 activations are [B, S, H, dh] (seq-major); GQA never materializes repeated
 KV (einsum over grouped heads).  The chunked passes are plain PyTorch, as
 they are jnp in the reference: the reference's flash/colmax Pallas kernels
@@ -15,8 +15,9 @@ as the reference does.
 The option paths of ``gqa_attention`` are ported with it: the fused
 conservative colmax (``mca.fast_colmax``) and the banded local passes
 (``cfg.banded_local``, causal sliding-window self-attention over
-gathered key bands).  Not ported yet: cross attention (``kv_x``, with the
-encoder-decoder family) and the mesh-dependent head layouts.
+gathered key bands), and cross attention (``kv_x``: keys and values from
+an encoder's output, the encoder-decoder family).  Not ported yet: the
+mesh-dependent head layouts.
 """
 from __future__ import annotations
 
@@ -338,40 +339,38 @@ def _acc_stats(acc, s):
     return out
 
 
-def _check_supported(kv_x):
-    if kv_x is not None:
-        raise NotImplementedError(
-            "cross attention (kv_x) is not ported yet: it comes with the "
-            "encoder-decoder family")
-
-
 def gqa_attention(p, cfg, x, *, pos, mca_key: Optional[int] = None,
                   causal=None, window=None, kv_x=None, return_kv=False,
                   kv_valid=None):
     """Full-sequence (train / prefill) GQA attention with MCA on V/O.
 
-    x: [B, S, d]; kv_valid: optional [B, S] bool marking real
-    (non-left-padding) tokens.  Returns (y, (k, v) or None, stats, rowmax).
+    x: [B, S, d]; kv_x: the cross-attention source [B, Skv, d] (defaults
+    to x): keys and values come from it, at positions 0..Skv-1, and the
+    v_proj importance is the colmax over its keys; kv_valid: optional
+    [B, S] bool marking real (non-left-padding) tokens of the
+    self-attention sequence.  Returns (y, (k, v) or None, stats, rowmax).
     """
-    _check_supported(kv_x)
     causal = cfg.causal if causal is None else causal
     window = cfg.window if window is None else window
     b, sq, _ = x.shape
-    src = x
+    src = x if kv_x is None else kv_x
     skv = src.shape[1]
     hkv, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     dh = cfg.d_head
     scale = dh ** -0.5
     stats = zero_stats(cfg.mca.n_tiers, x.device)
-    q_valid = kv_valid
+    # in self-attention, query validity is key validity
+    q_valid = kv_valid if kv_x is None else None
 
     q = _split_heads(x @ p["wq"], cfg.n_heads, dh)
     k = _split_heads(src @ p["wk"], hkv, dh)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    kv_pos = (torch.arange(skv, device=x.device) if kv_x is not None
+              else pos)
     q = apply_rope(q, pos, cfg.rope_theta, cfg.rotary_pct)
-    k = apply_rope(k, pos, cfg.rope_theta, cfg.rotary_pct)
+    k = apply_rope(k, kv_pos, cfg.rope_theta, cfg.rotary_pct)
     qg = q.reshape(b, sq, hkv, g, dh)
 
     chunk = pick_chunk(skv, cfg.attn_chunk)

@@ -2,10 +2,10 @@
 
 Port of ``repro/models/config.py`` with the same fields and defaults, so a
 config means the same model in both packages; ``torch_dtype`` replaces
-``jnp_dtype``.  The port runs the decoder-only dense and MoE families
-with GQA or MLA attention, the SSM family and the hybrid family so far
-(``models/api.py`` raises for the VLM, audio and encoder-decoder
-families).
+``jnp_dtype``.  The port runs every family of the reference: dense, MoE,
+VLM and audio with GQA or MLA attention, the encoder-decoder with GQA,
+SSM, and the hybrid with GQA (``models/api.py`` raises for an
+attention-free config of any other family).
 """
 from __future__ import annotations
 

@@ -1,9 +1,11 @@
-"""Layer stacks: init / forward for every decoder-only family.
+"""Layer stacks: init / forward for every family.
 
 Port of ``repro/models/stack.py``: the layer kinds ``attn_ffn`` and
-``attn_moe`` (a GQA or an MLA mixer), ``ssm`` (a Mamba-2 mixer, no FFN)
-and ``rec_ffn`` (an RG-LRU recurrent block), and the hybrid
-(RecurrentGemma) stack.  The reference scans over layer-stacked
+``attn_moe`` (a GQA or an MLA mixer), ``dec_attn_ffn`` (an
+encoder-decoder's decoder layer: GQA self attention, then GQA cross
+attention over the encoder's output, then the FFN), ``ssm`` (a Mamba-2
+mixer, no FFN) and ``rec_ffn`` (an RG-LRU recurrent block), and the
+hybrid (RecurrentGemma) stack.  The reference scans over layer-stacked
 parameters (the hybrid stack over repeating block-pattern groups, with
 an unrolled remainder); here ``params["layers"]`` is one flat list of
 per-layer dicts in layer order and the forward is a Python loop (PyTorch
@@ -77,16 +79,22 @@ def init_layer(g: torch.Generator, cfg, kind: str, device):
         p["ffn"] = ffn_mod.init_moe(g, cfg, device)
     else:
         p["ffn"] = ffn_mod.init_ffn(g, cfg, device)
+    if kind == "dec_attn_ffn":                       # cross-attention branch
+        p["ln_x"] = init_norm(cfg, device)
+        p["cross"] = attn.init_gqa(g, cfg, device)
     return p
 
 
 def layer_forward(p, cfg, x, *, pos, mca_key: Optional[int], kind: str,
-                  causal=None, window=None, kv_valid=None):
+                  enc_out=None, causal=None, window=None, kv_valid=None):
     """One residual block.  Returns (x, aux, stats, cache pieces): the
-    cache pieces are (k, v) for GQA, (ckv, kr) for MLA, (state,
-    conv_tail) for ``ssm`` and (conv_tail, h_last) for ``rec_ffn``; aux
-    is the MoE router's load-balance loss, None otherwise (no tensor, so
-    such a layer launches nothing for it)."""
+    cache pieces are (k, v) for GQA (of the self attention in a
+    ``dec_attn_ffn`` layer), (ckv, kr) for MLA, (state, conv_tail) for
+    ``ssm`` and (conv_tail, h_last) for ``rec_ffn``; aux is the MoE
+    router's load-balance loss, None otherwise (no tensor, so such a
+    layer launches nothing for it).  A ``dec_attn_ffn`` layer given
+    ``enc_out`` runs its cross attention (non-causal, no window) over it,
+    its MCA samples drawn from ``fold_in(mca_key, 7)``."""
     stats = zero_carry_stats(cfg, x.device)
     h = apply_norm(p["ln1"], cfg, x)
     if kind == "ssm":
@@ -110,6 +118,14 @@ def layer_forward(p, cfg, x, *, pos, mca_key: Optional[int], kind: str,
                                              kv_valid=kv_valid)
         stats = add_stats(stats, st)
     x = x + y
+    if kind == "dec_attn_ffn" and enc_out is not None:
+        h = apply_norm(p["ln_x"], cfg, x)
+        y, _, st, _ = attn.gqa_attention(
+            p["cross"], cfg, h, pos=pos,
+            mca_key=None if mca_key is None else fold_in(mca_key, 7),
+            causal=False, window=0, kv_x=enc_out)
+        stats = add_stats(stats, st)
+        x = x + y
     h = apply_norm(p["ln2"], cfg, x)
     if kind == "attn_moe":
         y, aux, st = ffn_mod.moe_ffn(p["ffn"], cfg, h, mca_key=mca_key)
@@ -125,16 +141,18 @@ def init_stack(g: torch.Generator, cfg, n_layers: int, kind: str, device):
 
 
 def stack_forward(params, cfg, x, *, pos, mca_key: Optional[int], kind,
-                  causal=None, window=None):
+                  enc_out=None, causal=None, window=None):
     """Loop over layers. Returns (x, aux, stats), aux summed over layers.
-    ``kind`` is one layer kind, or a list of one per layer.
+    ``kind`` is one layer kind, or a list of one per layer; ``enc_out``
+    is the encoder's output that ``dec_attn_ffn`` layers attend to.
 
     Under autograd with ``cfg.remat`` each layer is recomputed in the
     backward (``torch.utils.checkpoint``, the reference's
-    ``jax.checkpoint``), so only the layer inputs stay alive.  The
-    recompute draws the same MCA samples: they come from a generator
-    seeded from the layer's integer key, never from the global RNG, so
-    the RNG state is not stashed.
+    ``jax.checkpoint``), so only the layer inputs stay alive; ``enc_out``
+    is one of them, so the encoder's leaves get their gradient through
+    every layer.  The recompute draws the same MCA samples: they come
+    from a generator seeded from the layer's integer key, never from the
+    global RNG, so the RNG state is not stashed.
     """
     kinds = [kind] * len(params) if isinstance(kind, str) else kind
     stats = zero_carry_stats(cfg, x.device)
@@ -143,17 +161,19 @@ def stack_forward(params, cfg, x, *, pos, mca_key: Optional[int], kind,
     for i, p_l in enumerate(params):
         key_l = None if mca_key is None else fold_in(mca_key, i)
 
-        def run(xx, p_l=p_l, key_l=key_l, kind_l=kinds[i]):
+        def run(xx, enc, p_l=p_l, key_l=key_l, kind_l=kinds[i]):
             out, aux_l, st, _ = layer_forward(p_l, cfg, xx, pos=pos,
                                               mca_key=key_l, kind=kind_l,
-                                              causal=causal, window=window)
+                                              enc_out=enc, causal=causal,
+                                              window=window)
             return out, aux_l, st
 
         if remat:
             x, aux_l, st = torch.utils.checkpoint.checkpoint(
-                run, x, use_reentrant=False, preserve_rng_state=False)
+                run, x, enc_out, use_reentrant=False,
+                preserve_rng_state=False)
         else:
-            x, aux_l, st = run(x)
+            x, aux_l, st = run(x, enc_out)
         if aux_l is not None:
             aux = aux + aux_l
         stats = add_stats(stats, st)

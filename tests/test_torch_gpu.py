@@ -36,7 +36,17 @@ MCA_CASES = [(64, 3072, 256, 1), (128, 3072, 256, 4), (24, 3072, 3072, 2),
              # recurrentgemma-9b v_proj (one KV head of 256) and o_proj
              (128, 4096, 256, 1), (128, 4096, 256, 2), (128, 4096, 256, 4),
              (128, 4096, 4096, 1), (128, 4096, 4096, 2),
-             (128, 4096, 4096, 4)]
+             (128, 4096, 4096, 4),
+             # whisper-small v_proj/o_proj (d = f = 768, K = 6); internvl2-1b
+             # v_proj (d 896, K = 7, f 128: one column tile) and o_proj
+             (128, 768, 768, 1), (128, 768, 768, 2), (128, 768, 768, 4),
+             (128, 896, 128, 1), (128, 896, 128, 2), (128, 896, 128, 4),
+             (128, 896, 896, 1), (128, 896, 896, 2), (128, 896, 896, 4),
+             # ... and at the rows 4 x 256 decoder tokens (whisper) and
+             # 4 x (256 + 256) positions (internvl) fill the three tiers with
+             (1024, 768, 768, 1), (512, 768, 768, 2), (384, 768, 768, 4),
+             (2048, 896, 128, 1), (1024, 896, 128, 2), (768, 896, 128, 4),
+             (2048, 896, 896, 1), (1024, 896, 896, 2), (768, 896, 896, 4)]
 
 
 @pytest.fixture
@@ -252,6 +262,16 @@ LAYER_CASES = [
     ("hybrid_host_int_t", 4, 2048, (1, 256), (1, 256), "bfloat16", "int",
      2048, True, None),
     ("hybrid_wrap", 4, 2048, (1, 256), (1, 256), "bfloat16", "wrap", 2048,
+     True, None),
+    # whisper-small's self K/V rows (12 x 64, 1,536 bytes), max_len 320;
+    # internvl2-1b's (2 x 64, 256 bytes), max_len 576
+    ("whisper_rows", 4, 320, (12, 64), (12, 64), "bfloat16", "rows", 0, True,
+     None),
+    ("whisper_host_int_t", 4, 320, (12, 64), (12, 64), "bfloat16", "int", 0,
+     True, None),
+    ("internvl_rows", 4, 576, (2, 64), (2, 64), "bfloat16", "rows", 0, True,
+     None),
+    ("internvl_scalar_t", 4, 576, (2, 64), (2, 64), "bfloat16", "scalar", 0,
      True, None),
 ]
 
@@ -659,6 +679,47 @@ def test_reduced_ssm_hybrid_generate_on_card_as_on_cpu(cuda, arch, n_layers):
     assert ops.launch_counts()["kv_slot_update"] == n_attn * 7
 
 
+@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-1b"])
+def test_reduced_encdec_vlm_prefill_decode_on_card_as_on_cpu(cuda, arch):
+    """The encoder-decoder and VLM families (MCA off, f32) through
+    ``prefill`` and ``decode`` with t on the device: the card's greedy
+    tokens are the CPU's, twice the same, logits within 1e-4 of
+    max|logit|; one layer write per layer per decode step."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import _logits
+    cpu, params, gpu, gparams = _reduced_pair(arch)
+    cfg = cpu.cfg
+    rng = np.random.default_rng(3)
+    toks = rng.integers(1, 128, (2, 12)).astype(np.int32)
+    extra = ("frames", cfg.encoder_len) if cfg.is_encoder_decoder else (
+        "patches", cfg.n_patch_tokens)
+    feats = rng.standard_normal((2, extra[1], cfg.d_model)).astype(
+        np.float32)
+    t0 = 12 + (0 if cfg.is_encoder_decoder else cfg.n_patch_tokens)
+    runs = []
+    for model, p in ((cpu, params), (gpu, gparams), (gpu, gparams)):
+        dev = model.device
+        batch = {"tokens": torch.as_tensor(toks, device=dev),
+                 extra[0]: torch.as_tensor(feats, device=dev)}
+        ops.reset_launch_counts()
+        cache, hid, _ = model.prefill(p, batch, t0 + 8)
+        logits = _logits(p, cfg, hid[:, -1:])
+        out, all_logits = [], [logits]
+        for i in range(6):
+            tok = torch.argmax(logits[..., :128], dim=-1).to(torch.int32)
+            out.append(tok)
+            t = torch.tensor(t0 + i, dtype=torch.int32, device=dev)
+            logits, cache = model.decode(p, tok, cache, t)
+            all_logits.append(logits)
+        runs.append((torch.cat(out, 1).cpu().numpy(),
+                     torch.cat(all_logits, 1)[..., :128].cpu().numpy()))
+    np.testing.assert_array_equal(runs[0][0], runs[1][0])
+    np.testing.assert_array_equal(runs[1][0], runs[2][0])
+    np.testing.assert_allclose(runs[1][1], runs[0][1], rtol=0, atol=1e-4
+                               * float(np.abs(runs[0][1]).max()))
+    assert ops.launch_counts()["kv_slot_update"] == cfg.n_layers * 6
+
+
 def test_mca_serving_on_card_takes_the_kernels(cuda):
     from repro_torch import obs, serve
     from repro_torch.core.policy import MCAConfig
@@ -718,6 +779,8 @@ TEL_MCA_CASES = [
     (256, 3072, 256, 1, "bfloat16", 64), (48, 256, 128, 2, "float32", 128),
     (128, 4096, 256, 4, "bfloat16", 128), (128, 4096, 4096, 1, "bfloat16",
                                            128),
+    (128, 768, 768, 4, "bfloat16", 128), (128, 896, 128, 4, "bfloat16", 128),
+    (128, 896, 896, 4, "bfloat16", 128),
 ]
 
 

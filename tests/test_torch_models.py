@@ -378,8 +378,7 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
             build_model(cfg)
     assert build_model(cfg, device="cpu").device.type == "cpu"
     with pytest.raises(NotImplementedError):
-        build_model(cfg.replace(family="vlm", frontend="patch"),
-                    device="cpu")
+        build_model(cfg.replace(attn_type="none"), device="cpu")
 
 
 @pytest.mark.parametrize("change", [
@@ -392,12 +391,12 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
     dict(is_encoder_decoder=True, n_encoder_layers=2),
     dict(attn_type="none")])
 def test_build_model_refuses_the_families_not_ported(change):
-    """The dense and MoE families with GQA or MLA, and the SSM and hybrid
-    families, build on the CPU with the reference's parameter tree; VLM,
-    audio, encoder-decoder and attention-free dense configs still
-    raise."""
+    """Every family of the reference builds on the CPU with the
+    reference's parameter tree: SSM, hybrid, VLM (``patch_proj``), audio
+    and encoder-decoder (``enc_layers``, ``enc_norm``, ``dec_layers``);
+    an attention-free dense config still raises."""
     cfg = reduced(get_config("starcoder2-3b")).replace(**change)
-    if cfg.family not in ("ssm", "hybrid"):
+    if cfg.attn_type == "none" and cfg.family != "ssm":
         with pytest.raises(NotImplementedError,
                            match="not ported|ported so"):
             build_model(cfg, device="cpu")
