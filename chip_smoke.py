@@ -107,7 +107,8 @@ Phases, each of which must pass:
              params and batches: losses within 1e-5 relative, every
              parameter leaf within 1e-4 of its max magnitude;
              (c) kill inside step 5 of 8 (ckpt_every 2) and resume, on
-             the reduced config with deterministic algorithms on: params
+             the reduced config, with deterministic algorithms off (as
+             ``launch.train`` runs) and then on: params
              and per-step losses as an uninterrupted run's (rtol 1e-5,
              atol 1e-6); then one flipped byte in the newest arrays.npz
              and restore_latest_valid falls back past it (directory under
@@ -196,8 +197,39 @@ Phases, each of which must pass:
              of phases 4-12 gave ``mca_matmul_fixed`` (recorded at the
              wrapper the MCA dispatch calls) is held against the plain
              version as in phase 3, unless phase 3 held it already.
+14. dist — the distribution slice, in subprocesses under ``python -m
+             torch.distributed.run`` (this script with ``--dist-part``):
+             (a) a world of one over NCCL through ``launch.train``'s mesh
+             branch (``run_mesh``), starcoder2-3b at full width and
+             depth, batch 8 x 256, MCA on v_proj, 2 steps: losses, grad
+             norms and every parameter bitwise equal to the unsharded
+             launcher objects' in the same process, step p50 and peak of
+             both, and one more unsharded run with deterministic
+             algorithms on (its bits and step time); (b) two ranks on
+             the one card over gloo (NCCL will not put two ranks on one
+             GPU), starcoder2-3b at full width, MCA on v_proj and o_proj
+             (use_kernel): ``make_prefill_step`` under the (2, 1) mesh
+             on 8 prompts of 256 tokens, 4 a rank: each rank's
+             mca_matmul_fixed launches = its local routing's (180), no
+             fallback, each local tier_hist = the plain apply_capacity
+             rerun on the CPU, the all-reduced one = the sum of both
+             ranks'; 8 decode steps (one layer write a layer a step,
+             logits finite); MCA off, the ranks' logits against a world
+             of one's within 1e-2 of max |logit|; (c) two ranks over
+             gloo: olmoe-1b-7b at full width (MCA on v_proj, o_proj,
+             expert_ffn), a prefill of 4 x 256 tokens a rank: capacity
+             ``moe_capacity`` of the local tokens, aux the mean of the
+             ranks' local auxes and the stats their sum, bit for bit;
+             starcoder2-3b cut to 4 layers, 2 ZeRO-1 steps of 8 x 256:
+             the ranks' parameters bitwise equal after each step, each
+             split moment half its rows, losses within 1e-2 relative of
+             a world of one's; ``psum_compressed`` on CUDA tensors = the
+             sum of the ranks' dequantized payloads, bitwise.  The new
+             mca_matmul_fixed shapes are held against the plain version
+             as in phase 13.
 
-Phase 10 runs between phases 5b and 7.  Builds four sources (one
+Phase 10 runs between phases 5b and 7; phase 14 last.  Builds four
+sources (one
 ``nvcc`` each, in parallel).  Ends with a
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
 line and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero (and
@@ -1999,6 +2031,7 @@ def _train_resume():
     from repro_torch.optim.adamw import named_leaves
     from repro_torch.resilience import Fault
     shutil.rmtree(RESUME_DIR, ignore_errors=True)
+    nondet = _resume_nondeterministic()
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         _resume_run(RESUME_DIR / "run", 8,
@@ -2043,7 +2076,37 @@ def _train_resume():
                              "the corrupt checkpoint")
     shutil.rmtree(RESUME_DIR)
     return {"restart_step": start, "param_max_diff": d_res,
-            "replay_max_diff": d_rep, "loss_rel": loss_rel}
+            "replay_max_diff": d_rep, "loss_rel": loss_rel,
+            "nondeterministic": nondet}
+
+
+def _resume_nondeterministic():
+    """(c) first, the same kill-and-resume with deterministic algorithms
+    off, as ``launch.train`` runs: held to the reference's tolerance
+    (rtol 1e-5, atol 1e-6)."""
+    import numpy as np
+    import torch
+    from repro_torch.optim.adamw import named_leaves
+    from repro_torch.resilience import Fault
+    torch.use_deterministic_algorithms(False)
+    _resume_run(RESUME_DIR / "nd_run", 8,
+                Fault("train.step", mode="raise", after=4))
+    tr, out = _resume_run(RESUME_DIR / "nd_run", 8)
+    ref_tr, ref = _resume_run(RESUME_DIR / "nd_ref", 8)
+    pairs = list(zip(named_leaves(tr.params), named_leaves(ref_tr.params)))
+    held = sum(np.allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=1e-5,
+                           atol=1e-6) for (_, a), (_, b) in pairs)
+    worst = max(float(((a - b).abs() / (1e-6 + 1e-5 * b.abs())).max())
+                for (_, a), (_, b) in pairs)
+    d = _max_diff(tr.params, ref_tr.params)
+    log(f"[train] resume with deterministic algorithms off: params max|diff|"
+        f" {d:.3e}; {held} of {len(pairs)} leaves within rtol 1e-5, atol "
+        f"1e-6 (worst |diff| / (atol + rtol |ref|) {worst:.3g})")
+    if held != len(pairs):
+        raise AssertionError("kill-and-resume with deterministic algorithms "
+                             "off does not match an uninterrupted run")
+    return {"param_max_diff": d, "leaves_held": int(held),
+            "leaves": len(pairs), "worst_ratio": worst}
 
 
 def _max_diff(a, b):
@@ -3210,6 +3273,529 @@ def phase_devtel_profiled(engine, prof_off, nums):
         f"{time.perf_counter() - t0:.1f}s)")
 
 
+# ------------------------------------------------------------ phase 14
+DIST_TRAIN_ARGS = ["--arch", "starcoder2-3b", "--steps", "2", "--mca",
+                   "--alpha", "0.2"]  # the launcher's batch 8, seq 256
+DIST_PROMPTS = (8, 256)          # global prompts: 4 x 256 tokens a rank
+DIST_DECODE = 8                  # decode steps from the prefilled caches
+DIST_MAX_LEN = 272
+DIST_TRAIN_LAYERS = 4            # starcoder2-3b cut for two AdamW replicas
+DIST_DIR = ROOT / "build" / "dist_smoke"
+
+
+def _torchrun(nproc, part, timeout):
+    """``python -m torch.distributed.run`` of this script's ``part`` on
+    ``nproc`` ranks; each rank writes ``rank{r}.json`` under DIST_DIR.
+    The whole process group is killed on a timeout."""
+    import os
+    import shutil
+    import signal
+    out = DIST_DIR / part
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="4")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", str(ROOT / "chip_smoke.py"),
+           "--dist-part", part, "--out", str(out)]
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"phase 14 ({part}) passed its {timeout} s")
+    for line in stdout.splitlines():
+        log(line)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 14 ({part}) failed (rc "
+                             f"{proc.returncode}):\n{stderr[-6000:]}")
+    return [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(nproc)]
+
+
+def _recording(factory, gnorms):
+    """``factory`` (a step maker) whose steps append their grad norm."""
+    def make(*a, **kw):
+        step = factory(*a, **kw)
+
+        def rec(params, opt_state, batch):
+            out = step(params, opt_state, batch)
+            gnorms.append(float(out[2]["grad_norm"]))
+            return out
+        rec.__dict__.update(step.__dict__)
+        return rec
+    return make
+
+
+def _dist_train_run(train, mesh):
+    """One launcher run of DIST_TRAIN_ARGS: through the mesh branch
+    (``run_mesh``, under torch.distributed.run) or the unsharded one
+    (``build`` then ``run``, as phase 8).  Returns (numbers, the params
+    copied to the host)."""
+    import gc
+    import torch
+    from repro_torch import obs
+    from repro_torch.optim.adamw import leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gnorms = []
+    maker = "jit_train_step" if mesh else "make_train_step"
+    orig = getattr(train, maker)
+    setattr(train, maker, _recording(orig, gnorms))
+    try:
+        with obs.scoped() as reg:
+            if mesh:
+                trainer, out = train.run_mesh(
+                    train.parse_args(DIST_TRAIN_ARGS + ["--mesh"]))
+            else:
+                trainer = train.build(train.parse_args(DIST_TRAIN_ARGS))
+                out = trainer.run()
+            torch.cuda.synchronize()
+            snap = reg.snapshot()
+    finally:
+        setattr(train, maker, orig)
+    nums = {"losses": [h["loss"] for h in out["history"]],
+            "grad_norms": gnorms,
+            "tier_hist": [h.get("tier_hist") for h in out["history"]],
+            "step_p50_s": snap["histograms"]["train.step_seconds"]["p50"],
+            "step_s": [h["dt"] for h in out["history"]],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "deterministic": torch.are_deterministic_algorithms_enabled()}
+    params = [t.detach().cpu() for t in leaves(trainer.params)]
+    del trainer
+    return nums, params
+
+
+def _dist_part_a(out):
+    """(a) the launcher's mesh branch in a world of one (NCCL), then the
+    unsharded launcher objects in the same process: equal bit for bit."""
+    import os
+    import torch
+    from repro_torch.launch import train
+    if int(os.environ["WORLD_SIZE"]) != 1:
+        raise AssertionError("part a runs a world of one")
+    mesh_nums, mesh_params = _dist_train_run(train, mesh=True)
+    flat_nums, flat_params = _dist_train_run(train, mesh=False)
+    same = [bool(torch.equal(a, b)) for a, b in zip(mesh_params,
+                                                     flat_params)]
+    del mesh_params
+    # the launcher leaves deterministic algorithms off (PyTorch's default):
+    # one more unsharded run with them on, for its bits and its cost
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        det_nums, det_params = _dist_train_run(train, mesh=False)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    det_same = sum(bool(torch.equal(a, b)) for a, b in zip(det_params,
+                                                            flat_params))
+    return {"mesh": mesh_nums, "unsharded": flat_nums,
+            "leaves": len(same), "leaves_equal": sum(same),
+            "det": det_nums, "det_leaves_equal": det_same}
+
+
+def _dist_setup():
+    """Both ranks on the one card, a gloo group (NCCL will not put two
+    ranks on one GPU), the ("data", "model") = (2, 1) mesh."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo")
+    return dist.get_rank(), make_local_mesh(2, 1, device=dev), dev
+
+
+def _spy(module, name, record):
+    """Replace ``module.name`` by a wrapper that appends (args, kwargs,
+    result) to ``record``; returns a function that undoes it."""
+    orig = getattr(module, name)
+
+    def wrapper(*a, **kw):
+        res = orig(*a, **kw)
+        record.append((a, kw, res))
+        return res
+    setattr(module, name, wrapper)
+    return lambda: setattr(module, name, orig)
+
+
+def _kernel_counters(snap):
+    c = snap["counters"]
+    return {k: v for k, v in c.items() if k.startswith("kernels.")}
+
+
+def _dist_part_b(out):
+    """(b) starcoder2-3b at full width on two ranks over gloo: the
+    sharded prefill with the MCA kernel, then decode."""
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.core import dispatch, policy
+    from repro_torch.core.policy import MCAConfig, _caps_for
+    from repro_torch.dist import context as dctx
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.train.step import make_prefill_step
+    rank, mesh, dev = _dist_setup()
+    mca = MCAConfig(enabled=True, alpha=0.2, block=128, use_kernel=True,
+                    sites=("v_proj", "o_proj"))
+    cfg = get_config("starcoder2-3b", mca=mca)
+    model = build_model(cfg, device=dev)
+    params = model.init(0)
+    prompts = np.random.default_rng(14).integers(
+        1, cfg.vocab_size, DIST_PROMPTS).astype(np.int32)
+    batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+    n_local = DIST_PROMPTS[0] // 2 * DIST_PROMPTS[1]
+    calls = []
+    undo = _spy(policy, "_tiered_maybe_sharded", calls)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad(), obs.scoped() as reg, _MCAShapes() as shapes, \
+            dctx.use_mesh(mesh):
+        cache, logits = make_prefill_step(model, DIST_MAX_LEN)(params,
+                                                               batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        counters = _kernel_counters(reg.snapshot())
+    undo()
+    caps = _caps_for(n_local, cfg.mca.n_tiers, cfg.mca.capacity_fracs)
+    local, summed, rerun_ok = [], [], True
+    for a, _, (_, hist, local_hist) in calls:
+        tier, imp = a[3], a[4]
+        again = dispatch.tier_histogram(dispatch.apply_capacity(
+            tier.cpu(), imp.cpu(), caps), len(caps))
+        rerun_ok &= bool(torch.equal(again, local_hist.cpu()))
+        local.append(local_hist.tolist())
+        summed.append(hist.tolist())
+    res = {"rank": rank, "prefill_s": prefill_s, "calls": len(calls),
+           "n_local": n_local, "mca_launches": launches["mca_matmul_fixed"],
+           "want_mca": _expected_mca(cfg, [n_local])[0],
+           "counters": counters, "local_hist": local,
+           "summed_hist": summed, "rerun_ok": rerun_ok,
+           "shapes": sorted(shapes.seen)}
+    # decode from the MCA prefill's caches: one layer write a layer a step
+    tok = torch.argmax(logits[..., :cfg.vocab_size], -1).to(torch.int32)
+    ops.reset_launch_counts()
+    with torch.no_grad(), dctx.use_mesh(mesh):
+        _, _, bad, _ = _decode_greedy(model, params, tok, cache,
+                                      DIST_PROMPTS[1], DIST_DECODE)
+        torch.cuda.synchronize()
+    res["kv_launches"] = ops.launch_counts()["kv_slot_update"]
+    res["decode_finite"] = not bool(bad)
+    del cache
+    # MCA off: this rank's rows, and (rank 0) all 8 rows in one process
+    with torch.no_grad():
+        with dctx.use_mesh(mesh):
+            _, lg = make_prefill_step(model, DIST_MAX_LEN,
+                                      with_mca=False)(params, batch)
+        np.save(out / f"logits{rank}.npy", lg.float().cpu().numpy())
+        if rank == 0:
+            _, lg = make_prefill_step(model, DIST_MAX_LEN,
+                                      with_mca=False)(params, batch)
+            np.save(out / "logits_world1.npy", lg.float().cpu().numpy())
+    if rank == 0:
+        res["path_shapes_err"] = phase_path_shapes(shapes.seen)
+    return res
+
+
+def _digests(tree):
+    """Two int64 digests a leaf of its raw bits (a plain sum and one
+    weighted by position): equal leaves give equal digests."""
+    import torch
+    from repro_torch.optim.adamw import leaves
+    out = []
+    for t in leaves(tree):
+        bits = t.detach().reshape(-1).view(torch.int16 if t.element_size()
+                                           == 2 else torch.int32).long()
+        pos = torch.arange(bits.numel(), device=t.device) % 65521 + 1
+        out.append([int(bits.sum()), int((bits * pos).sum())])
+    return out
+
+
+def _dist_part_c(out):
+    """(c) two ranks over gloo: olmoe-1b-7b's shard-local MoE dispatch,
+    starcoder2-3b (4 layers) ZeRO-1 steps, psum_compressed."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import MCAConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist import compress, context as dctx
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, ffn
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import jit_train_step, make_prefill_step
+    rank, mesh, dev = _dist_setup()
+    res = {"rank": rank}
+    # --- olmoe-1b-7b at full width: MoE dispatch per rank
+    t0 = time.perf_counter()
+    mca = MCAConfig(enabled=True, alpha=0.2, block=128, use_kernel=True,
+                    sites=("v_proj", "o_proj", "expert_ffn"))
+    cfg = get_config("olmoe-1b-7b", mca=mca)
+    model = build_model(cfg, device=dev)
+    params = model.init(0)
+    prompts = np.random.default_rng(15).integers(
+        1, cfg.vocab_size, DIST_PROMPTS).astype(np.int32)
+    n_local = DIST_PROMPTS[0] // 2 * DIST_PROMPTS[1]
+    local, reduced, caps = [], [], []
+    undo = [_spy(ffn, "_moe_local", local), _spy(ffn, "moe_ffn", reduced),
+            _spy(ffn, "moe_capacity", caps)]
+    ops.reset_launch_counts()
+    with torch.no_grad(), obs.scoped() as reg, _MCAShapes() as shapes, \
+            dctx.use_mesh(mesh):
+        make_prefill_step(model, DIST_MAX_LEN)(
+            params, {"tokens": torch.as_tensor(prompts, device=dev)})
+        torch.cuda.synchronize()
+        counters = _kernel_counters(reg.snapshot())
+    for u in undo:
+        u()
+
+    def stats(st):
+        return {k: float(v) for k, v in st.items()}
+
+    res["moe"] = {
+        "layers": cfg.n_layers, "n_local": n_local,
+        "tokens": [int(a[2].shape[0] * a[2].shape[1]) for a, _, _ in local],
+        "caps": [[a[1], r] for a, _, r in caps],
+        "want_cap": ffn.moe_capacity(cfg, n_local),
+        "local_aux": [float(r[1]) for _, _, r in local],
+        "local_stats": [stats(r[2]) for _, _, r in local],
+        "aux": [float(r[1]) for _, _, r in reduced],
+        "stats": [stats(r[2]) for _, _, r in reduced],
+        "mca_launches": ops.launch_counts()["mca_matmul_fixed"],
+        "want_mca": _expected_mca(cfg, [n_local])[0],
+        "counters": counters, "s": time.perf_counter() - t0}
+    if rank == 0:
+        res["path_shapes_err"] = phase_path_shapes(shapes.seen)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # --- starcoder2-3b cut to 4 layers: 2 ZeRO-1 steps, MCA off
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("starcoder2-3b"),
+                              n_layers=DIST_TRAIN_LAYERS)
+    model = build_model(cfg, device=dev)
+    data = SyntheticLM(cfg.vocab_size, DIST_PROMPTS[1], DIST_PROMPTS[0],
+                       seed=0)
+    opt = adamw.AdamWConfig(lr=3e-4, schedule=adamw.cosine_schedule(1, 2))
+    b0 = {k: torch.empty(v.shape, dtype=torch.int32, device="meta")
+          for k, v in data.batch(0).items()}
+    step = jit_train_step(mesh, model, opt, b0, donate=False)
+    params = model.init(0)
+    moment_sh = step.in_shardings[1]["m"]
+    state = adamw.init_state(params, moment_sh)
+    split = [[int(m.numel()), int(p.numel())] for p, m, sh in zip(
+        adamw.leaves(params), adamw.leaves(state["m"]),
+        adamw.leaves(moment_sh)) if sh.is_split()]
+    losses, digests = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(2):
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in data.batch(i).items()}
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["total_loss"]))
+        digests.append(_digests(params))
+    res["zero1"] = {"losses": losses, "digests": digests, "split": split,
+                    "leaves": len(adamw.leaves(params)),
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "s": time.perf_counter() - t0}
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:                # the world-one run of the same cut model
+        flat = make_train_step(model, opt, with_mca=False)
+        params = model.init(0)
+        state = adamw.init_state(params)
+        res["zero1"]["world1_losses"] = []
+        for i in range(2):
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in data.batch(i).items()}
+            params, state, m = flat(params, state, batch)
+            res["zero1"]["world1_losses"].append(float(m["total_loss"]))
+        del params, state
+    # --- psum_compressed on CUDA tensors
+    g = torch.randn(4096, generator=torch.Generator(dev).manual_seed(
+        100 + rank), device=dev) * 1e-3
+    summed, _ = compress.psum_compressed(
+        {"g": g}, compress.init_error_buffer({"g": g}), mesh)
+    q, s = compress.quantize(g)
+    np.save(out / f"deq{rank}.npy", compress.dequantize(q, s).cpu().numpy())
+    np.save(out / f"psum{rank}.npy", summed["g"].cpu().numpy())
+    return res
+
+
+def dist_part_main() -> int:
+    """A rank of phase 14 (``--dist-part a|b|c --out DIR``), started by
+    ``torch.distributed.run`` from ``phase_dist``."""
+    import os
+    sys.path.insert(0, str(ROOT / "src"))
+    part = sys.argv[sys.argv.index("--dist-part") + 1]
+    out = pathlib.Path(sys.argv[sys.argv.index("--out") + 1])
+    rank = int(os.environ["RANK"])
+    res = {"a": _dist_part_a, "b": _dist_part_b, "c": _dist_part_c}[part](
+        out)
+    (out / f"rank{rank}.json").write_text(json.dumps(res))
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+def _dist_check_a(r):
+    m, u = r["mesh"], r["unsharded"]
+    log(f"[dist] (a) world of one, NCCL, launch.train's mesh branch vs the "
+        f"unsharded launcher objects, starcoder2-3b full width, 2 steps, "
+        f"deterministic {m['deterministic']}/{u['deterministic']}: losses "
+        f"{m['losses']} / {u['losses']}, grad norms {m['grad_norms']} / "
+        f"{u['grad_norms']}, {r['leaves_equal']} of {r['leaves']} leaves "
+        f"bitwise equal; step p50 {m['step_p50_s']:.3f} / "
+        f"{u['step_p50_s']:.3f} s (steps {m['step_s']} / {u['step_s']}), "
+        f"peak {m['peak_mem_gb']:.2f} / {u['peak_mem_gb']:.2f} GB")
+    d = r["det"]
+    log(f"[dist] (a) the unsharded run again with deterministic algorithms "
+        f"on (the launcher leaves them off): losses {d['losses']}, "
+        f"{r['det_leaves_equal']} of {r['leaves']} leaves bitwise equal to "
+        f"the run with them off; step p50 {d['step_p50_s']:.3f} s (steps "
+        f"{d['step_s']}), peak {d['peak_mem_gb']:.2f} GB")
+    if (m["losses"] != u["losses"] or m["grad_norms"] != u["grad_norms"]
+            or m["tier_hist"] != u["tier_hist"] or len(m["losses"]) != 2
+            or r["leaves_equal"] != r["leaves"] or r["leaves"] < 100):
+        raise AssertionError("the world of one is not the unsharded run "
+                             "bit for bit")
+
+
+def _dist_check_b(ranks):
+    import numpy as np
+    summed = np.array(ranks[0]["local_hist"]) + np.array(
+        ranks[1]["local_hist"])
+    for r in ranks:
+        fallback = {k: v for k, v in r["counters"].items()
+                    if k.endswith("fallback_calls") and v}
+        log(f"[dist] (b) rank {r['rank']}: prefill of 4 x 256 tokens in "
+            f"{r['prefill_s']:.3f} s, {r['calls']} routings of "
+            f"{r['n_local']} local tokens, mca_matmul_fixed launches "
+            f"{r['mca_launches']} (the local routing's {r['want_mca']}), "
+            f"fallbacks {fallback or 0}, local tier_hist (sum) "
+            f"{np.array(r['local_hist']).sum(0).tolist()}, the CPU rerun of "
+            f"apply_capacity {'equal' if r['rerun_ok'] else 'DIFFERENT'}; "
+            f"{DIST_DECODE} decode steps: kv_slot_update {r['kv_launches']}"
+            f" launches, logits finite {r['decode_finite']}")
+        if (r["mca_launches"] != r["want_mca"] or r["want_mca"] == 0
+                or fallback or not r["rerun_ok"] or r["calls"] != 60
+                or not np.array_equal(np.array(r["summed_hist"]), summed)
+                or r["kv_launches"] != 30 * DIST_DECODE
+                or not r["decode_finite"]):
+            raise AssertionError(f"phase 14 (b) rank {r['rank']} failed")
+    out = DIST_DIR / "b"
+    world1 = np.load(out / "logits_world1.npy")
+    rows = np.concatenate([np.load(out / f"logits{r}.npy") for r in (0, 1)])
+    err = float(np.abs(rows - world1).max() / np.abs(world1).max())
+    log(f"[dist] (b) MCA off: each rank's last-position logits against a "
+        f"world-one prefill of the 8 rows, max|diff|/max|logit| {err:.2e} "
+        f"(limit 1e-2); all-reduced tier_hist = the sum of the two ranks' "
+        f"local ones in all {len(summed)} routings")
+    if not err <= 1e-2:
+        raise AssertionError("sharded logits differ from the world of one")
+    return err
+
+
+def _dist_check_c(ranks):
+    import numpy as np
+    f32 = np.float32
+    moe = [r["moe"] for r in ranks]
+    aux_ok = stats_ok = True
+    for i in range(moe[0]["layers"]):
+        a0, a1 = f32(moe[0]["local_aux"][i]), f32(moe[1]["local_aux"][i])
+        want = (a0 + a1) / f32(2)
+        aux_ok &= all(f32(m["aux"][i]) == want for m in moe)
+        for k in moe[0]["stats"][i]:
+            s = f32(moe[0]["local_stats"][i][k]) + f32(
+                moe[1]["local_stats"][i][k])
+            stats_ok &= all(f32(m["stats"][i][k]) == s for m in moe)
+    for m, r in zip(moe, ranks):
+        fallback = {k: v for k, v in m["counters"].items()
+                    if k.endswith("fallback_calls") and v}
+        caps_ok = all(n == m["n_local"] and c == m["want_cap"]
+                      for n, c in m["caps"])
+        log(f"[dist] (c) rank {r['rank']} olmoe-1b-7b: {len(m['caps'])} "
+            f"dispatches of {set(m['tokens'])} local tokens, capacity "
+            f"{sorted({c for _, c in m['caps']})} (moe_capacity of "
+            f"{m['n_local']}: {m['want_cap']}), mca_matmul_fixed "
+            f"{m['mca_launches']} (routing {m['want_mca']}), fallbacks "
+            f"{fallback or 0}; {m['s']:.1f} s")
+        if (not caps_ok or len(m["caps"]) != m["layers"]
+                or m["mca_launches"] != m["want_mca"] or fallback):
+            raise AssertionError(f"phase 14 (c) MoE rank {r['rank']}")
+    log(f"[dist] (c) aux = the mean of the ranks' local auxes: {aux_ok}; "
+        f"stats = their sums: {stats_ok} (f32, bit for bit)")
+    z = [r["zero1"] for r in ranks]
+    same = z[0]["digests"] == z[1]["digests"]
+    halves = all(2 * m == p for m, p in z[0]["split"] + z[1]["split"])
+    w1 = z[0]["world1_losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(z[0]["losses"], w1))
+    log(f"[dist] (c) starcoder2-3b ({DIST_TRAIN_LAYERS} layers) ZeRO-1, 2 "
+        f"steps of 8 x 256: losses {z[0]['losses']} / {z[1]['losses']}, "
+        f"world of one {w1} (max rel {rel:.2e}, limit 1e-2); params "
+        f"bitwise equal across ranks after each step: {same}; "
+        f"{len(z[0]['split'])} of {z[0]['leaves']} moments split, each "
+        f"rank holding half: {halves}; peak {z[0]['peak_mem_gb']:.2f} GB a "
+        f"rank; {z[0]['s']:.1f} s")
+    out = DIST_DIR / "c"
+    deq = np.load(out / "deq0.npy") + np.load(out / "deq1.npy")
+    psum_ok = all(np.load(out / f"psum{r}.npy").tobytes() == deq.tobytes()
+                  for r in (0, 1))
+    log(f"[dist] (c) psum_compressed on CUDA tensors = the sum of the two "
+        f"ranks' dequantized payloads, bitwise: {psum_ok}")
+    if (not (aux_ok and stats_ok and same and halves and psum_ok)
+            or not rel <= 1e-2 or not z[0]["split"]
+            or z[0]["losses"] != z[1]["losses"]):
+        raise AssertionError("phase 14 (c) failed")
+    return {"zero1_loss_rel": rel}
+
+
+def phase_dist():
+    """Phase 14: the distribution slice, in subprocesses (nothing else
+    resident): (a) a world of one through launch.train's mesh branch,
+    (b) two ranks' sharded serve path with the MCA kernel, (c) two ranks'
+    MoE dispatch, ZeRO-1 steps and psum_compressed.  Returns (main-path
+    launches, the max error of the shapes held, numbers)."""
+    import gc
+    import shutil
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    a = _torchrun(1, "a", 300)[0]
+    _dist_check_a(a)
+    b = _torchrun(2, "b", 300)
+    logits_err = _dist_check_b(b)
+    c = _torchrun(2, "c", 300)
+    c_nums = _dist_check_c(c)
+    launches = {
+        "mca_matmul_fixed": sum(r["mca_launches"] for r in b)
+        + sum(r["moe"]["mca_launches"] for r in c),
+        "kv_slot_update": sum(r["kv_launches"] for r in b)}
+    err = max(b[0]["path_shapes_err"], c[0]["path_shapes_err"])
+    nums = {"a": a, "b_logits_err": logits_err,
+            "b_prefill_s": [r["prefill_s"] for r in b], **c_nums,
+            "zero1_peak_gb": c[0]["zero1"]["peak_mem_gb"],
+            "phase_s": time.perf_counter() - t0}
+    log(f"[dist] phase 14 in {nums['phase_s']:.1f}s; main-path launches "
+        f"{launches}")
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    return launches, err, nums
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3238,10 +3824,14 @@ def main() -> int:
         ev_launches, ev_nums = phase_encdec_vlm()
     errs["mca_matmul_fixed"] = max(errs["mca_matmul_fixed"],
                                    phase_path_shapes(path_shapes.seen))
+    dist_launches, dist_err, dist_nums = phase_dist()
+    errs["mca_matmul_fixed"] = max(errs["mca_matmul_fixed"], dist_err)
     for k in SERVE_KERNELS:
-        launches[k] += fam_launches[k] + ssm_launches[k] + ev_launches[k]
+        launches[k] += (fam_launches[k] + ssm_launches[k] + ev_launches[k]
+                        + dist_launches[k])
         per[k] += (f"; phase 9: {fam_launches[k]}; phase 11: "
-                   f"{ssm_launches[k]}; phase 12: {ev_launches[k]}")
+                   f"{ssm_launches[k]}; phase 12: {ev_launches[k]}; "
+                   f"phase 14: {dist_launches[k]}")
     per["mca_matmul_fixed"] += (" (per prefill of <= 256 tokens: olmoe "
                                 "16 x 2 x 3 = 96, minicpm3 62 x (1 + 3) "
                                 "= 248; recurrentgemma-9b: 12 attention "
@@ -3277,10 +3867,12 @@ def main() -> int:
         f"(phase 8: {train_nums['phase_s']:.1f}s, phase 9: "
         f"{fam_nums['phase_s']:.1f}s, phase 10: "
         f"{devtel_nums['phase_s']:.1f}s, phase 11: "
-        f"{ssm_nums['phase_s']:.1f}s, phase 12: {ev_nums['phase_s']:.1f}s)")
+        f"{ssm_nums['phase_s']:.1f}s, phase 12: {ev_nums['phase_s']:.1f}s, "
+        f"phase 14: {dist_nums['phase_s']:.1f}s)")
     log(json.dumps({"serve": serve_nums, "train": train_nums,
                     "families": fam_nums, "devtel": devtel_nums,
                     "ssm_hybrid": ssm_nums, "encdec_vlm": ev_nums,
+                    "dist": dist_nums,
                     "family_kernels": nums["families"], "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
@@ -3291,4 +3883,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(dist_part_main() if "--dist-part" in sys.argv else main())

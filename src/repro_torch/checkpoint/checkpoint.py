@@ -26,8 +26,14 @@ crashed-mid-write, bit-flipped or stale step never blocks a restart.
 between write and rename.  A restored leaf lands on the device and in
 the dtype of its ``like`` leaf.
 
-Not ported: ``shardings=`` (reshard-on-restore belongs to the
-distribution slice; ROADMAP.md, Slice F).
+Elastic restore: ``restore(shardings=)`` takes a placement tree
+(``dist.sharding``); each rank loads the full arrays, checks them against
+``like``'s full shapes (``like`` may be ``meta`` tensors, which land on
+the mesh's device) and keeps its block of every leaf whose placement
+splits it.  So a checkpoint written by a world of one restores into a
+world of two and the reverse.  :func:`gather` is the other half: the
+full tree from every rank's blocks, which ``Trainer`` hands to rank 0
+to write.
 """
 from __future__ import annotations
 
@@ -211,24 +217,42 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def _restore_leaf(arr: np.ndarray, logical: str, leaf):
-    if isinstance(leaf, torch.Tensor):
-        return _from_storable(arr, logical).to(device=leaf.device,
-                                               dtype=leaf.dtype)
-    return arr.astype(np.asarray(leaf).dtype)
+def _restore_leaf(arr: np.ndarray, logical: str, leaf, sh=None):
+    if not isinstance(leaf, torch.Tensor):
+        return arr.astype(np.asarray(leaf).dtype)
+    t = _from_storable(arr, logical)
+    device = leaf.device
+    if sh is not None:
+        t = sh.local_slice(t)
+        if device.type == "meta":
+            device = sh.mesh.device or device
+    if device.type == "meta":
+        raise ValueError("restoring onto meta tensors needs shardings "
+                         "whose mesh names a device")
+    return t.to(device=device, dtype=leaf.dtype).contiguous()
+
+
+def gather(tree, shardings):
+    """The full tree from every rank's blocks (a collective: every rank of
+    the placements' mesh calls it); leaves not split are returned as
+    they are.  ``shardings`` matches ``tree`` up to missing leaves."""
+    sh = dict(_flatten(shardings))
+    return _rebuild(tree, {
+        path: leaf if sh.get(path) is None else sh[path].gather(leaf)
+        for path, leaf in _flatten(tree)})
 
 
 def restore(ckpt_dir: str, step: int, like: Any, *, shardings: Any = None):
     """Restore into the structure of ``like`` (a tree of tensors; each
     restored leaf takes its ``like`` leaf's device and dtype).
+    ``shardings``: a matching placement tree; each leaf is then this
+    rank's block of it (on the placement's mesh device where the ``like``
+    leaf is a ``meta`` tensor; see the module doc).
 
     Raises :class:`CheckpointCorruptError` on checksum mismatch or
     unreadable files, :class:`StructureMismatchError` if the stored tree
     does not match ``like`` (naming the first mismatched path)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...) reshards onto a mesh, which the port "
-            "does not have yet (ROADMAP.md, Slice F)")
+    sh = dict(_flatten(shardings)) if shardings is not None else {}
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     manifest = _read_manifest(d)
     if manifest is None:
@@ -267,7 +291,8 @@ def restore(ckpt_dir: str, step: int, like: Any, *, shardings: Any = None):
             raise StructureMismatchError(
                 f"checkpoint {d}: shape mismatch at {path}: stored "
                 f"{tuple(raw.shape)}, model expects {tuple(leaf.shape)}")
-        values[path] = _restore_leaf(raw, manifest["dtypes"][i], leaf)
+        values[path] = _restore_leaf(raw, manifest["dtypes"][i], leaf,
+                                     sh.get(path))
     return _rebuild(like, values)
 
 

@@ -1,7 +1,6 @@
 """MCAPolicy: where/how Monte-Carlo projection runs inside a model.
 
-Port of ``repro/core/policy.py`` (single-device branch; the ``shard_map``
-branch waits for the distribution slice).  ``mca_project`` runs the paper
+Port of ``repro/core/policy.py``.  ``mca_project`` runs the paper
 pipeline
 
     importance -> Eq.9 r schedule -> tier quantization -> capacity routing
@@ -12,7 +11,17 @@ and returns (y, stats) with the paper's FLOPs accounting.  Stats values
 that depend on the data stay device tensors; the host reads them once
 per step.  While ``obs.devtel`` is enabled, each call also adds its tier
 histogram to ``mca.device_tier_hist.t{i}`` on the device (one add, no
-host read).
+host read); under a mesh that is this rank's own routing, so
+``obs.snapshot(aggregate="psum")`` gives the mesh's.
+
+Under a mesh of more than one rank (``dist.context.use_mesh``) the
+tiered routing is shard-local, as the reference's ``shard_map`` branch:
+shard i routes the i-th contiguous chunk of the global flat tokens with
+capacities from its own token count and the key ``fold_in(key, i)``, and
+the tier histogram is summed over the ranks.  A rank that holds its rows
+of the batch holds exactly chunk ``shard_index``; a rank that holds the
+whole (replicated) batch routes all the chunks itself.  FLOPs and token
+counts are the global batch's.
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.dist import context as dctx
 from repro_torch.obs import devtel
 
 from . import amm, dispatch, schedule
@@ -84,12 +94,13 @@ def mca_project(key: Optional[int], x: torch.Tensor, w: torch.Tensor,
     n, d = x.shape[-2], x.shape[-1]
     f = w.shape[-1]
     flat_n = math.prod(lead) * n
-    exact_fl = amm.exact_flops(flat_n, d, f)
+    shards = dctx.row_shards()           # > 1: this rank holds its rows
+    exact_fl = amm.exact_flops(flat_n * shards, d, f)
 
     if not cfg.active(site) or importance is None or key is None:
         y = exact_project(x, w)
         return y, {"site": site, "exact_flops": exact_fl,
-                   "mca_flops": exact_fl, "tokens": flat_n}
+                   "mca_flops": exact_fl, "tokens": flat_n * shards}
 
     block = cfg.block_for(d)
     ladder = schedule.tier_ladder(d, block, cfg.n_tiers, cfg.r_min_blocks)
@@ -101,16 +112,19 @@ def mca_project(key: Optional[int], x: torch.Tensor, w: torch.Tensor,
     tier = schedule.assign_tiers(r_blocks, ladder)
 
     if cfg.mode == "per_token":
+        mesh = dctx.get_mesh()
+        if shards > 1:          # the rank's own rows draw their own samples
+            dctx.require_data_parallel(mesh, "mca_project")
+            key = amm.fold_in(key, dctx.shard_index(mesh))
         y2 = dispatch.per_token_mca_matmul(key, x2, w, r_blocks, block)
         mca_fl = amm.sampled_flops(r_blocks, f, block)
-        hist = dispatch.tier_histogram(tier, len(ladder))
+        hist = local_hist = dispatch.tier_histogram(tier, len(ladder))
+        if shards > 1:
+            mca_fl = dctx.psum(torch.as_tensor(mca_fl), mesh)
+            hist = dctx.psum(hist, mesh)
     else:
-        caps = _caps_for(flat_n, len(ladder), cfg.capacity_fracs)
-        tier_routed = dispatch.apply_capacity(tier, imp, caps)
-        y2 = dispatch.tiered_mca_matmul(key, x2, w, tier_routed, imp, ladder,
-                                        caps, block,
-                                        use_kernel=cfg.use_kernel)
-        hist = dispatch.tier_histogram(tier_routed, len(ladder))
+        y2, hist, local_hist = _tiered_maybe_sharded(key, x2, w, tier, imp,
+                                                     ladder, cfg, block)
         # int64 on the device: the sum reaches ~2e9 at d=f=3072 and a few
         # hundred tokens, where int32 would overflow
         hist64 = hist.to(torch.int64)
@@ -122,12 +136,57 @@ def mca_project(key: Optional[int], x: torch.Tensor, w: torch.Tensor,
     # step); a no-op unless devtel is enabled
     devtel.emit_vec(
         tuple(f"mca.device_tier_hist.t{i}" for i in range(len(ladder))),
-        hist)
+        local_hist)
+    mean_r = torch.mean(r_blocks.float())
+    if shards > 1:
+        mean_r = dctx.psum(mean_r, dctx.get_mesh()) / shards
     stats = {"site": site, "exact_flops": exact_fl, "mca_flops": mca_fl,
-             "tokens": flat_n, "tier_hist": hist,
-             "mean_r_blocks": torch.mean(r_blocks.float()),
-             "ladder": ladder}
+             "tokens": flat_n * shards, "tier_hist": hist,
+             "mean_r_blocks": mean_r, "ladder": ladder}
     return y, stats
+
+
+def _tiered_maybe_sharded(key, x2, w, tier, imp, ladder, cfg, block):
+    """Tiered dispatch, shard-local under a mesh of more than one rank.
+
+    Returns (y2, tier_hist over the mesh, this rank's own tier_hist).
+    Each chunk i of the global flat tokens is routed with the capacities
+    of its own token count and drawn from ``fold_in(key, i)``; a rank
+    holding its rows routes its one chunk and sums the histogram over the
+    ranks, a rank holding the whole batch routes every chunk itself."""
+    n_tiers = len(ladder)
+    flat_n = x2.shape[0]
+    mesh = dctx.get_mesh()
+    shards = dctx.row_shards()
+    chunks = None
+    if mesh is not None and mesh.size > 1:
+        dctx.require_data_parallel(mesh, "mca_project")
+        if shards > 1:
+            chunks = [(dctx.shard_index(mesh), 0)]
+            n_local = flat_n
+        elif flat_n % mesh.size == 0:
+            n_local = flat_n // mesh.size
+            chunks = [(i, i * n_local) for i in range(mesh.size)]
+    if chunks is None:
+        caps = _caps_for(flat_n, n_tiers, cfg.capacity_fracs)
+        tier_routed = dispatch.apply_capacity(tier, imp, caps)
+        y2 = dispatch.tiered_mca_matmul(key, x2, w, tier_routed, imp, ladder,
+                                        caps, block,
+                                        use_kernel=cfg.use_kernel)
+        hist = dispatch.tier_histogram(tier_routed, n_tiers)
+        return y2, hist, hist
+
+    caps = _caps_for(n_local, n_tiers, cfg.capacity_fracs)
+    ys, hist = [], 0
+    for i, start in chunks:
+        sl = slice(start, start + n_local)
+        tier_r = dispatch.apply_capacity(tier[sl], imp[sl], caps)
+        ys.append(dispatch.tiered_mca_matmul(
+            amm.fold_in(key, i), x2[sl], w, tier_r, imp[sl], ladder, caps,
+            block, use_kernel=cfg.use_kernel))
+        hist = hist + dispatch.tier_histogram(tier_r, n_tiers)
+    y2 = ys[0] if len(ys) == 1 else torch.cat(ys)
+    return y2, (dctx.psum(hist, mesh) if shards > 1 else hist), hist
 
 
 def merge_stats(stats_list) -> Stats:

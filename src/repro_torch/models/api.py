@@ -138,7 +138,10 @@ def _generator(seed: Union[int, torch.Generator], device) -> torch.Generator:
         if seed.device.type != torch.device(device).type:
             raise ValueError(f"generator on {seed.device}, params on {device}")
         return seed
-    g = torch.Generator(device=device)
+    # a meta model (shapes only, ``train.step.abstract_state``) draws
+    # nothing: a CPU generator stands in for one the meta device lacks
+    meta = torch.device(device).type == "meta"
+    g = torch.Generator(device="cpu" if meta else device)
     g.manual_seed(int(seed))
     return g
 

@@ -16,9 +16,14 @@ reference rounds after each add, this sum once.
 
 MoE + MCA (``expert_ffn`` site): the router gate is the slot's importance
 and the expert up-projection runs under the per-token estimator, batched
-over experts (``dispatch.per_token_mca_matmul``).  The ``shard_map``
-branch of the reference (shard-local dispatch under a mesh) belongs to the
-distribution slice (ROADMAP.md, Slice F).
+over experts (``dispatch.per_token_mca_matmul``).
+
+Under a mesh of more than one rank whose ranks hold their rows of the
+batch, dispatch is shard-local, as the reference's ``shard_map`` branch:
+each rank routes its own tokens with the capacity of its own token count
+and the replicated expert weights; ``aux`` is the mean over the ranks
+and the stats their sum.  A replicated batch (its rows do not divide the
+data axes) dispatches over the global tokens, as the reference does.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import amm, dispatch as mca_dispatch, schedule
+from repro_torch.dist import context as dctx
 from .common import dense_init, gelu
 
 
@@ -81,16 +87,21 @@ def moe_capacity(cfg, n_tokens: int) -> int:
 
 
 def moe_ffn(p, cfg, x, *, mca_key: Optional[int] = None):
-    """x: [B, S, d] -> (y, aux_loss, stats), dispatching over the local
-    token set.  Raises inside a process group of more than one rank: the
-    reference's shard-local dispatch under a mesh is not ported."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "moe_ffn across ranks (the reference's shard-local dispatch "
-            "under a mesh) belongs to the distribution slice, not ported "
-            "yet (ROADMAP.md)")
+    """x: [B, S, d] -> (y, aux_loss, stats).
+
+    Under a mesh of more than one rank each rank dispatches the rows it
+    holds (shard-local, see the module doc); ``aux`` is averaged over the
+    ranks (differentiable: each rank's gradient is its own term, averaged
+    with the other ranks' gradients afterwards) and the stats summed.
+    Without a mesh it is plain local dispatch."""
+    mesh = dctx.get_mesh()
+    if mesh is not None and mesh.size > 1:
+        dctx.require_data_parallel(mesh, "moe_ffn")
+        if dctx.row_shards() > 1:
+            y, aux, stats = _moe_local(p, cfg, x, mca_key)
+            stats = {k: dctx.psum(torch.as_tensor(v, device=x.device), mesh)
+                     for k, v in stats.items()}
+            return y, dctx.pmean(aux, mesh), stats
     return _moe_local(p, cfg, x, mca_key)
 
 

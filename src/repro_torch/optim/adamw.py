@@ -14,6 +14,14 @@ adds to the state.
 the CPU (as ``torch.optim.AdamW`` keeps its step unless capturable): the
 step reads it as a host int, for the schedule, the bias corrections and
 the MCA key, without a device read.
+
+ZeRO-1: given the moments' placement tree (``dist.sharding.
+zero1_shardings``), a rank holds only its block of each moment whose
+placement splits it over the data axes, updates only that block of the
+parameter from the full (all-reduced) gradient, and sends it to the
+other ranks (``NamedSharding.gather``).  The update is elementwise and
+the clip norm is taken from the full gradients, so every value is the
+unsharded update's, bit for bit.
 """
 from __future__ import annotations
 
@@ -74,9 +82,14 @@ def leaves(tree):
     return [leaf for _, leaf in named_leaves(tree)]
 
 
-def init_state(params):
-    zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                           device=p.device), params)
+def init_state(params, shardings=None):
+    """Zero moments (f32) and count; with ``shardings`` (the moments'
+    placement tree) each moment is this rank's block only."""
+    if shardings is None:
+        shardings = tree_map(lambda p: None, params)
+    zeros = tree_map(lambda p, sh: torch.zeros(
+        (p if sh is None else sh.local_slice(p)).shape, dtype=torch.float32,
+        device=p.device), params, shardings)
     return {"m": zeros,
             "v": tree_map(torch.clone, zeros),
             "count": torch.zeros((), dtype=torch.int32)}
@@ -94,12 +107,14 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 def apply_updates(cfg: AdamWConfig, params, grads, state, *,
-                  donate: bool = False):
+                  donate: bool = False, shardings=None):
     """One AdamW step. Returns (new_params, new_state, grad_norm).
 
     The clip scale is folded into the per-leaf update rather than
     materialized as a clipped f32 grad tree.  ``donate=True`` writes the
     new values into ``params`` and ``state`` and returns them.
+    ``shardings``: the moments' placement tree (ZeRO-1, see the module
+    doc); ``grads`` are then the full gradients, the same on every rank.
     """
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
@@ -109,7 +124,11 @@ def apply_updates(cfg: AdamWConfig, params, grads, state, *,
     b1c = 1.0 - cfg.b1 ** count
     b2c = 1.0 - cfg.b2 ** count
 
-    def upd(name, p, g, m, v):
+    def upd(name, p, g, m, v, sh):
+        split = sh is not None and sh.is_split()
+        p_full = p
+        if split:                     # ZeRO-1: this rank's block only
+            p, g = sh.local_slice(p), sh.local_slice(g)
         g = g.float() * scale
         if not donate:
             m, v = m.clone(), v.clone()
@@ -120,14 +139,18 @@ def apply_updates(cfg: AdamWConfig, params, grads, state, *,
         if cfg.weight_decay and _decay_mask(name):
             step.add_(p.float() * cfg.weight_decay)
         new_p = (p.float() - lr * step).to(p.dtype)
+        if split:
+            new_p = sh.gather(new_p)
         if donate:
-            p.copy_(new_p)
-            new_p = p
+            p_full.copy_(new_p)
+            new_p = p_full
         return new_p, m, v
 
-    out = [upd(n, p, g, m, v) for (n, p), g, m, v in zip(
+    sh_leaves = (leaves(shardings) if shardings is not None
+                 else [None] * len(leaves(params)))
+    out = [upd(n, p, g, m, v, sh) for (n, p), g, m, v, sh in zip(
         named_leaves(params), leaves(grads), leaves(state["m"]),
-        leaves(state["v"]))]
+        leaves(state["v"]), sh_leaves)]
     new_params, new_m, new_v = (_unflatten(params, [o[i] for o in out])
                                 for i in range(3))
     if donate:

@@ -1,13 +1,23 @@
-"""Train and serve steps.
+"""Train and serve steps, on one device or data parallel over a mesh.
 
-Port of ``repro/train/step.py`` for one device.  The mesh code
-(``jit_train_step``, ``train_step_shardings``, ``serve_step_shardings``,
-``abstract_state``) belongs to the distribution slice (ROADMAP.md,
-Slice F).  PyTorch runs eagerly, so a step is a plain function.
+Port of ``repro/train/step.py``.  PyTorch runs eagerly, so a step is a
+plain function.  ``jit_train_step`` is the counterpart of the reference's
+sharded step, run as one process per rank: each rank takes its rows of
+the global batch (every row when they do not divide the data axes, as
+``batch_shardings`` then replicates the batch), computes the loss and
+gradients inside ``use_mesh`` (so MCA routing and MoE dispatch are
+shard-local), averages gradients and float metrics over the ranks, and
+applies the ZeRO-1 update.  Weights stay replicated.
 """
 from __future__ import annotations
 
+import contextlib
+
+import torch
+
 from repro_torch.core.amm import fold_in
+from repro_torch.dist import context as dctx
+from repro_torch.dist import sharding as shd
 from repro_torch.models.api import Model, _logits
 from repro_torch.optim import adamw
 
@@ -42,13 +52,127 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
     return train_step
 
 
+def abstract_state(model: Model):
+    """(params, opt_state) as ``meta`` tensors: shapes and dtypes, no
+    allocation (the reference's ``eval_shape``)."""
+    from repro_torch.models import build_model
+    a_params = build_model(model.cfg, device="meta").init(0)
+    return a_params, adamw.init_state(a_params)
+
+
+def train_step_shardings(mesh, model: Model, abstract_batch,
+                         fsdp: bool = True):
+    """(in_shardings, out_shardings) placement trees of the train step.
+
+    ``fsdp=True`` (the reference's default) also places the params over
+    the data axes; the port executes only ``fsdp=False``
+    (``jit_train_step``).
+    """
+    a_params, _ = abstract_state(model)
+    p_sh = shd.param_shardings(mesh, a_params, model.cfg)
+    z_sh = shd.zero1_shardings(mesh, p_sh, a_params)
+    if fsdp:
+        p_sh = z_sh
+    opt_sh = {"m": z_sh, "v": z_sh,
+              "count": shd.NamedSharding(mesh, shd.PartitionSpec())}
+    b_sh = shd.batch_shardings(mesh, abstract_batch)
+    return (p_sh, opt_sh, b_sh), (p_sh, opt_sh, None)
+
+
+def _local_rows(batch, n_micro: int, mesh):
+    """This rank's rows of each microbatch of the global ``batch``, and
+    whether the batch is replicated instead (its microbatches' rows do
+    not divide the mesh, so every rank keeps every row)."""
+    b = next(iter(batch.values())).shape[0]
+    if mesh.size == 1 or (b // n_micro) % mesh.size:
+        return batch, mesh.size > 1
+    rank, n = dctx.shard_index(mesh), mesh.size
+
+    def rows(x):
+        micro = x.reshape(n_micro, b // n_micro, *x.shape[1:])
+        per = micro.shape[1] // n
+        return micro[:, rank * per:(rank + 1) * per].reshape(
+            n_micro * per, *x.shape[1:])
+
+    return {k: rows(x) for k, x in batch.items()}, False
+
+
+@contextlib.contextmanager
+def _rows_scope(mesh, replicated: bool):
+    with dctx.use_mesh(mesh):
+        with (dctx.replicated_batch() if replicated
+              else contextlib.nullcontext()):
+            yield
+
+
+def jit_train_step(mesh, model: Model, opt_cfg, abstract_batch,
+                   n_micro: int = 1, seed: int = 0, donate: bool = True,
+                   fsdp: bool = False):
+    """The data-parallel train step over ``mesh`` (one process per rank):
+    train_step(params, opt_state, global batch) -> (params, opt, metrics),
+    with ``opt_state`` holding this rank's ZeRO-1 blocks
+    (``adamw.init_state(params, step.in_shardings[1]["m"])``).
+
+    Microbatch i of rank r is rows ``[r, r + 1) * B / (n_micro N)`` of the
+    global microbatch i, as the reference's per-microbatch shard_map sees
+    it; its MCA key is ``fold_in(key, i)`` and ``mca_project`` folds in the
+    shard.  Gradients and float metrics are averaged over the ranks (a
+    world of one leaves every bit as it was).
+    """
+    dctx.require_data_parallel(mesh, "jit_train_step")
+    if fsdp and mesh.size > 1:
+        raise NotImplementedError(
+            "FSDP execution (params placed over the data axes) is not "
+            "ported; use fsdp=False (ROADMAP.md, Queue 1)")
+    in_sh, _ = train_step_shardings(mesh, model, abstract_batch, fsdp=fsdp)
+    moment_sh = in_sh[1]["m"]
+
+    def loss_fn(p, b, k):
+        return model.loss(p, b, k)
+
+    def train_step(params, opt_state, batch):
+        key = fold_in(seed, int(opt_state["count"]))
+        local, replicated = _local_rows(batch, n_micro, mesh)
+        with _rows_scope(mesh, replicated):
+            (loss, metrics), grads = adamw.accumulate_gradients(
+                loss_fn, params, local, n_micro, key)
+        for g in adamw.leaves(grads):
+            if g.is_floating_point():
+                dctx.pmean_(g, mesh)
+        params, opt_state, gnorm = adamw.apply_updates(
+            opt_cfg, params, grads, opt_state, donate=donate,
+            shardings=moment_sh)
+        metrics = dict(metrics)
+        metrics["grad_norm"] = gnorm
+        metrics["total_loss"] = loss
+        for k, v in metrics.items():
+            if isinstance(v, torch.Tensor) and v.is_floating_point():
+                metrics[k] = dctx.pmean_(v.detach().clone(), mesh)
+        return params, opt_state, metrics
+
+    train_step.in_shardings = in_sh
+    train_step.mesh = mesh
+    return train_step
+
+
 # ------------------------------------------------------------- serving
 def make_prefill_step(model: Model, max_len: int, with_mca: bool = True,
                       seed: int = 0):
-    """prefill(params, batch) -> (cache, last-position logits)."""
+    """prefill(params, batch) -> (cache, last-position logits).
+
+    Under a mesh of more than one rank the batch is the global one and
+    each rank prefills its rows (every row when they do not divide), so
+    the cache and logits are the rank's rows."""
     def prefill(params, batch):
         key = seed if with_mca else None
-        cache, hidden, _ = model.prefill(params, batch, max_len, key)
+        mesh = dctx.get_mesh()
+        if mesh is None or mesh.size == 1:
+            cache, hidden, _ = model.prefill(params, batch, max_len, key)
+        else:
+            local, replicated = _local_rows(batch, 1, mesh)
+            with _rows_scope(mesh, replicated):
+                cache, hidden, _ = model.prefill(params, local, max_len,
+                                                 key)
         return cache, _logits(params, model.cfg, hidden[:, -1:])
     return prefill
 
@@ -57,3 +181,13 @@ def make_decode_step(model: Model):
     def decode(params, tokens, cache, t):
         return model.decode(params, tokens, cache, t)
     return decode
+
+
+def serve_step_shardings(mesh, model: Model, abstract_cache,
+                         abstract_tokens):
+    """(params, cache, tokens) placement trees of the serve steps."""
+    a_params, _ = abstract_state(model)
+    p_sh = shd.param_shardings(mesh, a_params, model.cfg)
+    c_sh = shd.cache_shardings(mesh, abstract_cache)
+    t_sh = shd.batch_shardings(mesh, abstract_tokens)
+    return p_sh, c_sh, t_sh

@@ -27,8 +27,16 @@ Port of ``repro/train/trainer.py`` with the same rules and metric names:
     availability over durability, with the gap visible in metrics.
 
 Batches (numpy) go to the model's device; the step's scalar metrics come
-back to the host in one copy per step.  Elastic restart onto another
-mesh waits for the distribution slice (ROADMAP.md, Slice F).
+back to the host in one copy per step.
+
+Under a mesh (a step from ``train.step.jit_train_step``, which carries
+its mesh and placements) every rank runs this loop on the global batch
+stream: the optimizer state is the rank's ZeRO-1 blocks, the metrics it
+reads are averaged over the ranks, so the skip / rollback decision is
+the same on every rank, and only rank 0 writes the JSONL sink and the
+checkpoints (the blocks gathered first, every rank taking part).
+Restore is elastic: each rank loads the full arrays and keeps its
+blocks, so a run may resume on another number of ranks.
 """
 from __future__ import annotations
 
@@ -44,6 +52,7 @@ import torch
 
 from repro_torch import obs, resilience
 from repro_torch.checkpoint import checkpoint as ckpt
+from repro_torch.dist import context as dctx
 from repro_torch.optim import adamw
 
 log = logging.getLogger("repro_torch.trainer")
@@ -155,12 +164,17 @@ class Trainer:
         self.data = data
         self.train_step = train_step
         self.cfg = cfg
+        # a mesh step carries its mesh and (params, opt, batch) placements
+        self.mesh = getattr(train_step, "mesh", None)
+        self.shardings = getattr(train_step, "in_shardings", (None,) * 3)
+        self.is_writer = (self.mesh is None
+                          or dctx.shard_index(self.mesh) == 0)
         self.watchdog = Watchdog(cfg.watchdog_s, cfg.watchdog_escalate_after,
                                  cfg.recovery_cb)
         self.checkpointer = (ckpt.AsyncCheckpointer(cfg.ckpt_dir, cfg.keep)
-                             if cfg.ckpt_dir else None)
+                             if cfg.ckpt_dir and self.is_writer else None)
         self.sink = (obs.JsonlSink(cfg.metrics_path)
-                     if cfg.metrics_path else None)
+                     if cfg.metrics_path and self.is_writer else None)
         self.history: list = []
         self.ckpt_errors = 0
         self.rollbacks = 0
@@ -168,11 +182,12 @@ class Trainer:
 
         self.params = (init_params if init_params is not None
                        else model.init(0))
-        self.opt_state = adamw.init_state(self.params)
+        opt_sh = self.shardings[1]
+        self.opt_state = adamw.init_state(
+            self.params, None if opt_sh is None else opt_sh["m"])
         self.start_step = 0
         if cfg.ckpt_dir:
-            like = {"params": self.params, "opt": self.opt_state}
-            step, state = ckpt.restore_latest_valid(cfg.ckpt_dir, like)
+            step, state = self._restore_latest()
             if step is not None:
                 self.params = state["params"]
                 self.opt_state = state["opt"]
@@ -220,16 +235,49 @@ class Trainer:
         return gnorm is not None and not resilience.is_finite(
             float(np.asarray(gnorm)))
 
+    def _state_shardings(self):
+        p_sh, opt_sh, _ = self.shardings
+        return None if p_sh is None else {"params": p_sh, "opt": opt_sh}
+
+    def _restore_latest(self):
+        """restore_latest_valid of the checkpoint dir into this rank's
+        state (its ZeRO-1 blocks under a mesh; the stored arrays are
+        full)."""
+        like = {"params": self.params, "opt": self.opt_state}
+        sh = self._state_shardings()
+        if sh is not None:           # the moments' full shapes
+            like["opt"] = dict(self.opt_state, **{k: adamw.tree_map(
+                lambda t, s: torch.empty(s.full_shape(t.shape),
+                                         dtype=t.dtype, device="meta"),
+                self.opt_state[k], sh["opt"][k]) for k in ("m", "v")})
+        return ckpt.restore_latest_valid(self.cfg.ckpt_dir, like,
+                                         shardings=sh)
+
+    def _wait_writes(self) -> None:
+        """Land rank 0's in-flight checkpoint write before any rank reads
+        the directory (a failed write is counted, as in ``_save``)."""
+        if self.checkpointer:
+            try:
+                self.checkpointer.wait()
+            except Exception:                              # noqa: BLE001
+                self.ckpt_errors += 1
+                obs.get_registry().counter(
+                    "resilience.train.ckpt_failures").inc()
+                log.exception("checkpoint write failed")
+        if self.mesh is not None:
+            dctx.barrier(self.mesh)
+
     def _rollback(self, step: int) -> int:
         """Restore params/opt from the last valid checkpoint; returns the
         step to resume from (``step`` unchanged if nothing to restore)."""
         reg = obs.get_registry()
-        if not self.checkpointer:
+        if not self.cfg.ckpt_dir:
             log.error("no checkpoint dir: cannot roll back at step %d",
                       step)
             return step
-        like = {"params": self.params, "opt": self.opt_state}
-        ck_step, state = ckpt.restore_latest_valid(self.cfg.ckpt_dir, like)
+        if self.mesh is not None:     # every rank reads the same newest
+            self._wait_writes()
+        ck_step, state = self._restore_latest()
         if ck_step is None:
             log.error("rollback requested at step %d but no valid "
                       "checkpoint exists; continuing with current state",
@@ -247,10 +295,16 @@ class Trainer:
 
     def _save(self, step: int) -> None:
         """Async checkpoint; a failed previous write surfaces here and is
-        absorbed (counted + logged) so training keeps running."""
+        absorbed (counted + logged) so training keeps running.  Under a
+        mesh every rank gathers the ZeRO-1 blocks and rank 0 writes."""
+        tree = {"params": self.params, "opt": self.opt_state}
+        sh = self._state_shardings()
+        if sh is not None:
+            tree = ckpt.gather(tree, sh)
+        if not self.checkpointer:
+            return
         try:
-            self.checkpointer.save(
-                step, {"params": self.params, "opt": self.opt_state})
+            self.checkpointer.save(step, tree)
         except Exception:                                  # noqa: BLE001
             self.ckpt_errors += 1
             obs.get_registry().counter(
@@ -315,16 +369,11 @@ class Trainer:
                 fr = record.get("flops_reduction")
                 log.info("step %d loss %.4f (%.2fs/step)%s", step, loss, dt,
                          "" if fr is None else f" flops_reduction {fr:.2f}x")
-            if self.checkpointer and step % self.cfg.ckpt_every == 0:
+            if self.cfg.ckpt_dir and step % self.cfg.ckpt_every == 0:
                 self._save(step)
-        if self.checkpointer:
+        if self.cfg.ckpt_dir:
             self._save(self.cfg.total_steps)
-            try:
-                self.checkpointer.wait()
-            except Exception:                              # noqa: BLE001
-                self.ckpt_errors += 1
-                reg.counter("resilience.train.ckpt_failures").inc()
-                log.exception("final checkpoint write failed")
+            self._wait_writes()
         if self.sink:
             self.sink.write_snapshot()
         return {"steps": step - self.start_step,

@@ -1113,3 +1113,88 @@ def test_trainer_restores_checkpoint_onto_card(cuda, tmp_path):
     assert {t.device.type for _, t in named_leaves(again.params)} == {"cuda"}
     assert again.opt_state["count"].device.type == "cpu"
     assert again.run()["steps"] == 2
+
+
+# ------------------------------------------------------------ distribution
+def test_world_of_one_mesh_branch_is_bitwise_on_card(cuda):
+    """The launcher's mesh branch in an in-process NCCL world of one
+    equals the unsharded branch bit for bit on the card: losses, tier
+    histograms, every parameter."""
+    from repro_torch.dist import context as dctx
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import named_leaves
+    argv = ["--reduced", "--steps", "2", "--batch", "4", "--seq", "32",
+            "--mca", "--alpha", "0.3"]
+    runs = []
+    for mesh in (False, True):
+        args = train.parse_args(argv + (["--mesh"] if mesh else []))
+        if mesh:
+            with train.process_group("nccl", cuda):
+                m = train.make_local_mesh(1, 1, device=cuda)
+                tr = train.build(args, cuda, mesh=m)
+                with dctx.use_mesh(m):
+                    out = tr.run()
+        else:
+            tr = train.build(args, cuda)
+            out = tr.run()
+        runs.append((out, tr.params))
+    (a, pa), (b, pb) = runs
+    assert [h["loss"] for h in a["history"]] == \
+        [h["loss"] for h in b["history"]]
+    assert [h["tier_hist"] for h in a["history"]] == \
+        [h["tier_hist"] for h in b["history"]]
+    for (name, x), (_, y) in zip(named_leaves(pa), named_leaves(pb)):
+        assert torch.equal(x, y), name
+
+
+_GLOO_CARD = """
+import sys
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+def run(rank, port):
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    from repro_torch.dist import context as dctx, sharding as shd
+    from repro_torch.launch.mesh import make_local_mesh
+    dev = torch.device("cuda", 0)
+    mesh = make_local_mesh(2, 1, device=dev)
+    h = torch.tensor([1, 2, 3], device=dev) * (rank + 1)
+    assert dctx.psum(h, mesh).tolist() == [3, 6, 9]
+    x = torch.full((4,), float(rank + 1), device=dev)
+    assert dctx.pmean_(x, mesh).tolist() == [1.5] * 4
+    full = torch.randn(6, 5, generator=torch.Generator(dev).manual_seed(0),
+                       device=dev).to(torch.bfloat16)
+    sh = shd.NamedSharding(mesh, shd.PartitionSpec("data", None))
+    got = sh.gather(sh.local_slice(full).clone())
+    assert got.device == dev and torch.equal(got, full)
+    dist.destroy_process_group()
+    print(f"OK rank {rank}", flush=True)
+
+if __name__ == "__main__":
+    mp.spawn(run, args=(int(sys.argv[1]),), nprocs=2, join=True)
+"""
+
+
+def test_two_ranks_share_the_card_over_gloo(cuda, tmp_path):
+    """Two ranks on one card over gloo (NCCL refuses that): the mesh's
+    all_reduce collectives on CUDA tensors (psum, pmean, the ZeRO-1
+    gather of a bf16 block) give the exact results."""
+    import os
+    import pathlib
+    import socket
+    import subprocess
+    import sys
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    script = tmp_path / "gloo_card.py"
+    script.write_text(_GLOO_CARD)
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, str(script), str(port)],
+                         env=dict(os.environ, PYTHONPATH=str(root / "src")),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert sorted(out.stdout.split()) == sorted(
+        "OK rank 0 OK rank 1".split())

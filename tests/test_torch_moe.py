@@ -132,14 +132,14 @@ def test_moe_ffn_grads_match():
 
 
 def test_moe_ffn_refuses_across_ranks(monkeypatch):
-    """Shard-local dispatch under a mesh is not ported: inside a process
-    group of several ranks moe_ffn raises instead of routing locally."""
-    _, _, tcfg, tp, x = _moe_pair((1, 8, 32))
-    dist = torch.distributed
-    monkeypatch.setattr(dist, "is_available", lambda: True)
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 4)
-    with pytest.raises(NotImplementedError, match="distribution slice"):
+    """Shard-local dispatch runs on data-parallel meshes only: under a
+    mesh whose "model" axis is larger than 1 (tensor parallelism, not
+    ported) moe_ffn raises, naming ROADMAP.md."""
+    from repro_torch.dist import context as dctx
+    _, _, tcfg, tp, x = _moe_pair((2, 8, 32))
+    mesh = dctx.Mesh((1, 4), ("data", "model"))
+    with dctx.use_mesh(mesh), pytest.raises(NotImplementedError,
+                                            match="ROADMAP.md"):
         ffn.moe_ffn(tp, tcfg, _t(x))
 
 

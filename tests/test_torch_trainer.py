@@ -169,8 +169,19 @@ def test_restore_lands_on_like_dtype_and_refuses_shardings(tmp_path):
     out = ckpt.restore(str(tmp_path), 1, like)
     assert out["a"].dtype == torch.float64 and out["a"].device == like[
         "a"].device
-    with pytest.raises(NotImplementedError, match="Slice F"):
-        ckpt.restore(str(tmp_path), 1, like, shardings=object())
+    # restore(shardings=) for a world of one: every leaf whole, the same
+    # bits as a restore without placements
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh(1, 1, device="cpu")
+    sh = shd.zero1_shardings(mesh, shd.param_shardings(mesh, like), like)
+    placed = ckpt.restore(str(tmp_path), 1, like, shardings=sh)
+    for path in (("a",), ("b", "c")):
+        x, y = out, placed
+        for k in path:
+            x, y = x[k], y[k]
+        assert x.dtype == y.dtype and x.device == y.device
+        assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
 
 
 def test_latest_and_gc(tmp_path):
