@@ -227,8 +227,29 @@ Phases, each of which must pass:
              sum of the ranks' dequantized payloads, bitwise.  The new
              mca_matmul_fixed shapes are held against the plain version
              as in phase 13.
+15. tp — tensor parallelism and FSDP, two ranks on the card over gloo
+             (``--dist-part tp-serve|tp-train``): (a) starcoder2-3b at
+             full width, MCA as in phase 14 (b), on the (1, 2) mesh:
+             ``make_prefill_step`` of phase 14 (b)'s 8 prompts (its two
+             ranks' rows are this mesh's two MCA chunks), each rank half
+             the heads and one KV head: mca_matmul_fixed 360 launches a
+             rank, no fallback, layer 0's tier_hist equal to phase 14
+             (b)'s and every routing's difference printed, 8 decode
+             steps (240 layer writes a rank), MCA off in f32 with TF32
+             off against a world of one within 1e-4 of max |logit|,
+             peak a rank; (b) olmoe-1b-7b at full width on (1, 2), 4 x
+             256: the sequence split into pieces of 512 tokens with that
+             capacity, 128 MCA launches a rank; (c) phase 14 (c)'s
+             4-layer model on (2, 1), 2 steps with FSDP and 2 ZeRO-1:
+             losses, grad norms and every parameter bitwise equal, and
+             FSDP's peak a rank below ZeRO-1's; (d) that model in f32,
+             2 steps on (1, 2) against (2, 1) ZeRO-1 with MCA on v_proj
+             and against a world of one with MCA off, losses and grad
+             norms within 1e-5 relative.  The new mca_matmul_fixed
+             shapes are held as in phase 13; phases 3 and 7 hold and
+             time them and the one-head layer write.
 
-Phase 10 runs between phases 5b and 7; phase 14 last.  Builds four
+Phase 10 runs between phases 5b and 7; phases 14 and 15 last.  Builds four
 sources (one
 ``nvcc`` each, in parallel).  Ends with a
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
@@ -277,6 +298,13 @@ ENCDEC_VLM_MCA_CASES = [(128, d, f, r) for d, f in ((768, 768), (896, 128),
     for m, r in ((2048, 1), (1024, 2), (768, 4))]
 ENCDEC_VLM_MCA_TIMED = [(128, 768, 768, 4), (128, 896, 128, 4),
                         (128, 896, 896, 4)]
+# phase 15's shapes: starcoder2-3b on a model axis of 2, v_proj on a
+# rank's 128 output columns (one KV head) and o_proj on its 1,536 input
+# columns (12 of the 24 blocks); its layer write of one KV head of 128
+TP_MCA_CASES = [(128, 3072, 128, r) for r in (1, 2, 4)] + [
+    (128, 1536, 3072, r) for r in (1, 2, 4)]
+TP_MCA_TIMED = [(128, 3072, 128, 4), (128, 1536, 3072, 4)]
+TP_KV = (272, (1, 128))
 # (m, R) of every sampled tier of the serve path: a prefill bucket of n
 # tokens (16..256) fills the 1-, 2- and 4-block tiers up to n, n/2, 3n/8
 SERVE_MR = [(6, 4), (8, 2), (12, 4), (16, 1), (16, 2), (24, 4), (32, 1),
@@ -461,7 +489,7 @@ def phase_kernels():
     from repro_torch.kernels.mca_matmul import mca_matmul_fixed
     errs = {"mca_matmul_fixed": 0.0, "kv_slot_update": 0.0}
     cases = [(c, "sampled") for c in MCA_CASES + FAMILY_MCA_CASES
-             + HYBRID_MCA_CASES + ENCDEC_VLM_MCA_CASES] + [
+             + HYBRID_MCA_CASES + ENCDEC_VLM_MCA_CASES + TP_MCA_CASES] + [
         ((128, 3072, 3072, 24), "exact")] + [
         (c, "telemetry") for c in TEL_MCA_CASES]
     for (m, d, f, r), mode in cases:
@@ -611,7 +639,9 @@ def _check_family_layer_writes(g):
              ("MLA ckv [4,512,256], kr [4,512,32], no slot_pos", KV_STACK[2],
               MLA_TAILS[0], MLA_TAILS[1], False)] + [
         (f"{arch} K, V [4,{slots},{tail[0]},{tail[1]}] + slot_pos", slots,
-         tail, None, True) for arch, slots, tail in ENCDEC_VLM_KV]
+         tail, None, True) for arch, slots, tail in ENCDEC_VLM_KV] + [
+        ("starcoder2-3b TP 2, one KV head: K, V [4,272,1,128] + slot_pos",
+         TP_KV[0], TP_KV[1], None, True)]
     for what, s, tail, v_tail, with_spos in cases:
         for host_int in (False, True):
             k, v, kn, vn, spos, t = _layer_inputs(g, s=s, tail=tail,
@@ -1818,6 +1848,11 @@ def phase_numbers():
     for i, (arch, slots, tail) in enumerate(ENCDEC_VLM_KV):
         out["families"][f"kv_slot_update_layer {arch}"] = _numbers_gqa_write(
             arch, slots, tail, window=0, seed=20 + i)
+    for case in TP_MCA_TIMED:
+        out["families"][f"mca_matmul_fixed {case}"] = _numbers_fixed(
+            case, plain_too=True)
+    out["families"]["kv_slot_update_layer TP"] = _numbers_gqa_write(
+        "starcoder2-3b TP 2 (one KV head)", *TP_KV, window=0, seed=30)
     shapes = list(MCA_CASES)
     for m, r in SERVE_MR:
         for f in (256, 3072):
@@ -3575,6 +3610,11 @@ def _dist_part_c(out):
         "mca_launches": ops.launch_counts()["mca_matmul_fixed"],
         "want_mca": _expected_mca(cfg, [n_local])[0],
         "counters": counters, "s": time.perf_counter() - t0}
+    # the spies' records hold the expert weights: drop them, or the
+    # ZeRO-1 part's peak counts olmoe's 13.8 GB
+    local.clear()
+    reduced.clear()
+    caps.clear()
     if rank == 0:
         res["path_shapes_err"] = phase_path_shapes(shapes.seen)
     del model, params
@@ -3590,7 +3630,7 @@ def _dist_part_c(out):
     opt = adamw.AdamWConfig(lr=3e-4, schedule=adamw.cosine_schedule(1, 2))
     b0 = {k: torch.empty(v.shape, dtype=torch.int32, device="meta")
           for k, v in data.batch(0).items()}
-    step = jit_train_step(mesh, model, opt, b0, donate=False)
+    step = jit_train_step(mesh, model, opt, b0, donate=False, fsdp=False)
     params = model.init(0)
     moment_sh = step.in_shardings[1]["m"]
     state = adamw.init_state(params, moment_sh)
@@ -3642,7 +3682,8 @@ def dist_part_main() -> int:
     part = sys.argv[sys.argv.index("--dist-part") + 1]
     out = pathlib.Path(sys.argv[sys.argv.index("--out") + 1])
     rank = int(os.environ["RANK"])
-    res = {"a": _dist_part_a, "b": _dist_part_b, "c": _dist_part_c}[part](
+    res = {"a": _dist_part_a, "b": _dist_part_b, "c": _dist_part_c,
+           "tp-serve": _tp_part_serve, "tp-train": _tp_part_train}[part](
         out)
     (out / f"rank{rank}.json").write_text(json.dumps(res))
     import torch.distributed as dist
@@ -3781,6 +3822,7 @@ def phase_dist():
     logits_err = _dist_check_b(b)
     c = _torchrun(2, "c", 300)
     c_nums = _dist_check_c(c)
+    PHASE14.update(b=b, c=c)
     launches = {
         "mca_matmul_fixed": sum(r["mca_launches"] for r in b)
         + sum(r["moe"]["mca_launches"] for r in c),
@@ -3794,6 +3836,425 @@ def phase_dist():
         f"{launches}")
     shutil.rmtree(DIST_DIR, ignore_errors=True)
     return launches, err, nums
+
+
+# ------------------------------------------------------------ phase 15
+TP_TRAIN_ROWS = (4, 128)         # (d): f32 steps, 2 chunks of 4 x 128 / 2
+PHASE14 = {}                     # phase 14's (2, 1) results, for phase 15
+
+
+def _tp_setup(n_data, n_model):
+    """Two ranks on the one card over gloo, the ("data", "model") mesh of
+    (n_data, n_model); each rank's number and device."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    if not dist.is_initialized():
+        dist.init_process_group("gloo")
+    return dist.get_rank(), make_local_mesh(n_data, n_model, device=dev), dev
+
+
+def _shard_on_card(model, mesh, dev, batch_rows):
+    """(this rank's params under ``serve_step_shardings``, the cache
+    placements, the abstract cache): the full weights drawn from seed 0
+    and dropped once the rank's shards are taken."""
+    import gc
+    import torch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.train.step import serve_step_shardings
+    a_cache = model.init_cache(batch_rows, DIST_MAX_LEN)
+    full = model.init(0)
+    p_sh, c_sh, _ = serve_step_shardings(
+        mesh, model, a_cache, torch.empty((batch_rows, 1), device="meta"))
+    params = shd.shard_params(full, p_sh)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return params, c_sh, a_cache
+
+
+def _tp_serve_a(out, rank, mesh, dev):
+    """(a) starcoder2-3b at full width on (1, 2): the MCA kernel on each
+    rank's head shard through make_prefill_step, 8 decode steps through
+    each rank's KV heads, then the MCA-off f32 forward."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.core import policy
+    from repro_torch.core.policy import MCAConfig
+    from repro_torch.dist import context as dctx
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.train.step import make_prefill_step
+    mca = MCAConfig(enabled=True, alpha=0.2, block=128, use_kernel=True,
+                    sites=("v_proj", "o_proj"))
+    cfg = get_config("starcoder2-3b", mca=mca)
+    model = build_model(cfg, device=dev)
+    b = DIST_PROMPTS[0]
+    params, c_sh, a_cache = _shard_on_card(model, mesh, dev, b)
+    # phase 14 (b)'s prompts: its two ranks' rows are this mesh's chunks
+    prompts = np.random.default_rng(14).integers(
+        1, cfg.vocab_size, DIST_PROMPTS).astype(np.int32)
+    batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+    calls = []
+    undo = _spy(policy, "_tiered_maybe_sharded", calls)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad(), obs.scoped() as reg, _MCAShapes() as shapes, \
+            dctx.use_mesh(mesh):
+        cache, logits = make_prefill_step(model, DIST_MAX_LEN)(params,
+                                                               batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        counters = _kernel_counters(reg.snapshot())
+    undo()
+    chunk = b // 2 * DIST_PROMPTS[1]
+    res = {"rank": rank, "prefill_s": prefill_s, "calls": len(calls),
+           "hists": [h.tolist() for _, _, (_, h, _) in calls],
+           "mca_launches": launches["mca_matmul_fixed"],
+           "want_mca": 2 * _expected_mca(cfg, [chunk])[0],
+           "counters": counters, "shapes": sorted(shapes.seen),
+           "cache_ok": all(tuple(cache["layers"][k].shape)
+                           == c_sh["layers"][k].local_shape(
+                               a_cache["layers"][k].shape)
+                           for k in ("k", "v")),
+           "kv_heads": int(cache["layers"]["k"].shape[-2])}
+    tok = torch.argmax(logits[..., :cfg.vocab_size], -1).to(torch.int32)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad(), dctx.use_mesh(mesh):
+        _, _, bad, _ = _decode_greedy(model, params, tok, cache,
+                                      DIST_PROMPTS[1], DIST_DECODE)
+        torch.cuda.synchronize()
+    res["decode_s"] = time.perf_counter() - t0
+    res["kv_launches"] = ops.launch_counts()["kv_slot_update"]
+    res["decode_finite"] = not bool(bad)
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if rank == 0:
+        res["path_shapes_err"] = phase_path_shapes(shapes.seen)
+    del cache, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # MCA off in f32 with TF32 off: the ranks' forward against one rank's
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = get_config("starcoder2-3b", dtype="float32")
+    model = build_model(cfg32, device=dev)
+    params, _, _ = _shard_on_card(model, mesh, dev, b)
+    with torch.no_grad():
+        with dctx.use_mesh(mesh):
+            _, lg = make_prefill_step(model, DIST_MAX_LEN,
+                                      with_mca=False)(params, batch)
+        del params
+        np.save(out / f"f32_{rank}.npy", lg.cpu().numpy())
+        if rank == 0:
+            full = model.init(0)
+            _, lg = make_prefill_step(model, DIST_MAX_LEN,
+                                      with_mca=False)(full, batch)
+            np.save(out / "f32_world1.npy", lg.cpu().numpy())
+            del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _tp_serve_b(out, rank, mesh, dev):
+    """(b) olmoe-1b-7b at full width on (1, 2): a prefill of 4 x 256
+    whose sequence splits over "model", each piece dispatched with its
+    own capacity; the MCA kernel on v_proj and o_proj."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import MCAConfig
+    from repro_torch.dist import context as dctx
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, ffn
+    from repro_torch.train.step import make_prefill_step
+    mca = MCAConfig(enabled=True, alpha=0.2, block=128, use_kernel=True,
+                    sites=("v_proj", "o_proj"))
+    cfg = get_config("olmoe-1b-7b", mca=mca)
+    model = build_model(cfg, device=dev)
+    rows = DIST_PROMPTS[0] // 2
+    params, _, _ = _shard_on_card(model, mesh, dev, rows)
+    prompts = np.random.default_rng(15).integers(
+        1, cfg.vocab_size, (rows, DIST_PROMPTS[1])).astype(np.int32)
+    local, reduced_, caps = [], [], []
+    undo = [_spy(ffn, "_moe_local", local), _spy(ffn, "moe_ffn", reduced_),
+            _spy(ffn, "moe_capacity", caps)]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad(), dctx.use_mesh(mesh):
+        make_prefill_step(model, DIST_MAX_LEN)(
+            params, {"tokens": torch.as_tensor(prompts, device=dev)})
+        torch.cuda.synchronize()
+    for u in undo:
+        u()
+    piece = rows * DIST_PROMPTS[1] // 2
+    res = {"layers": cfg.n_layers, "piece": piece,
+           "tokens": sorted({int(a[2].shape[0] * a[2].shape[1])
+                             for a, _, _ in local}),
+           "caps": sorted({(a[1], r) for a, _, r in caps}),
+           "want_cap": ffn.moe_capacity(cfg, piece),
+           "aux": [float(r[1]) for _, _, r in reduced_],
+           "stats": [{k: float(v) for k, v in r[2].items()}
+                     for _, _, r in reduced_],
+           "mca_launches": ops.launch_counts()["mca_matmul_fixed"],
+           "want_mca": 2 * _expected_mca(cfg, [piece])[0],
+           "s": time.perf_counter() - t0}
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _tp_part_serve(out):
+    """Phase 15 (a) and (b), two ranks on (1, 2)."""
+    rank, mesh, dev = _tp_setup(1, 2)
+    res = {"rank": rank, "a": _tp_serve_a(out, rank, mesh, dev)}
+    res["b"] = _tp_serve_b(out, rank, mesh, dev)
+    return res
+
+
+def _train_steps_on(mesh, model, data, n, fsdp, opt, mca_off=True):
+    """``n`` steps of ``jit_train_step`` over ``mesh`` from seed-0 weights:
+    (losses, grad norms, digests of the gathered params each step, this
+    rank's peak GB, the numel it holds)."""
+    import gc
+    import torch
+    from repro_torch.dist import context as dctx
+    from repro_torch.dist import sharding as shd
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import jit_train_step
+    dev = mesh.device
+    b0 = {k: torch.empty(v.shape, dtype=torch.int32, device="meta")
+          for k, v in data.batch(0).items()}
+    step = jit_train_step(mesh, model, opt, b0, donate=False, fsdp=fsdp)
+    p_sh = step.in_shardings[0]
+    full = model.init(0)
+    params = shd.shard_params(full, p_sh)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = adamw.init_state(params, step.in_shardings[1]["m"], p_sh)
+    held = sum(int(t.numel()) for t in adamw.leaves(params))
+    losses, gnorms, digests, peak, step_s = [], [], [], 0.0, []
+    with dctx.use_mesh(mesh):
+        for i in range(n):
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in data.batch(i).items()}
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["total_loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            step_s.append(time.perf_counter() - t0)
+            # the step's own peak, before the digests gather the params
+            peak = max(peak, torch.cuda.max_memory_allocated() / 1e9)
+            digests.append(_digests(shd.gather_params(params, p_sh)))
+    out = {"losses": losses, "gnorms": gnorms, "digests": digests,
+           "peak_mem_gb": peak, "held": held, "step_s": step_s,
+           "s": sum(step_s)}
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_part_train(out):
+    """Phase 15 (c) FSDP against ZeRO-1 on (2, 1), bf16; (d) TP training
+    on (1, 2) in f32 against (2, 1) ZeRO-1 (MCA on v_proj, the plain
+    sampled product) and, MCA off, against a world of one."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import MCAConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+    rank, dp_mesh, dev = _tp_setup(2, 1)
+    _, tp_mesh, _ = _tp_setup(1, 2)
+    opt = adamw.AdamWConfig(lr=3e-4, schedule=adamw.cosine_schedule(1, 2))
+    res = {"rank": rank}
+    cfg = dataclasses.replace(get_config("starcoder2-3b"),
+                              n_layers=DIST_TRAIN_LAYERS)
+    model = build_model(cfg, device=dev)
+    data = SyntheticLM(cfg.vocab_size, DIST_PROMPTS[1], DIST_PROMPTS[0],
+                       seed=0)
+    res["c"] = {tag: _train_steps_on(dp_mesh, model, data, 2, fsdp, opt)
+                for tag, fsdp in (("zero1", False), ("fsdp", True))}
+    # (d) f32, TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data = SyntheticLM(cfg.vocab_size, TP_TRAIN_ROWS[1], TP_TRAIN_ROWS[0],
+                       seed=1)
+    mca = MCAConfig(enabled=True, alpha=0.2, block=128, sites=("v_proj",))
+    d = {}
+    for tag, mca_cfg in (("mca", mca), ("off", MCAConfig())):
+        m32 = build_model(dataclasses.replace(cfg, dtype="float32",
+                                              mca=mca_cfg), device=dev)
+        d["tp_" + tag] = _train_steps_on(tp_mesh, m32, data, 2, True, opt)
+        if tag == "mca":
+            d["dp_mca"] = _train_steps_on(dp_mesh, m32, data, 2, False, opt)
+        elif rank == 0:              # a world of one, the same steps
+            flat = make_train_step(m32, opt, with_mca=False)
+            params = m32.init(0)
+            state = adamw.init_state(params)
+            d["world1"] = {"losses": [], "gnorms": []}
+            for i in range(2):
+                batch = {k: torch.as_tensor(v, device=dev)
+                         for k, v in data.batch(i).items()}
+                params, state, m = flat(params, state, batch)
+                d["world1"]["losses"].append(float(m["total_loss"]))
+                d["world1"]["gnorms"].append(float(m["grad_norm"]))
+            del params, state
+    for v in d.values():
+        v.pop("digests", None)
+    res["d"] = d
+    return res
+
+
+def _rel(a, b):
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def _tp_check_serve(ranks):
+    """Phase 15 (a), (b): the checks and their lines."""
+    import numpy as np
+    b14 = PHASE14["b"][0]["summed_hist"]
+    worst = 0
+    for r in ranks:
+        a = r["a"]
+        fallback = {k: v for k, v in a["counters"].items()
+                    if k.endswith("fallback_calls") and v}
+        diffs = [int(np.abs(np.array(h) - np.array(w)).sum())
+                 for h, w in zip(a["hists"], b14)]
+        worst = max(worst, max(diffs))
+        log(f"[tp] (a) rank {r['rank']} starcoder2-3b (1, 2): prefill of "
+            f"8 x 256 tokens in {a['prefill_s']:.3f} s, {a['calls']} "
+            f"routings, mca_matmul_fixed {a['mca_launches']} launches "
+            f"(predicted {a['want_mca']}: two chunks of 4 x 256 a rank), "
+            f"fallbacks {fallback or 0}; the cache holds {a['kv_heads']} "
+            f"KV head a rank (cache_shardings' block: {a['cache_ok']}); "
+            f"{DIST_DECODE} decode steps in {a['decode_s']:.3f} s: "
+            f"kv_slot_update {a['kv_launches']} launches (predicted "
+            f"{30 * DIST_DECODE}), logits finite {a['decode_finite']}; "
+            f"peak {a['peak_mem_gb']:.2f} GB")
+        log(f"[tp] (a) rank {r['rank']}: layer 0's tier_hist (v_proj, "
+            f"o_proj) {a['hists'][:2]} / phase 14 (b)'s (2, 1) {b14[:2]}; "
+            f"every routing's summed |difference| {diffs}")
+        if (a["mca_launches"] != a["want_mca"] or fallback
+                or a["calls"] != 60 or a["hists"][:2] != b14[:2]
+                or a["kv_launches"] != 30 * DIST_DECODE
+                or not a["decode_finite"] or not a["cache_ok"]
+                or a["kv_heads"] != 1):
+            raise AssertionError(f"phase 15 (a) rank {r['rank']} failed")
+    out = DIST_DIR / "tp-serve"
+    world1 = np.load(out / "f32_world1.npy")
+    errs = [float(np.abs(np.load(out / f"f32_{r}.npy") - world1).max()
+                  / np.abs(world1).max()) for r in (0, 1)]
+    log(f"[tp] (a) MCA off, f32, TF32 off: each rank's logits against a "
+        f"world of one, max|diff|/max|logit| {errs} (limit 1e-4)")
+    if not max(errs) <= 1e-4:
+        raise AssertionError("phase 15 (a): TP logits differ from one rank")
+    c14 = PHASE14["c"][0]["moe"]
+    for r in ranks:
+        m = r["b"]
+        caps_ok = m["caps"][:1] == [[m["piece"], m["want_cap"]]]
+        log(f"[tp] (b) rank {r['rank']} olmoe-1b-7b (1, 2), 4 x 256: "
+            f"{len(m['aux'])} MoE layers, pieces of {m['tokens']} tokens, "
+            f"(tokens, capacity) {m['caps']} (moe_capacity of "
+            f"{m['piece']}: {m['want_cap']}; phase 14 (c)'s (2, 1): "
+            f"{c14['want_cap']} for {c14['n_local']}), mca_matmul_fixed "
+            f"{m['mca_launches']} (predicted {m['want_mca']}); layer 0 aux "
+            f"{m['aux'][0]:.6f} (phase 14 (c) {c14['aux'][0]:.6f}), stats "
+            f"{m['stats'][0]} (phase 14 (c) {c14['stats'][0]}); "
+            f"{m['s']:.1f} s")
+        if (not caps_ok or m["tokens"] != [m["piece"]]
+                or len(m["aux"]) != m["layers"]
+                or m["mca_launches"] != m["want_mca"]):
+            raise AssertionError(f"phase 15 (b) rank {r['rank']} failed")
+    if ranks[0]["b"]["aux"] != ranks[1]["b"]["aux"]:
+        raise AssertionError("phase 15 (b): the model ranks' aux differ")
+    return {"a_logits_f32_err": max(errs), "a_hist_worst_diff": worst}
+
+
+def _tp_check_train(ranks):
+    """Phase 15 (c), (d): the checks and their lines."""
+    z, f = ranks[0]["c"]["zero1"], ranks[0]["c"]["fsdp"]
+    same = all(r["c"]["zero1"]["losses"] == r["c"]["fsdp"]["losses"]
+               and r["c"]["zero1"]["gnorms"] == r["c"]["fsdp"]["gnorms"]
+               and r["c"]["zero1"]["digests"] == r["c"]["fsdp"]["digests"]
+               for r in ranks)
+    ranks_same = ranks[0]["c"]["fsdp"]["digests"] == \
+        ranks[1]["c"]["fsdp"]["digests"]
+    log(f"[tp] (c) starcoder2-3b ({DIST_TRAIN_LAYERS} layers) on (2, 1), "
+        f"bf16, 8 x 256: ZeRO-1 losses {z['losses']} grad norms "
+        f"{z['gnorms']}; FSDP losses {f['losses']} grad norms "
+        f"{f['gnorms']}; every param bitwise equal after each step: {same}"
+        f", across ranks: {ranks_same}; a rank holds {z['held']} / "
+        f"{f['held']} param elements; peak {z['peak_mem_gb']:.2f} / "
+        f"{f['peak_mem_gb']:.2f} GB a rank (ZeRO-1 / FSDP); "
+        f"{z['s']:.1f} / {f['s']:.1f} s")
+    if not (same and ranks_same and f["peak_mem_gb"] < z["peak_mem_gb"]
+            and 2 * f["held"] <= z["held"] + 2):
+        raise AssertionError("phase 15 (c) failed")
+    d = ranks[0]["d"]
+    rel_mca = max(_rel(d["tp_mca"]["losses"], d["dp_mca"]["losses"]),
+                  _rel(d["tp_mca"]["gnorms"], d["dp_mca"]["gnorms"]))
+    rel_off = max(_rel(d["tp_off"]["losses"], d["world1"]["losses"]),
+                  _rel(d["tp_off"]["gnorms"], d["world1"]["gnorms"]))
+    log(f"[tp] (d) f32, TF32 off, 4 x 128: MCA on v_proj, (1, 2) losses "
+        f"{d['tp_mca']['losses']} grad norms {d['tp_mca']['gnorms']} vs "
+        f"(2, 1) ZeRO-1 {d['dp_mca']['losses']} {d['dp_mca']['gnorms']}: "
+        f"max rel {rel_mca:.2e}; MCA off, (1, 2) {d['tp_off']['losses']} "
+        f"{d['tp_off']['gnorms']} vs a world of one "
+        f"{d['world1']['losses']} {d['world1']['gnorms']}: max rel "
+        f"{rel_off:.2e} (limit 1e-5); peak (1, 2) "
+        f"{d['tp_off']['peak_mem_gb']:.2f} GB a rank")
+    if not (rel_mca <= 1e-5 and rel_off <= 1e-5):
+        raise AssertionError("phase 15 (d) failed")
+    return {"c_zero1_peak_gb": z["peak_mem_gb"],
+            "c_fsdp_peak_gb": f["peak_mem_gb"],
+            "c_zero1_s": z["s"], "c_fsdp_s": f["s"],
+            "d_rel_mca": rel_mca, "d_rel_off": rel_off}
+
+
+def phase_tp():
+    """Phase 15: tensor parallelism and FSDP in subprocess ranks over gloo
+    on the one card: (a) starcoder2-3b served on (1, 2), (b) olmoe-1b-7b's
+    MoE pieces on (1, 2), (c) FSDP against ZeRO-1 on (2, 1), (d) TP
+    training on (1, 2).  Returns (main-path launches, the max error of
+    the shapes held, numbers)."""
+    import gc
+    import shutil
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serve = _torchrun(2, "tp-serve", 420)
+    nums = _tp_check_serve(serve)
+    train = _torchrun(2, "tp-train", 420)
+    nums.update(_tp_check_train(train))
+    launches = {
+        "mca_matmul_fixed": sum(r["a"]["mca_launches"]
+                                + r["b"]["mca_launches"] for r in serve),
+        "kv_slot_update": sum(r["a"]["kv_launches"] for r in serve)}
+    nums["a_prefill_s"] = [r["a"]["prefill_s"] for r in serve]
+    nums["a_decode_s"] = [r["a"]["decode_s"] for r in serve]
+    nums["a_peak_gb"] = [r["a"]["peak_mem_gb"] for r in serve]
+    nums["phase_s"] = time.perf_counter() - t0
+    log(f"[tp] phase 15 in {nums['phase_s']:.1f}s; main-path launches "
+        f"{launches}")
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    return launches, serve[0]["a"]["path_shapes_err"], nums
 
 
 def main() -> int:
@@ -3825,23 +4286,29 @@ def main() -> int:
     errs["mca_matmul_fixed"] = max(errs["mca_matmul_fixed"],
                                    phase_path_shapes(path_shapes.seen))
     dist_launches, dist_err, dist_nums = phase_dist()
-    errs["mca_matmul_fixed"] = max(errs["mca_matmul_fixed"], dist_err)
+    tp_launches, tp_err, tp_nums = phase_tp()
+    errs["mca_matmul_fixed"] = max(errs["mca_matmul_fixed"], dist_err,
+                                   tp_err)
     for k in SERVE_KERNELS:
         launches[k] += (fam_launches[k] + ssm_launches[k] + ev_launches[k]
-                        + dist_launches[k])
+                        + dist_launches[k] + tp_launches[k])
         per[k] += (f"; phase 9: {fam_launches[k]}; phase 11: "
                    f"{ssm_launches[k]}; phase 12: {ev_launches[k]}; "
-                   f"phase 14: {dist_launches[k]}")
+                   f"phase 14: {dist_launches[k]}; phase 15: "
+                   f"{tp_launches[k]}")
     per["mca_matmul_fixed"] += (" (per prefill of <= 256 tokens: olmoe "
                                 "16 x 2 x 3 = 96, minicpm3 62 x (1 + 3) "
                                 "= 248; recurrentgemma-9b: 12 attention "
                                 "layers x the routing's tiers; mamba2: 0; "
                                 "whisper-small 12 x 3 x 3 = 108, none on "
                                 "the encoder; internvl2-1b 24 x 2 x 3 = "
-                                "144)")
+                                "144; phase 15, two chunks a rank: "
+                                "starcoder2-3b 2 x 180 = 360 a rank, "
+                                "olmoe-1b-7b 2 x 64 = 128 a rank)")
     per["kv_slot_update"] += (" (per decode step: olmoe 16, minicpm3 62, "
                               "recurrentgemma-9b 12, mamba2-2.7b 0, "
-                              "whisper-small 12, internvl2-1b 24)")
+                              "whisper-small 12, internvl2-1b 24; phase "
+                              "15: 30 a rank, one KV head each)")
     meta = {
         "mca_matmul_fixed": ("src/repro_torch/csrc/mca_matmul.cu",
                              "src/repro/kernels/mca_matmul.py:84"),
@@ -3868,11 +4335,12 @@ def main() -> int:
         f"{fam_nums['phase_s']:.1f}s, phase 10: "
         f"{devtel_nums['phase_s']:.1f}s, phase 11: "
         f"{ssm_nums['phase_s']:.1f}s, phase 12: {ev_nums['phase_s']:.1f}s, "
-        f"phase 14: {dist_nums['phase_s']:.1f}s)")
+        f"phase 14: {dist_nums['phase_s']:.1f}s, phase 15: "
+        f"{tp_nums['phase_s']:.1f}s)")
     log(json.dumps({"serve": serve_nums, "train": train_nums,
                     "families": fam_nums, "devtel": devtel_nums,
                     "ssm_hybrid": ssm_nums, "encdec_vlm": ev_nums,
-                    "dist": dist_nums,
+                    "dist": dist_nums, "tp": tp_nums,
                     "family_kernels": nums["families"], "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(smi)

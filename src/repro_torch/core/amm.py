@@ -68,8 +68,15 @@ def block_probs(w: torch.Tensor, block: int = DEFAULT_BLOCK,
     positive (uniform when every block is zero).  Returns [K] summing to 1
     ([*L, K], each row summing to 1, for ``lead`` leading weight dims).
     """
+    return probs_from_sq_norms(block_sq_norms(w, block, lead), floor)
+
+
+def probs_from_sq_norms(n2: torch.Tensor, floor: float = 1e-12
+                        ) -> torch.Tensor:
+    """:func:`block_probs` from the block norms ``n2`` ([*L, K]); under
+    tensor parallelism the norms are first summed or gathered over the
+    ranks that each hold a part of the weight."""
     from repro_torch import resilience
-    n2 = block_sq_norms(w, block, lead)
     n2 = resilience.inject("amm.probs", n2)
     n2 = torch.where(torch.isfinite(n2), n2, torch.zeros_like(n2))
     n2 = torch.clamp(n2, min=floor)

@@ -50,7 +50,9 @@ def tiered_mca_matmul(key: int, x: torch.Tensor, w: torch.Tensor,
                       ladder: Sequence[int], caps: Sequence[int],
                       block: int = DEFAULT_BLOCK,
                       probs: Optional[torch.Tensor] = None,
-                      use_kernel: bool = False) -> torch.Tensor:
+                      use_kernel: bool = False,
+                      local_blocks: Optional[Sequence[int]] = None
+                      ) -> torch.Tensor:
     """Dispatch tokens to tiers and run one sampled matmul per tier.
 
     x: [n, d]; w: [d, f]; tier/importance: [n]; ladder ascending, last
@@ -59,10 +61,19 @@ def tiered_mca_matmul(key: int, x: torch.Tensor, w: torch.Tensor,
     ``kernels.mca_matmul`` under the reference's condition
     (``cap % min(128, cap) == 0 and block >= 128``); the exact tier stays
     a dense ``torch.matmul``.  Tier t draws from ``fold_in(key, t)``.
+
+    ``local_blocks = (first, count)``: row-parallel tensor parallelism.
+    ``x`` and ``w`` hold only the input blocks ``first .. first + count``
+    of the K blocks that ``probs`` ([K], the whole weight's) spans; the
+    samples are drawn over all K, as the unsplit product draws them, and
+    a sample outside this rank's blocks is remapped to its first block
+    with weight 0, so the result is this rank's part of the estimate
+    (the ranks' parts sum to it).
     """
     n, d = x.shape
     f = w.shape[-1]
-    k = num_blocks(d, block)
+    k = (num_blocks(d, block) if local_blocks is None
+         else probs.shape[-1])
     n_tiers = len(ladder)
     if probs is None:
         probs = block_probs(w, block)
@@ -82,6 +93,11 @@ def tiered_mca_matmul(key: int, x: torch.Tensor, w: torch.Tensor,
         else:
             idx, inv_rp = draw_block_samples(
                 generator(fold_in(key, t), x.device), probs, int(r_t))
+            if local_blocks is not None:
+                first, count = local_blocks
+                mine = (idx >= first) & (idx < first + count)
+                idx = torch.where(mine, idx - first, 0).to(torch.int32)
+                inv_rp = torch.where(mine, inv_rp, 0.0)
             if use_kernel and cap % min(128, cap) == 0 and block >= 128:
                 from repro_torch.kernels import mca_matmul as kernel_mm
                 out = kernel_mm(buf[:cap], w, idx, inv_rp, block=block)

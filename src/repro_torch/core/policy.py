@@ -22,6 +22,20 @@ the tier histogram is summed over the ranks.  A rank that holds its rows
 of the batch holds exactly chunk ``shard_index``; a rank that holds the
 whole (replicated) batch routes all the chunks itself.  FLOPs and token
 counts are the global batch's.
+
+On a ``"model"`` axis larger than 1 (tensor parallelism) the routing is
+the same: a rank routes every chunk its data shard holds (the chunks of
+its ``"model"`` row: ``n_model`` of them, chunk i drawn from
+``fold_in(key, i)`` as the data-parallel rank i would draw it), so the
+model ranks route the same chunks and ``tier_hist`` sums over the data
+axes only.  No weight is gathered.  ``tp="col"``: ``w`` holds this
+rank's output columns; the block probabilities sum the ranks' block
+norms, and the sampled product runs on the local columns.  ``tp="row"``:
+``x`` and ``w`` hold this rank's input blocks; the probabilities gather
+the ranks' block norms, samples are drawn over every block and those
+outside the rank's blocks weigh 0 (``dispatch.tiered_mca_matmul``'s
+``local_blocks``), and the caller sums the ranks' parts over
+``"model"``.
 """
 from __future__ import annotations
 
@@ -83,39 +97,49 @@ def exact_project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def mca_project(key: Optional[int], x: torch.Tensor, w: torch.Tensor,
                 importance: Optional[torch.Tensor], seq_len: int,
-                cfg: MCAConfig, site: str) -> Tuple[torch.Tensor, Stats]:
+                cfg: MCAConfig, site: str, tp: Optional[str] = None
+                ) -> Tuple[torch.Tensor, Stats]:
     """Project ``x @ w`` under the MCA policy.
 
     x: [..., n, d]; w: [d, f]; importance: [..., n] non-negative (None or
     inactive site -> exact matmul); seq_len: the ``n`` of Eq. 9; key: an
-    integer key (``amm.fold_in``), None for exact.
+    integer key (``amm.fold_in``), None for exact.  ``tp``: None, or
+    ``"col"`` / ``"row"`` when ``w`` is this rank's column- or
+    row-parallel shard on a model axis (see the module doc); under
+    ``"row"`` the result is this rank's part of the sum.
     """
     lead = x.shape[:-2]
     n, d = x.shape[-2], x.shape[-1]
     f = w.shape[-1]
+    nm = dctx.model_size() if tp is not None else 1
+    d_full = d * nm if tp == "row" else d
+    f_full = f * nm if tp == "col" else f
     flat_n = math.prod(lead) * n
     shards = dctx.row_shards()           # > 1: this rank holds its rows
-    exact_fl = amm.exact_flops(flat_n * shards, d, f)
+    exact_fl = amm.exact_flops(flat_n * shards, d_full, f_full)
 
     if not cfg.active(site) or importance is None or key is None:
         y = exact_project(x, w)
         return y, {"site": site, "exact_flops": exact_fl,
                    "mca_flops": exact_fl, "tokens": flat_n * shards}
 
-    block = cfg.block_for(d)
-    ladder = schedule.tier_ladder(d, block, cfg.n_tiers, cfg.r_min_blocks)
+    block = cfg.block_for(d_full)
+    ladder = schedule.tier_ladder(d_full, block, cfg.n_tiers,
+                                  cfg.r_min_blocks)
 
     x2 = x.reshape(flat_n, d)
     imp = importance.reshape(flat_n)
-    r_cols = schedule.r_cols_from_attention(imp, seq_len, cfg.alpha, d)
+    r_cols = schedule.r_cols_from_attention(imp, seq_len, cfg.alpha, d_full)
     r_blocks = schedule.r_blocks_from_cols(r_cols, block)
     tier = schedule.assign_tiers(r_blocks, ladder)
+    mesh = dctx.get_mesh()
 
     if cfg.mode == "per_token":
-        mesh = dctx.get_mesh()
         if shards > 1:          # the rank's own rows draw their own samples
-            dctx.require_data_parallel(mesh, "mca_project")
+            dctx.require_data_parallel(mesh, "per-token mca_project")
             key = amm.fold_in(key, dctx.shard_index(mesh))
+        elif dctx.model_size(mesh) > 1:
+            dctx.require_data_parallel(mesh, "per-token mca_project")
         y2 = dispatch.per_token_mca_matmul(key, x2, w, r_blocks, block)
         mca_fl = amm.sampled_flops(r_blocks, f, block)
         hist = local_hist = dispatch.tier_histogram(tier, len(ladder))
@@ -123,12 +147,12 @@ def mca_project(key: Optional[int], x: torch.Tensor, w: torch.Tensor,
             mca_fl = dctx.psum(torch.as_tensor(mca_fl), mesh)
             hist = dctx.psum(hist, mesh)
     else:
-        y2, hist, local_hist = _tiered_maybe_sharded(key, x2, w, tier, imp,
-                                                     ladder, cfg, block)
+        y2, hist, local_hist = _tiered_maybe_sharded(
+            key, x2, w, tier, imp, ladder, cfg, block, tp)
         # int64 on the device: the sum reaches ~2e9 at d=f=3072 and a few
         # hundred tokens, where int32 would overflow
         hist64 = hist.to(torch.int64)
-        mca_fl = sum(hist64[t] * (2 * r_t * block * f)
+        mca_fl = sum(hist64[t] * (2 * r_t * block * f_full)
                      for t, r_t in enumerate(ladder))
 
     y = y2.reshape(*lead, n, f)
@@ -139,31 +163,58 @@ def mca_project(key: Optional[int], x: torch.Tensor, w: torch.Tensor,
         local_hist)
     mean_r = torch.mean(r_blocks.float())
     if shards > 1:
-        mean_r = dctx.psum(mean_r, dctx.get_mesh()) / shards
+        mean_r = dctx.psum(mean_r, mesh, dctx.dp_axes(mesh)) / shards
     stats = {"site": site, "exact_flops": exact_fl, "mca_flops": mca_fl,
              "tokens": flat_n * shards, "tier_hist": hist,
              "mean_r_blocks": mean_r, "ladder": ladder}
     return y, stats
 
 
-def _tiered_maybe_sharded(key, x2, w, tier, imp, ladder, cfg, block):
+def _probs(w, block, tp, mesh):
+    """The block probabilities of the whole weight from this rank's
+    shard of it (see the module doc)."""
+    n2 = amm.block_sq_norms(w, block)
+    if tp is not None and dctx.model_size(mesh) > 1:
+        n2 = (dctx.psum(n2, mesh, ("model",)) if tp == "col"
+              else dctx.all_gather(n2, mesh, ("model",), 0))
+    return amm.probs_from_sq_norms(n2)
+
+
+def _tiered_maybe_sharded(key, x2, w, tier, imp, ladder, cfg, block,
+                          tp=None):
     """Tiered dispatch, shard-local under a mesh of more than one rank.
 
     Returns (y2, tier_hist over the mesh, this rank's own tier_hist).
     Each chunk i of the global flat tokens is routed with the capacities
     of its own token count and drawn from ``fold_in(key, i)``; a rank
-    holding its rows routes its one chunk and sums the histogram over the
+    holding its data shard's rows routes that shard's chunks (one, or
+    ``n_model`` on a model axis) and sums the histogram over the data
     ranks, a rank holding the whole batch routes every chunk itself."""
     n_tiers = len(ladder)
     flat_n = x2.shape[0]
     mesh = dctx.get_mesh()
     shards = dctx.row_shards()
+    nm = dctx.model_size(mesh)
+    probs = _probs(w, block, tp, mesh)
+    local_blocks = None
+    if tp == "row" and nm > 1:
+        if x2.shape[1] % block:
+            raise NotImplementedError(
+                f"row-parallel MCA needs a rank's {x2.shape[1]} input "
+                f"columns to be whole blocks of {block} (ROADMAP.md)")
+        count = x2.shape[1] // block
+        local_blocks = (dctx.model_index(mesh) * count, count)
     chunks = None
     if mesh is not None and mesh.size > 1:
-        dctx.require_data_parallel(mesh, "mca_project")
         if shards > 1:
-            chunks = [(dctx.shard_index(mesh), 0)]
-            n_local = flat_n
+            if flat_n % nm:
+                raise NotImplementedError(
+                    f"MCA routing of {flat_n} tokens a data shard over a "
+                    f"model axis of {nm}: the reference routes them "
+                    "globally, which the port does not (ROADMAP.md)")
+            n_local = flat_n // nm
+            first = dctx.axis_index(mesh, dctx.dp_axes(mesh)) * nm
+            chunks = [(first + j, j * n_local) for j in range(nm)]
         elif flat_n % mesh.size == 0:
             n_local = flat_n // mesh.size
             chunks = [(i, i * n_local) for i in range(mesh.size)]
@@ -171,8 +222,9 @@ def _tiered_maybe_sharded(key, x2, w, tier, imp, ladder, cfg, block):
         caps = _caps_for(flat_n, n_tiers, cfg.capacity_fracs)
         tier_routed = dispatch.apply_capacity(tier, imp, caps)
         y2 = dispatch.tiered_mca_matmul(key, x2, w, tier_routed, imp, ladder,
-                                        caps, block,
-                                        use_kernel=cfg.use_kernel)
+                                        caps, block, probs=probs,
+                                        use_kernel=cfg.use_kernel,
+                                        local_blocks=local_blocks)
         hist = dispatch.tier_histogram(tier_routed, n_tiers)
         return y2, hist, hist
 
@@ -183,10 +235,13 @@ def _tiered_maybe_sharded(key, x2, w, tier, imp, ladder, cfg, block):
         tier_r = dispatch.apply_capacity(tier[sl], imp[sl], caps)
         ys.append(dispatch.tiered_mca_matmul(
             amm.fold_in(key, i), x2[sl], w, tier_r, imp[sl], ladder, caps,
-            block, use_kernel=cfg.use_kernel))
+            block, probs=probs, use_kernel=cfg.use_kernel,
+            local_blocks=local_blocks))
         hist = hist + dispatch.tier_histogram(tier_r, n_tiers)
     y2 = ys[0] if len(ys) == 1 else torch.cat(ys)
-    return y2, (dctx.psum(hist, mesh) if shards > 1 else hist), hist
+    if shards > 1:
+        return y2, dctx.psum(hist, mesh, dctx.dp_axes(mesh)), hist
+    return y2, hist, hist
 
 
 def merge_stats(stats_list) -> Stats:

@@ -1,7 +1,9 @@
 """Distribution substrate (port of ``repro/dist``).
 
-``context``   the mesh value and its stack, the constraint helpers (no-ops
-              on a model axis of 1) and the collectives of a mesh.
+``context``   the mesh value and its stack, the constraint helpers
+              (placement hints) and the collectives of a mesh, with the
+              Megatron pair of differentiable ones for a ``"model"``
+              axis.
 ``sharding``  placement trees for params / optimizer / batches / caches,
               consumed by train/step.py and checkpoint restore.
 ``compress``  error-feedback int8 gradient compression.

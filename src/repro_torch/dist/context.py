@@ -8,30 +8,39 @@ a laptop.  Ranks are laid out row-major over the axes, outermost first,
 so a rank's number in the group is its linear index over the mesh
 (:func:`shard_index`, the reference's ``lin`` at ``core/policy.py:155``).
 
-Execution is data parallel: one process per rank holds whole rows of the
-global batch, weights are replicated, and the only numeric effects of a
-mesh are shard-local MCA routing and MoE dispatch and the statistics
-summed over ranks.  A ``"model"`` axis larger than 1 (Megatron tensor
-parallelism) places nothing yet: :func:`require_data_parallel` raises.
-So :func:`constrain`, :func:`constrain_heads` and
-:func:`constrain_residual` return ``x`` unchanged, which is exact on a
-model axis of 1, where the reference's versions are placement hints with
-no numeric effect.
+Execution: one process per rank.  The data axes split the global batch
+(each rank holds its rows, shard-local MCA routing and MoE dispatch,
+statistics summed over the data ranks).  A ``"model"`` axis larger than
+1 runs Megatron tensor parallelism for the dense and MoE families with
+GQA attention: each rank holds its shard of every weight as
+``dist.sharding.param_shardings`` places it, computes its heads and its
+FFN columns, and the Megatron pair of differentiable collectives joins
+the shards (:func:`copy_to_model`: identity forward, sum over
+``"model"`` backward; :func:`reduce_from_model`: the reverse).  The
+other families refuse a model axis (:func:`require_data_parallel`).
+:func:`constrain`, :func:`constrain_heads` and :func:`constrain_residual`
+return ``x`` unchanged: the residual stream is replicated over
+``"model"``, which is numerically what the reference's placement hints
+compute (the n_model-fold saving of stored activations that its
+sequence-sharded residual gives is not taken; ROADMAP.md).
 
-Inside :func:`use_mesh` each rank holds its rows of the batch.  When the
-rows do not divide the data axes the reference replicates the batch
+Inside :func:`use_mesh` each rank holds its rows of the batch (the rows
+of its data shard, shared by the ranks of its ``"model"`` row).  When
+the rows do not divide the data axes the reference replicates the batch
 (``batch_shardings``); the port's steps then run inside
 :func:`replicated_batch`, where every rank holds the whole global batch.
 
 Every collective here is an ``all_reduce`` (the ``gloo`` backend runs
-``all_reduce`` and ``broadcast`` on CUDA tensors, not ``all_gather``),
-so two ranks can share one card over gloo, which NCCL refuses.
+``all_reduce`` and ``broadcast`` on CUDA tensors, not ``all_gather`` or
+``reduce_scatter``), so two ranks can share one card over gloo, which
+NCCL refuses.  A collective over some of the axes runs on the process
+group of the ranks that differ only along them (``Mesh.groups``, built
+by ``launch.mesh.make_local_mesh``).
 """
 from __future__ import annotations
 
 import contextlib
 import math
-import threading
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -42,10 +51,14 @@ class Mesh:
 
     ``shape`` is a dict ``{axis: size}`` in axis order, ``size`` the
     number of ranks.  A mesh without a group computes placements only.
+    ``groups`` maps a frozenset of axis names to this rank's process
+    group over those axes (the ranks whose other coordinates are its
+    own), for the proper subsets of axes that collectives use.
     """
 
     def __init__(self, sizes: Sequence[int], axis_names: Sequence[str],
-                 group=None, device: Optional[torch.device] = None):
+                 group=None, device: Optional[torch.device] = None,
+                 groups: Optional[Dict[frozenset, object]] = None):
         if len(sizes) != len(axis_names):
             raise ValueError(f"{len(sizes)} sizes for axes {axis_names}")
         self.axis_names: Tuple[str, ...] = tuple(axis_names)
@@ -53,10 +66,31 @@ class Mesh:
                                               map(int, sizes)))
         self.size = math.prod(self.shape.values())
         self.group = group
+        self.groups = dict(groups or {})
         self.device = None if device is None else torch.device(device)
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape})"
+
+    def axes_size(self, axes: Sequence[str]) -> int:
+        return math.prod(self.shape[a] for a in axes)
+
+    def group_for(self, axes: Sequence[str]):
+        """This rank's process group over ``axes`` (None when they hold
+        one rank: no collective is needed)."""
+        live = frozenset(a for a in axes if self.shape[a] > 1)
+        if not live:
+            return None
+        if live == frozenset(a for a in self.axis_names
+                             if self.shape[a] > 1):
+            if self.group is None:
+                raise ValueError(f"{self} has no process group: build it "
+                                 "with launch.mesh.make_local_mesh")
+            return self.group
+        if live not in self.groups:
+            raise ValueError(f"{self} has no process group over {sorted(live)}"
+                             ": build it with launch.mesh.make_local_mesh")
+        return self.groups[live]
 
 
 class _AxisSpec:
@@ -75,13 +109,14 @@ DP = _AxisSpec("DP", include_model=False)
 #: every mesh axis (batch-over-everything fallback for indivisible seq)
 DPM = _AxisSpec("DPM", include_model=True)
 
-_local = threading.local()
+# One stack for the process (a process is one rank), not one a thread:
+# autograd runs a CUDA backward, and with it the recompute of a
+# checkpointed layer, on a thread of its own, which must see the mesh.
+_MESH_STACK: list = []
 
 
 def _stack() -> list:
-    if not hasattr(_local, "mesh_stack"):
-        _local.mesh_stack = []
-    return _local.mesh_stack
+    return _MESH_STACK
 
 
 @contextlib.contextmanager
@@ -117,14 +152,14 @@ def get_mesh() -> Optional[Mesh]:
 
 
 def row_shards() -> int:
-    """How many ranks split this rank's batch: the active mesh's size when
-    each rank holds only its rows, else 1 (no mesh, a world of one, or a
-    replicated batch).  A local token count times this is the global."""
+    """How many ranks split the batch: the data axes' size when each rank
+    holds only its data shard's rows, else 1 (no mesh, a world of one, or
+    a replicated batch).  A local token count times this is the global."""
     stack = _stack()
     if not stack:
         return 1
     mesh, replicated = stack[-1]
-    return 1 if replicated else mesh.size
+    return 1 if replicated else mesh.axes_size(dp_axes(mesh))
 
 
 def dp_axes(mesh: Mesh) -> Tuple[str, ...]:
@@ -132,14 +167,34 @@ def dp_axes(mesh: Mesh) -> Tuple[str, ...]:
     return tuple(a for a in mesh.axis_names if a != "model")
 
 
-def require_data_parallel(mesh: Mesh, what: str = "execution") -> None:
-    """Raise unless ``mesh`` can execute: a ``"model"`` axis of 1, and a
-    process group of ``mesh.size`` ranks when it has more than one."""
-    if mesh.shape.get("model", 1) > 1:
+def model_size(mesh: Optional[Mesh] = None) -> int:
+    """The ``"model"`` axis size of ``mesh`` (default: the active mesh);
+    1 without one."""
+    mesh = get_mesh() if mesh is None else mesh
+    return 1 if mesh is None else mesh.shape.get("model", 1)
+
+
+def tp_family(cfg) -> bool:
+    """Whether ``cfg``'s family runs on a ``"model"`` axis larger than 1:
+    the dense and MoE decoder-only families with GQA attention."""
+    return (cfg.family in ("dense", "moe") and cfg.attn_type == "gqa"
+            and not cfg.is_encoder_decoder)
+
+
+def require_data_parallel(mesh: Mesh, what: str = "execution",
+                          cfg=None) -> None:
+    """Raise unless ``mesh`` can execute ``cfg``'s family: a ``"model"``
+    axis larger than 1 runs only the families :func:`tp_family` names
+    (``cfg=None``: a piece of code with no tensor-parallel form), and a
+    mesh of more than one rank needs a process group."""
+    nm = mesh.shape.get("model", 1)
+    if nm > 1 and (cfg is None or not tp_family(cfg)):
+        name = "" if cfg is None else (
+            f" for {cfg.name} ({cfg.family}, {cfg.attn_type} attention)")
         raise NotImplementedError(
-            f"{what} with a 'model' axis of {mesh.shape['model']} (tensor "
-            "parallelism) is not ported; only data-parallel meshes run "
-            "(ROADMAP.md, Queue 1)")
+            f"{what}{name} with a 'model' axis of {nm} (tensor "
+            "parallelism) is not ported: only the dense and MoE families "
+            "with GQA attention run on one (ROADMAP.md, Queue 1)")
     if mesh.size > 1 and mesh.group is None:
         raise ValueError(f"{what} on {mesh} needs a process group: build "
                          "it with launch.mesh.make_local_mesh")
@@ -169,47 +224,95 @@ def axis_index(mesh: Mesh, axes: Sequence[str]) -> int:
     return idx
 
 
+def model_index(mesh: Optional[Mesh] = None) -> int:
+    """This rank's index along ``"model"`` (0 without one)."""
+    mesh = get_mesh() if mesh is None else mesh
+    if mesh is None or mesh.shape.get("model", 1) == 1:
+        return 0
+    return axis_index(mesh, ("model",))
+
+
 # ------------------------------------------------------------ collectives
-def psum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Sum of ``x`` over the mesh's ranks (a new tensor)."""
+def _axes(mesh: Mesh, axes) -> Tuple[str, ...]:
+    return mesh.axis_names if axes is None else tuple(axes)
+
+
+def psum(x: torch.Tensor, mesh: Mesh, axes=None) -> torch.Tensor:
+    """Sum of ``x`` over the mesh's ranks along ``axes`` (default: all of
+    them), as a new tensor."""
     out = x.detach().clone()
-    if mesh.size > 1:
+    group = mesh.group_for(_axes(mesh, axes))
+    if group is not None:
         import torch.distributed as dist
-        dist.all_reduce(out, group=mesh.group)
+        dist.all_reduce(out, group=group)
     return out
 
 
-def pmean_(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Mean over the mesh's ranks, in place: sum, then divide by the rank
-    count (a world of one leaves every bit as it was)."""
-    if mesh.size > 1:
+def pmax(x: torch.Tensor, mesh: Mesh, axes=None) -> torch.Tensor:
+    """Elementwise max of ``x`` over ``axes`` (a new tensor, no grad)."""
+    out = x.detach().clone()
+    group = mesh.group_for(_axes(mesh, axes))
+    if group is not None:
         import torch.distributed as dist
-        dist.all_reduce(x, group=mesh.group)
-        x.div_(mesh.size)
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
+def pmean_(x: torch.Tensor, mesh: Mesh, axes=None) -> torch.Tensor:
+    """Mean over the ranks along ``axes`` (default: all), in place: sum,
+    then divide by their count (one rank leaves every bit as it was)."""
+    axes = _axes(mesh, axes)
+    group = mesh.group_for(axes)
+    if group is not None:
+        import torch.distributed as dist
+        dist.all_reduce(x, group=group)
+        x.div_(mesh.axes_size(axes))
     return x
 
 
+def all_gather(x: torch.Tensor, mesh: Mesh, axes, dim: int
+               ) -> torch.Tensor:
+    """Every rank's ``x`` along ``axes``, concatenated on ``dim`` in rank
+    order (no grad): one ``all_reduce`` of the bytes, each rank's block
+    written into zeros, so the result is exact, signed zeros included."""
+    axes = tuple(axes)
+    group = mesh.group_for(axes)
+    if group is None:
+        return x
+    n = mesh.axes_size(axes)
+    dim = dim % x.dim()
+    shape = list(x.shape)
+    shape[dim] *= n
+    full = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    full.narrow(dim, axis_index(mesh, axes) * x.shape[dim],
+                x.shape[dim]).copy_(x)
+    import torch.distributed as dist
+    dist.all_reduce(full.view(-1).view(torch.uint8), group=group)
+    return full
+
+
 class _MeanOverRanks(torch.autograd.Function):
-    """Forward: the mean over ranks.  Backward: the incoming gradient as
-    it is, because each rank's gradients are averaged over the ranks
-    afterwards; so the averaged gradient is that of the mean, as the
-    reference's ``pmean`` under ``shard_map`` gives it."""
+    """Forward: the mean over the ranks along ``axes``.  Backward: the
+    incoming gradient as it is, because each rank's gradients are
+    averaged over the data ranks afterwards; so the averaged gradient is
+    that of the mean, as the reference's ``pmean`` under ``shard_map``
+    gives it."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        return pmean_(x.detach().clone(), mesh)
+    def forward(ctx, x, mesh, axes):
+        return pmean_(x.detach().clone(), mesh, axes)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
-def pmean(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Mean of ``x`` over the mesh's ranks, differentiable (see
+def pmean(x: torch.Tensor, mesh: Mesh, axes=None) -> torch.Tensor:
+    """Mean of ``x`` over the ranks along ``axes``, differentiable (see
     :class:`_MeanOverRanks`)."""
-    if mesh.size == 1:
+    if mesh.group_for(_axes(mesh, axes)) is None:
         return x
-    return _MeanOverRanks.apply(x, mesh)
+    return _MeanOverRanks.apply(x, mesh, axes)
 
 
 def barrier(mesh: Mesh) -> None:
@@ -218,10 +321,129 @@ def barrier(mesh: Mesh) -> None:
         psum(torch.zeros(1, device=mesh.device), mesh)
 
 
+# ------------------------------------------- Megatron tensor parallelism
+_MODEL = ("model",)
+
+
+def _sum_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Sum over ``"model"`` in f32, cast back to ``x``'s dtype."""
+    out = x.detach().float()
+    if out.data_ptr() == x.data_ptr():
+        out = out.clone()
+    import torch.distributed as dist
+    dist.all_reduce(out, group=mesh.group_for(_MODEL))
+    return out.to(x.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward, sum over ``"model"`` backward: the entry of a
+    tensor-parallel region, whose ranks each give a part of the
+    gradient of a replicated input."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_model(g, ctx.mesh), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Sum over ``"model"`` forward (in f32, so gloo's bf16 support does
+    not matter), identity backward: the exit of a tensor-parallel
+    region, whose ranks each hold a part of a replicated output."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _sum_model(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """All-gather along ``dim`` over ``"model"`` forward; backward the
+    sum over ``"model"`` of the gradient, then this rank's block (a
+    reduce-scatter): for a gathered tensor that each rank then uses in
+    its own way (its heads, its rows)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim, ctx.n = mesh, dim, x.shape[dim]
+        return all_gather(x.detach(), mesh, _MODEL, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _sum_model(g, ctx.mesh)
+        return g.narrow(ctx.dim, model_index(ctx.mesh) * ctx.n,
+                        ctx.n), None, None
+
+
+def _tp_mesh() -> Optional[Mesh]:
+    mesh = get_mesh()
+    return mesh if mesh is not None and model_size(mesh) > 1 else None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """Megatron's *f*: ``x`` forward, its gradient summed over
+    ``"model"`` backward (``x`` itself without a model axis)."""
+    mesh = _tp_mesh()
+    return x if mesh is None else _CopyToModel.apply(x, mesh)
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """Megatron's *g*: the sum of ``x`` over ``"model"`` forward (in
+    f32), the gradient as it is backward."""
+    mesh = _tp_mesh()
+    return x if mesh is None else _ReduceFromModel.apply(x, mesh)
+
+
+def gather_from_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The model ranks' ``x`` concatenated on ``dim`` (see
+    :class:`_GatherFromModel` for its backward)."""
+    mesh = _tp_mesh()
+    return x if mesh is None else _GatherFromModel.apply(x, mesh,
+                                                          dim % x.dim())
+
+
+def first_model_share(x: torch.Tensor) -> torch.Tensor:
+    """A value every model rank holds whole, as this rank's part of a sum
+    over ``"model"`` (:func:`reduce_from_model`): ``x`` on the first
+    rank, 0 on the others, so the sum is ``x`` exactly whatever the
+    axis size.  ``x`` stays in every rank's graph (its gradient is 0 on
+    all but the first), so every rank reaches the same collectives in
+    the backward."""
+    mesh = _tp_mesh()
+    if mesh is None or model_index(mesh) == 0:
+        return x
+    return torch.where(torch.zeros((), dtype=torch.bool, device=x.device),
+                       x, 0.0)
+
+
+def max_over_model(x: torch.Tensor) -> torch.Tensor:
+    """Elementwise max over ``"model"`` (no grad): the importances that
+    are maxima over heads, when each rank holds some of the heads."""
+    mesh = _tp_mesh()
+    return x if mesh is None else pmax(x, mesh, _MODEL)
+
+
+def model_slice(n: int) -> slice:
+    """This rank's contiguous block of ``n`` entries split over
+    ``"model"`` (all of them without a model axis)."""
+    nm = model_size()
+    per = n // nm
+    i = model_index() if nm > 1 else 0
+    return slice(i * per, (i + 1) * per)
+
+
 # ------------------------------------------------------------ constraints
 def constrain(x: torch.Tensor, *spec) -> torch.Tensor:
     """The reference's ``with_sharding_constraint`` under the active mesh:
-    ``x`` unchanged (a placement hint, exact on a model axis of 1)."""
+    ``x`` unchanged (a placement hint: the port places activations by
+    what each rank computes)."""
     return x
 
 
@@ -233,5 +455,6 @@ def constrain_heads(x: torch.Tensor, *, head_dims: Sequence[int],
 
 def constrain_residual(x: torch.Tensor, attn_parallel: str = "auto"
                        ) -> torch.Tensor:
-    """Residual-stream hint at layer boundaries: ``x`` unchanged."""
+    """Residual-stream hint at layer boundaries: ``x`` unchanged (the
+    residual stays replicated over ``"model"``; see module doc)."""
     return x

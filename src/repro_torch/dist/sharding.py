@@ -18,9 +18,13 @@ Weight layout follows Megatron TP:
   embedding table: vocab over "model"
 ZeRO-1 additionally shards every optimizer moment (and, under FSDP, the
 params themselves) over the data axes on the first replicated dimension
-that divides.  What executes in the port: the data axes (a batch's rows,
-ZeRO-1 moments, a cache's batch dim); a ``"model"`` entry places nothing
-yet (``context.require_data_parallel``).
+that divides.  What executes in the port: every entry.  A rank holds
+``param_shardings(...).local_slice`` of each weight (:func:`shard_params`;
+its tensor-parallel shard) and, under ZeRO-1, its data block of each
+moment; under FSDP it holds its data block of each parameter too, and
+:func:`unshard` gathers a layer's weights over the data axes just before
+the layer runs (the model's ``loss(..., gather=)`` takes the data
+placements).
 """
 from __future__ import annotations
 
@@ -88,6 +92,26 @@ class NamedSharding:
         """Whether this rank holds only a block of the leaf."""
         return any(True for _ in self._split_dims())
 
+    def split_axes(self) -> Tuple[str, ...]:
+        """The mesh axes (of size > 1) this placement splits the leaf
+        over."""
+        return tuple(a for _, axes, _ in self._split_dims() for a in axes
+                     if self.mesh.shape[a] > 1)
+
+    def restrict(self, axes) -> "NamedSharding":
+        """The same placement with only the entries on ``axes`` (e.g. the
+        data part of a ZeRO-1 placement, applied to a rank's
+        tensor-parallel shard)."""
+        keep = set(axes)
+        spec = []
+        for entry in self.spec:
+            names = (() if entry is None else (entry,)
+                     if isinstance(entry, str) else tuple(entry))
+            names = tuple(a for a in names if a in keep)
+            spec.append(None if not names else names[0] if len(names) == 1
+                        else names)
+        return NamedSharding(self.mesh, PartitionSpec(*spec))
+
     def local_slice(self, x):
         """This rank's block of the full tensor ``x`` (a view)."""
         for dim, axes, n in self._split_dims():
@@ -102,10 +126,18 @@ class NamedSharding:
             shape[dim] *= n
         return tuple(shape)
 
+    def local_shape(self, full_shape) -> Tuple[int, ...]:
+        """The shape of one rank's block of a leaf of ``full_shape``."""
+        shape = list(full_shape)
+        for dim, _, n in self._split_dims():
+            shape[dim] //= n
+        return tuple(shape)
+
     def gather(self, local):
         """The full tensor from every rank's block (each rank passes its
-        own).  One ``all_reduce`` of the bytes, each rank's block written
-        into zeros: exact, signed zeros included."""
+        own).  One ``all_reduce`` of the bytes over the ranks that split
+        it, each rank's block written into zeros: exact, signed zeros
+        included."""
         if not self.is_split():
             return local
         full = torch.zeros(self.full_shape(local.shape), dtype=local.dtype,
@@ -113,7 +145,7 @@ class NamedSharding:
         self.local_slice(full).copy_(local)
         import torch.distributed as dist
         dist.all_reduce(full.view(-1).view(torch.uint8),
-                        group=self.mesh.group)
+                        group=self.mesh.group_for(self.split_axes()))
         return full
 
 
@@ -260,3 +292,62 @@ def describe(shardings) -> Tuple[str, ...]:
     """One line per leaf, ``"{path}: {spec}"`` (the reference's)."""
     return tuple(f"{keystr(path)}: {sh.spec}"
                  for path, sh in flatten_with_path(shardings))
+
+
+# ------------------------------------------------------- rank-local trees
+def shard_params(params, shardings):
+    """This rank's tree: each leaf's block under ``shardings`` (a
+    contiguous copy where the placement splits it, the leaf itself where
+    it does not).  ``params`` is the full tree, e.g. ``model.init(0)`` or
+    ``convert.params_from_jax(...)``."""
+    def take(path, leaf, sh):
+        if sh is None or not sh.is_split():
+            return leaf
+        return sh.local_slice(leaf).clone(
+            memory_format=torch.contiguous_format)
+    return _map_with_path(take, params, shardings)
+
+
+def gather_params(params, shardings):
+    """The inverse of :func:`shard_params`: the full tree from every
+    rank's blocks (a collective: every rank of the mesh calls it)."""
+    return _map_with_path(
+        lambda path, leaf, sh: leaf if sh is None else sh.gather(leaf),
+        params, shardings)
+
+
+# ------------------------------------------------------------------ FSDP
+class _FsdpGather(torch.autograd.Function):
+    """Forward: the leaf gathered over the data axes from every rank's
+    block.  Backward: the gradient summed over the data ranks, this
+    rank's block of it, divided by their count (the mean over the data
+    ranks that ZeRO-1's ``pmean_`` takes, in the same order of
+    operations, so the block's bits are its)."""
+
+    @staticmethod
+    def forward(ctx, local, sh):
+        ctx.sh = sh
+        return sh.gather(local.detach())
+
+    @staticmethod
+    def backward(ctx, g):
+        sh = ctx.sh
+        g = g.contiguous().clone()
+        import torch.distributed as dist
+        axes = sh.split_axes()
+        dist.all_reduce(g, group=sh.mesh.group_for(axes))
+        return sh.local_slice(g).div(sh.mesh.axes_size(axes)).contiguous(), \
+            None
+
+
+def unshard(tree, data_shardings):
+    """``tree`` with each leaf that ``data_shardings`` (a placement tree
+    of the same structure holding only data-axis entries,
+    :meth:`NamedSharding.restrict`) splits gathered over the data axes
+    from this rank's block (differentiable, see :class:`_FsdpGather`);
+    ``data_shardings=None`` leaves the tree as it is."""
+    if data_shardings is None:
+        return tree
+    return _map_with_path(
+        lambda path, leaf, sh: _FsdpGather.apply(leaf, sh)
+        if sh.is_split() else leaf, tree, data_shardings)

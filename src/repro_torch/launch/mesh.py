@@ -26,16 +26,32 @@ def make_local_mesh(n_data: int = 1, n_model: int = 1,
                     ) -> Mesh:
     """("data", "model") over the initialised world, whose size must be
     ``n_data * n_model``; ``device`` is this rank's (its collectives'
-    tensors live there).  Without a process group only a world of one
-    is possible."""
+    tensors live there).  Rank r sits at (r // n_model, r % n_model).
+    With both axes larger than 1 it also builds the process group of
+    each ``"model"`` row and each data column (every rank takes part in
+    every ``new_group`` call, in one order).  Without a process group
+    only a world of one is possible."""
     import torch.distributed as dist
     init = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if init else 1
     if n_data * n_model != world:
         raise ValueError(f"mesh ({n_data}, {n_model}) needs "
                          f"{n_data * n_model} ranks; the world has {world}")
+    groups = {}
+    if n_data > 1 and n_model > 1:
+        rank = dist.get_rank()
+        for axis, members in (
+                ("model", [[d * n_model + m for m in range(n_model)]
+                           for d in range(n_data)]),
+                ("data", [[d * n_model + m for d in range(n_data)]
+                          for m in range(n_model)])):
+            for ranks in members:
+                g = dist.new_group(ranks)
+                if rank in ranks:
+                    groups[frozenset({axis})] = g
     return Mesh((n_data, n_model), ("data", "model"),
-                group=dist.group.WORLD if init else None, device=device)
+                group=dist.group.WORLD if init else None, device=device,
+                groups=groups)
 
 
 # NVIDIA H100 SXM5 80GB (H100 Tensor Core GPU datasheet): dense bf16

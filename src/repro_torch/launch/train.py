@@ -18,9 +18,12 @@ with ``--mesh``, it takes the mesh branch, as the reference's launcher
 does on more than one device: it starts the process group (NCCL on the
 card, gloo on the CPU), builds the ("data", "model") mesh of (world, 1),
 feeds every rank the global batch of each step, of which the step takes
-the rank's rows, and runs the ZeRO-1 step of
-``train.step.jit_train_step`` inside ``use_mesh``.  A world of one gives
-the unsharded branch's bits.
+the rank's rows, and runs ``train.step.jit_train_step`` inside
+``use_mesh``: FSDP, as the reference's launcher (each rank holds its
+block of every parameter).  The reference's launcher has no model-axis
+flag, so neither has this one: tensor parallelism is reached through
+``train.step`` with a mesh from ``launch.mesh.make_local_mesh(n_data,
+n_model)``.  A world of one gives the unsharded branch's bits.
 """
 from __future__ import annotations
 
@@ -154,7 +157,7 @@ def main(argv=None, device=None):
 
 def run_mesh(args, device=None):
     """The mesh branch: ("data", "model") = (world, 1) over the process
-    group, every rank on its own device (``cuda:{LOCAL_RANK}``).
+    group, FSDP, every rank on its own device (``cuda:{LOCAL_RANK}``).
     Returns (the trainer, its run's output)."""
     device = resolve_device(device)
     with process_group("gloo" if device.type == "cpu" else "nccl", device):

@@ -42,6 +42,19 @@ the prefill.  As in the reference, its prefill returns the decoder's MCA
 stats only, its loss metrics have no ``mca_tier_hist``, and its prefill
 draws the cross attention's samples from the layer key where the forward
 draws them from ``fold_in(layer key, 7)`` (ROADMAP.md, Queue 3).
+
+On a ``"model"`` axis larger than 1 (the dense and MoE families with
+GQA; the others raise, naming ROADMAP.md) each rank holds its shards
+(``dist.sharding.shard_params``) and the vocabulary is split too: the
+embedding looks up the rank's rows of the table and sums over
+``"model"``, the logits are gathered over it, and :func:`chunked_xent`
+takes the log-sum-exp over the vocab shards (a max and a sum over
+``"model"``) with the target logit from the rank that holds it.  Under
+FSDP (``train.step.jit_train_step``) ``loss`` and ``forward_hidden``
+take ``gather=``, the data placements of the params: the entry point
+gathers the top-level weights once (a tied table serves the embedding
+and the head) and each layer gathers its own just before it runs
+(``dist.sharding.unshard``).
 """
 from __future__ import annotations
 
@@ -53,6 +66,8 @@ import torch.utils.checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.core.amm import fold_in
+from repro_torch.dist import context as dctx
+from repro_torch.dist import sharding as shd
 from . import attention as attn
 from . import ffn as ffn_mod
 from . import rglru, ssm, stack
@@ -68,8 +83,11 @@ class Model:
     cfg: ModelConfig
     device: torch.device
     init: Callable          # (seed | Generator) -> params, on self.device
-    loss: Callable          # (params, batch, key|None) -> (loss, metrics)
-    forward_hidden: Callable  # (params, batch, key|None) -> (x, aux, stats)
+    loss: Callable          # (params, batch, key|None, gather=None)
+                            #   -> (loss, metrics); gather: FSDP's
+                            #   data placements of params
+    forward_hidden: Callable  # (params, batch, key|None, gather=None)
+                              #   -> (x, aux, stats)
     prefill: Callable       # (params, batch, max_len, key|None)
                             #   -> (cache, hidden, stats)
     decode: Callable        # (params, tokens, cache, t) -> (logits, cache)
@@ -89,6 +107,32 @@ def _xent_chunk(h_c, head, y_c, vocab_size: int):
     return torch.sum((lse - ll) * mask), torch.sum(mask)
 
 
+def _xent_chunk_tp(h_c, head, y_c, vocab_size: int):
+    """:func:`_xent_chunk` with ``head`` this rank's vocab columns: the
+    log-sum-exp takes a max and a sum over ``"model"``, the target logit
+    comes from the rank that holds it, the mask applies to global ids."""
+    logits = torch.einsum("bcd,dv->bcv", h_c.float(), head.float())
+    vl = logits.shape[-1]
+    first = dctx.model_index() * vl
+    ids = first + torch.arange(vl, device=logits.device)
+    logits = torch.where(ids < vocab_size, logits, NEG_INF)
+    m = dctx.max_over_model(torch.amax(logits, dim=-1).detach())
+    se = torch.sum(torch.exp(logits - m[..., None]), dim=-1)
+    lse = m + torch.log(dctx.reduce_from_model(se))
+    local = y_c.long() - first
+    mine = (local >= 0) & (local < vl)
+    ll = torch.gather(logits, -1, torch.clamp(local, 0, vl - 1)[..., None]
+                      )[..., 0]
+    ll = dctx.reduce_from_model(torch.where(mine, ll, 0.0))
+    mask = (y_c >= 0).float()
+    return torch.sum((lse - ll) * mask), torch.sum(mask)
+
+
+def _vocab_split(head, cfg) -> bool:
+    """Whether ``head`` ([d, V]) holds this rank's vocab columns only."""
+    return dctx.model_size() > 1 and head.shape[-1] != cfg.padded_vocab
+
+
 def chunked_xent(hidden, head, labels, cfg):
     """Sequence-chunked vocab-masked cross entropy.
 
@@ -103,15 +147,18 @@ def chunked_xent(hidden, head, labels, cfg):
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     remat = torch.is_grad_enabled()
+    fn = _xent_chunk
+    if _vocab_split(head, cfg):
+        fn = _xent_chunk_tp
+        hidden = dctx.copy_to_model(hidden)
     for c0 in range(0, s, chunk):
         args = (hidden[:, c0:c0 + chunk], head, labels[:, c0:c0 + chunk],
                 cfg.vocab_size)
         if remat:
             t_c, n_c = torch.utils.checkpoint.checkpoint(
-                _xent_chunk, *args, use_reentrant=False,
-                preserve_rng_state=False)
+                fn, *args, use_reentrant=False, preserve_rng_state=False)
         else:
-            t_c, n_c = _xent_chunk(*args)
+            t_c, n_c = fn(*args)
         tot = tot + t_c
         cnt = cnt + n_c
     return tot / torch.clamp(cnt, min=1.0)
@@ -125,8 +172,12 @@ def _head(params, cfg):
 
 
 def _logits(params, cfg, hidden):
-    """f32 logits over the padded vocab; padding ids get NEG_INF."""
-    logits = hidden.float() @ _head(params, cfg).float()
+    """f32 logits over the padded vocab; padding ids get NEG_INF (on a
+    model axis each rank's vocab columns, gathered)."""
+    head = _head(params, cfg)
+    logits = hidden.float() @ head.float()
+    if _vocab_split(head, cfg):
+        logits = dctx.all_gather(logits, dctx.get_mesh(), ("model",), -1)
     vp = logits.shape[-1]
     ids = torch.arange(vp, device=logits.device)
     return torch.where(ids < cfg.vocab_size, logits, NEG_INF)
@@ -167,8 +218,42 @@ def _init_lm(seed, cfg, device):
     return params
 
 
+def _embed(params, cfg, tokens):
+    """The token embedding; on a model axis with the table's rows split,
+    each rank looks up the tokens in its rows (zeros elsewhere) and the
+    parts are summed over ``"model"`` (exact: one part is non-zero)."""
+    table = params["embed"]["table"]
+    if dctx.model_size() == 1 or table.shape[0] == cfg.padded_vocab:
+        return embed_tokens(params["embed"], tokens)
+    vl = table.shape[0]
+    local = tokens.long() - dctx.model_index() * vl
+    mine = (local >= 0) & (local < vl)
+    x = table[torch.where(mine, local, 0)]
+    return dctx.reduce_from_model(torch.where(mine[..., None], x, 0.0))
+
+
+_STACKS = ("layers", "enc_layers", "dec_layers")
+
+
+def _unshard_top(params, gather):
+    """Under FSDP (``gather``: the data placements of ``params``, None
+    otherwise), every weight outside the layer stacks gathered
+    (``dist.sharding.unshard``); each stack's layers are gathered one at
+    a time by ``stack.stack_forward`` with their placements
+    (:func:`_stack_gather`).  Each entry point calls it once."""
+    if gather is None:
+        return params
+    return {k: v if k in _STACKS else shd.unshard(v, gather[k])
+            for k, v in params.items()}
+
+
+def _stack_gather(gather, name):
+    """The placements of stack ``name``'s layers (None without FSDP)."""
+    return None if gather is None else gather[name]
+
+
 def _lm_embed(params, cfg, batch):
-    x = embed_tokens(params["embed"], batch["tokens"])
+    x = _embed(params, cfg, batch["tokens"])
     if cfg.family == "vlm" and "patches" in batch:
         px = batch["patches"].to(x.dtype) @ params["patch_proj"]
         x = torch.cat([px, x], dim=1)
@@ -186,21 +271,27 @@ def _lm_embed(params, cfg, batch):
     return x
 
 
-def _lm_hidden(params, cfg, batch, mca_key=None):
+def _lm_hidden(params, cfg, batch, mca_key=None, gather=None):
+    """``params`` with its top-level weights whole (:func:`_unshard_top`);
+    ``gather``: FSDP's data placements, of which the layers' are read."""
     x = _lm_embed(params, cfg, batch)
     pos = torch.arange(x.shape[1], device=x.device)[None]
+    layers_sh = _stack_gather(gather, "layers")
     if cfg.family == "hybrid":
         x, aux, stats = stack.hybrid_forward(params["layers"], cfg, x,
-                                             pos=pos, mca_key=mca_key)
+                                             pos=pos, mca_key=mca_key,
+                                             gather=layers_sh)
     else:
         x, aux, stats = stack.stack_forward(params["layers"], cfg, x,
                                             pos=pos, mca_key=mca_key,
-                                            kind=stack.layer_kind(cfg))
+                                            kind=stack.layer_kind(cfg),
+                                            gather=layers_sh)
     return apply_norm(params["final_norm"], cfg, x), aux, stats
 
 
-def _lm_loss(params, cfg, batch, mca_key=None):
-    hidden, aux, stats = _lm_hidden(params, cfg, batch, mca_key)
+def _lm_loss(params, cfg, batch, mca_key=None, gather=None):
+    params = _unshard_top(params, gather)
+    hidden, aux, stats = _lm_hidden(params, cfg, batch, mca_key, gather)
     if cfg.family == "vlm" and "patches" in batch:
         hidden = hidden[:, batch["patches"].shape[1]:]
     loss = chunked_xent(hidden, _head(params, cfg), batch["labels"], cfg)
@@ -339,7 +430,7 @@ def _decode_layer(p_l, cfg, xx, cache_l, t, kind, pos_off=None):
 def _lm_decode(params, cfg, tokens, cache, t):
     """tokens: [B, 1]; t: int, 0-d or [B] int32 tensor.  Updates ``cache``
     in place; returns (logits [B, 1, Vp] f32, cache)."""
-    x = embed_tokens(params["embed"], tokens)
+    x = _embed(params, cfg, tokens)
     pos_off = cache.get("pos_off")              # None for the hybrid
     layers = cache["layers"]
     for p_l, (kind, j) in zip(params["layers"], _cache_slots(cfg)):
@@ -431,34 +522,40 @@ def _with_pe(x):
                                   x.device)[None]
 
 
-def _encode(params, cfg, frames, mca_key=None):
+def _encode(params, cfg, frames, mca_key=None, gather=None):
     """The encoder over frame embeddings [B, S_enc, d]: sinusoidal
     positions, non-causal attention, no window.  Returns (enc_out,
     stats)."""
     x = _with_pe(frames.to(cfg.torch_dtype))
     pos = torch.arange(x.shape[1], device=x.device)[None]
-    x, _, stats = stack.stack_forward(params["enc_layers"], cfg, x, pos=pos,
-                                      mca_key=mca_key, kind="attn_ffn",
-                                      causal=False, window=0)
+    x, _, stats = stack.stack_forward(
+        params["enc_layers"], cfg, x, pos=pos, mca_key=mca_key,
+        kind="attn_ffn", causal=False, window=0,
+        gather=_stack_gather(gather, "enc_layers"))
     return apply_norm(params["enc_norm"], cfg, x), stats
 
 
-def _encdec_hidden(params, cfg, batch, mca_key=None):
+def _encdec_hidden(params, cfg, batch, mca_key=None, gather=None):
     """(hidden, aux, stats, enc_out); the stats sum the encoder's (drawn
-    from ``fold_in(mca_key, 101)``) and the decoder's."""
+    from ``fold_in(mca_key, 101)``) and the decoder's.  ``params`` and
+    ``gather`` as :func:`_lm_hidden` takes them."""
     enc_key = None if mca_key is None else fold_in(mca_key, 101)
-    enc_out, enc_stats = _encode(params, cfg, batch["frames"], enc_key)
+    enc_out, enc_stats = _encode(params, cfg, batch["frames"], enc_key,
+                                 gather)
     x = _with_pe(embed_tokens(params["embed"], batch["tokens"]))
     pos = torch.arange(x.shape[1], device=x.device)[None]
     x, aux, stats = stack.stack_forward(
         params["dec_layers"], cfg, x, pos=pos, mca_key=mca_key,
-        kind="dec_attn_ffn", enc_out=enc_out, causal=True, window=0)
+        kind="dec_attn_ffn", enc_out=enc_out, causal=True, window=0,
+        gather=_stack_gather(gather, "dec_layers"))
     stats = {k: stats[k] + enc_stats[k] for k in stats}
     return apply_norm(params["final_norm"], cfg, x), aux, stats, enc_out
 
 
-def _encdec_loss(params, cfg, batch, mca_key=None):
-    hidden, aux, stats, _ = _encdec_hidden(params, cfg, batch, mca_key)
+def _encdec_loss(params, cfg, batch, mca_key=None, gather=None):
+    params = _unshard_top(params, gather)
+    hidden, aux, stats, _ = _encdec_hidden(params, cfg, batch, mca_key,
+                                           gather)
     loss = chunked_xent(hidden, _head(params, cfg), batch["labels"], cfg)
     return loss + aux, {"loss": loss.detach(), "aux_loss": aux.detach(),
                         "mca_exact_flops": stats["exact_flops"],
@@ -579,19 +676,39 @@ def _check_supported(cfg: ModelConfig) -> None:
             "the hybrid family with GQA (see ROADMAP.md)")
 
 
+def _on_mesh(cfg: ModelConfig, fn: Callable) -> Callable:
+    """``fn`` that first refuses a model axis its family does not run on
+    (``dist.context.require_data_parallel``, naming ROADMAP.md)."""
+    def entry(*args, **kwargs):
+        mesh = dctx.get_mesh()
+        if mesh is not None and dctx.model_size(mesh) > 1:
+            dctx.require_data_parallel(mesh, "the model", cfg)
+        return fn(*args, **kwargs)
+    return entry
+
+
 def build_model(cfg: ModelConfig,
                 device: Optional[Union[str, torch.device]] = None) -> Model:
     """The model's entry points on ``device`` (the card unless ``"cpu"``)."""
     _check_supported(cfg)
-    dev = resolve_device(device)
+    model = _build(cfg, resolve_device(device))
+    for name in ("loss", "forward_hidden", "prefill", "decode",
+                 "init_cache"):
+        setattr(model, name, _on_mesh(cfg, getattr(model, name)))
+    return model
+
+
+def _build(cfg: ModelConfig, dev: torch.device) -> Model:
     if cfg.is_encoder_decoder:
         return Model(
             cfg=cfg,
             device=dev,
             init=lambda seed=0: _init_encdec(seed, cfg, dev),
-            loss=lambda p, b, key=None: _encdec_loss(p, cfg, b, key),
-            forward_hidden=lambda p, b, key=None: _encdec_hidden(
-                p, cfg, b, key)[:3],
+            loss=lambda p, b, key=None, gather=None: _encdec_loss(
+                p, cfg, b, key, gather),
+            forward_hidden=lambda p, b, key=None, gather=None:
+                _encdec_hidden(_unshard_top(p, gather), cfg, b, key,
+                               gather)[:3],
             prefill=lambda p, b, max_len, key=None: _encdec_prefill(
                 p, cfg, b, max_len, key),
             decode=lambda p, tok, cache, t: _encdec_decode(p, cfg, tok,
@@ -603,8 +720,10 @@ def build_model(cfg: ModelConfig,
         cfg=cfg,
         device=dev,
         init=lambda seed=0: _init_lm(seed, cfg, dev),
-        loss=lambda p, b, key=None: _lm_loss(p, cfg, b, key),
-        forward_hidden=lambda p, b, key=None: _lm_hidden(p, cfg, b, key),
+        loss=lambda p, b, key=None, gather=None: _lm_loss(p, cfg, b, key,
+                                                          gather),
+        forward_hidden=lambda p, b, key=None, gather=None: _lm_hidden(
+            _unshard_top(p, gather), cfg, b, key, gather),
         prefill=lambda p, b, max_len, key=None: _lm_prefill(
             p, cfg, b, max_len, key),
         decode=lambda p, tok, cache, t: _lm_decode(p, cfg, tok, cache, t),

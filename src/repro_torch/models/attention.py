@@ -16,8 +16,24 @@ The option paths of ``gqa_attention`` are ported with it: the fused
 conservative colmax (``mca.fast_colmax``) and the banded local passes
 (``cfg.banded_local``, causal sliding-window self-attention over
 gathered key bands), and cross attention (``kv_x``: keys and values from
-an encoder's output, the encoder-decoder family).  Not ported yet: the
-mesh-dependent head layouts.
+an encoder's output, the encoder-decoder family).
+
+On a ``"model"`` axis larger than 1 (Megatron tensor parallelism) GQA
+runs in the three layouts the reference chooses (:func:`tp_layout`):
+its heads over ``"model"`` (each rank its q and KV heads, from its
+column-parallel ``wq``/``wk``/``wv``), ``repeat_kv`` (the KV heads do not
+divide the axis but the q heads do: each rank gathers the KV heads and
+attends its q heads to the ones they read), and sequence-parallel
+attention (neither divides, or ``cfg.attn_parallel`` is ``"seq"`` or
+``"dp"``: each rank gathers every head and attends its rows of queries;
+``"dp"`` or rows that do not divide: every rank attends all of them).
+Either way the row-parallel ``wo`` gives each rank a part of the output,
+summed over ``"model"`` in f32.  Both MCA importances are maxima over
+heads (and the colmax over queries), so they are maxed over
+``"model"`` before ``mca_project`` routes on them.  ``gqa_attention``
+and ``gqa_decode`` are one body each: without a model axis the layout
+is ``"heads"`` with every head on the one rank, and each collective of
+``dist.context`` is the identity.
 """
 from __future__ import annotations
 
@@ -27,6 +43,7 @@ import torch
 
 from repro_torch.core.amm import fold_in
 from repro_torch.core.policy import mca_project
+from repro_torch.dist import context as dctx
 from repro_torch.kernels import ops as kernel_ops
 from .common import apply_rope, dense_init, rmsnorm
 
@@ -339,6 +356,78 @@ def _acc_stats(acc, s):
     return out
 
 
+def tp_layout(cfg, nm: int) -> str:
+    """The reference's head layout on a model axis of ``nm``
+    (``models/attention.py``, ``gqa_attention``): ``"heads"`` (the KV
+    heads divide it; always without a model axis), ``"repeat_kv"`` (only
+    the q heads do, and a KV head serves several), else ``"seq"``
+    (sequence-parallel; also when ``cfg.attn_parallel`` asks for it)."""
+    if nm == 1:
+        return "heads"
+    h, hkv = cfg.n_heads, cfg.n_kv_heads
+    shardable = h % nm == 0 or hkv % nm == 0
+    if cfg.attn_parallel in ("seq", "dp") or (
+            cfg.attn_parallel == "auto" and not shardable):
+        return "seq"
+    if hkv % nm == 0:
+        return "heads"
+    if h % nm == 0 and h // hkv > 1:
+        return "repeat_kv"
+    return "seq"
+
+
+def _project(key, x, w, importance, n, cfg, site, tp=None):
+    """``mca_project`` of ``x @ w`` at ``site``; ``tp`` ("col" / "row", a
+    shard on a model axis) is passed only when set."""
+    extra = {} if tp is None else {"tp": tp}
+    return mca_project(key, x, w, importance, n, cfg.mca, site, **extra)
+
+
+def _full_cols(x, w, full: int):
+    """``x @ w`` with all ``full`` output columns on every rank: gathered
+    over ``"model"`` from a column-parallel ``w``, or the product with
+    the replicated ``w`` (whose gradient is then summed over the ranks,
+    each of which uses the result in its own way)."""
+    if w.shape[-1] == full:
+        return x @ dctx.copy_to_model(w)
+    return dctx.gather_from_model(x @ w, -1)
+
+
+def _full_v(p, cfg, src, colmax, skv, mca_key, kv_full: int):
+    """(V's full columns, MCA stats or None): ``mca_project`` on this
+    rank's columns of ``wv`` (``tp="col"``), then gathered."""
+    if colmax is None:
+        return _full_cols(src, p["wv"], kv_full), None
+    split = p["wv"].shape[-1] != kv_full
+    w = p["wv"] if split else dctx.copy_to_model(p["wv"])
+    v, st = _project(fold_in(mca_key, 1), src, w, colmax, skv, cfg,
+                     "v_proj", "col" if split else None)
+    return (dctx.gather_from_model(v, -1) if split else v), st
+
+
+def _o_proj(p, cfg, out, rowmax, sq, mca_key):
+    """The output projection of ``out``; on a model axis row-parallel
+    (this rank's input columns of ``wo``), the ranks' parts summed over
+    ``"model"`` in f32.  A replicated ``wo`` (its rows do not divide the
+    axis; only the sequence-parallel layout, whose gathers sum the
+    ranks' gradients) gives its whole product from the first model rank
+    and 0 from the others, so the sum is exact.  Returns (y, stats or
+    None)."""
+    split = p["wo"].shape[-2] != cfg.n_heads * cfg.d_head
+    tp = dctx.model_size() > 1
+    w = p["wo"] if split or not tp else dctx.copy_to_model(p["wo"])
+    st = None
+    if cfg.mca.active("o_proj") and mca_key is not None:
+        y, st = _project(fold_in(mca_key, 2), out, w, rowmax, sq, cfg,
+                         "o_proj", "row" if split else None)
+    else:
+        y = out @ w
+    if not tp:
+        return y, st
+    return dctx.reduce_from_model(
+        y if split else dctx.first_model_share(y)), st
+
+
 def gqa_attention(p, cfg, x, *, pos, mca_key: Optional[int] = None,
                   causal=None, window=None, kv_x=None, return_kv=False,
                   kv_valid=None):
@@ -346,90 +435,151 @@ def gqa_attention(p, cfg, x, *, pos, mca_key: Optional[int] = None,
 
     x: [B, S, d]; kv_x: the cross-attention source [B, Skv, d] (defaults
     to x): keys and values come from it, at positions 0..Skv-1, and the
-    v_proj importance is the colmax over its keys; kv_valid: optional
-    [B, S] bool marking real (non-left-padding) tokens of the
-    self-attention sequence.  Returns (y, (k, v) or None, stats, rowmax).
+    v_proj importance is the colmax over its keys (no model axis);
+    kv_valid: optional [B, S] bool marking real (non-left-padding) tokens
+    of the self-attention sequence.  On a model axis ``p`` holds this
+    rank's shards and the layout is :func:`tp_layout`'s (module doc).
+    Returns (y, (k, v) or None, stats, rowmax).
     """
     causal = cfg.causal if causal is None else causal
     window = cfg.window if window is None else window
+    nm = dctx.model_size()
+    if kv_x is not None and nm > 1:
+        dctx.require_data_parallel(dctx.get_mesh(), "cross attention")
+    layout = tp_layout(cfg, nm)
     b, sq, _ = x.shape
-    src = x if kv_x is None else kv_x
-    skv = src.shape[1]
-    hkv, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-    dh = cfg.d_head
-    scale = dh ** -0.5
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    g = h // hkv
     stats = zero_stats(cfg.mca.n_tiers, x.device)
+    xin = dctx.copy_to_model(x)
+    src = xin if kv_x is None else kv_x
+    skv = src.shape[1]
+    kv_pos = pos if kv_x is None else torch.arange(skv, device=x.device)
     # in self-attention, query validity is key validity
-    q_valid = kv_valid if kv_x is None else None
-
-    q = _split_heads(x @ p["wq"], cfg.n_heads, dh)
-    k = _split_heads(src @ p["wk"], hkv, dh)
+    self_valid = kv_valid if kv_x is None else None
+    q_norm = k_norm = None
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    kv_pos = (torch.arange(skv, device=x.device) if kv_x is not None
-              else pos)
-    q = apply_rope(q, pos, cfg.rope_theta, cfg.rotary_pct)
-    k = apply_rope(k, kv_pos, cfg.rope_theta, cfg.rotary_pct)
-    qg = q.reshape(b, sq, hkv, g, dh)
+        q_norm = dctx.copy_to_model(p["q_norm"])
+        k_norm = dctx.copy_to_model(p["k_norm"])
+
+    def heads(t, n, norm, at):
+        t = _split_heads(t, n, dh)
+        if norm is not None:
+            t = rmsnorm(t, norm, cfg.norm_eps)
+        return apply_rope(t, at, cfg.rope_theta, cfg.rotary_pct)
+
+    def v_heads(colmax):
+        """(V's heads as the cache keeps them, MCA stats or None); the
+        colmax is None with MCA off."""
+        if layout != "heads":                 # every KV head
+            v, st = _full_v(p, cfg, src, colmax, skv, mca_key, hkv * dh)
+            return _split_heads(v, hkv, dh), st
+        if colmax is None:
+            return _split_heads(src @ p["wv"], hkv // nm, dh), None
+        v, st = _project(fold_in(mca_key, 1), src, p["wv"], colmax, skv,
+                         cfg, "v_proj", "col" if nm > 1 else None)
+        return _split_heads(v, hkv // nm, dh), st
+
+    rows = slice(0, sq)                       # this rank's queries
+    pick = None                               # the KV heads they read
+    if layout == "heads":                     # its q and KV heads
+        hl = h // nm
+        q = heads(xin @ p["wq"], hl, q_norm, pos)
+        k = heads(src @ p["wk"], hkv // nm, k_norm, kv_pos)
+        qg = q.reshape(b, sq, hkv // nm, g, dh)
+    elif layout == "repeat_kv":               # its q heads, the KV they read
+        hl = h // nm
+        pick = (dctx.model_index() * hl
+                + torch.arange(hl, device=x.device)) // g
+        q = heads(xin @ p["wq"], hl, q_norm, pos)
+        k = heads(_full_cols(src, p["wk"], hkv * dh), hkv, k_norm, kv_pos)
+        qg = q.reshape(b, sq, hl, 1, dh)
+    else:                                     # every head, its query rows
+        hl = h
+        q = heads(_full_cols(xin, p["wq"], h * dh), h, q_norm, pos)
+        k = heads(_full_cols(src, p["wk"], hkv * dh), hkv, k_norm, kv_pos)
+        if sq % nm == 0 and cfg.attn_parallel != "dp":
+            rows = dctx.model_slice(sq)
+        qg = q[:, rows].reshape(b, rows.stop - rows.start, hkv, g, dh)
+    split_rows = rows.stop - rows.start != sq
+    kq = k if pick is None else k[:, :, pick]
+    q_valid = None if self_valid is None else self_valid[:, rows]
 
     chunk = pick_chunk(skv, cfg.attn_chunk)
-    passes = dict(scale=scale, causal=causal, window=window, chunk=chunk)
-    bands = dict(scale=scale, window=window, chunk_q=chunk)
+    passes = dict(scale=dh ** -0.5, causal=causal, window=window,
+                  chunk=chunk, q_offset=rows.start)
+    bands = dict(scale=dh ** -0.5, window=window, chunk_q=chunk)
     # the banded gather path has no padding mask: ragged (left-padded)
     # batches take the chunked passes
-    banded = _use_banded(cfg, window, skv, causal, kv_x) and kv_valid is None
+    banded = (_use_banded(cfg, window, skv, causal, kv_x)
+              and kv_valid is None and not split_rows)
     if cfg.mca.active("v_proj") and mca_key is not None:
         if banded:
-            m, lse, colmax = banded_lse_colmax(qg, k, **bands)
+            m, lse, colmax = banded_lse_colmax(qg, kq, **bands)
         elif cfg.mca.fast_colmax:
             m, lse, colmax = chunked_lse_colmax_fused(
-                qg, k, kv_valid=kv_valid, q_valid=q_valid, **passes)
+                qg, kq, kv_valid=kv_valid, q_valid=q_valid, **passes)
         else:
-            m, lse = chunked_lse(qg, k, kv_valid=kv_valid, **passes)
-            colmax = chunked_colmax(qg, k, lse, kv_valid=kv_valid,
+            m, lse = chunked_lse(qg, kq, kv_valid=kv_valid, **passes)
+            colmax = chunked_colmax(qg, kq, lse, kv_valid=kv_valid,
                                     q_valid=q_valid, **passes)
-        kv, s_v = mca_project(fold_in(mca_key, 1), src, p["wv"], colmax,
-                              skv, cfg.mca, "v_proj")
+        # a max over heads (and queries): over "model" before routing
+        v, s_v = v_heads(dctx.max_over_model(colmax))
         stats = _acc_stats(stats, s_v)
-        v = _split_heads(kv, hkv, dh)
+        vq = v if pick is None else v[:, :, pick]
         if banded:
-            out = banded_av(qg, k, v, lse, **bands)
+            out = banded_av(qg, kq, vq, lse, **bands)
         else:
-            out = chunked_av(qg, k, v, lse, kv_valid=kv_valid, **passes)
+            out = chunked_av(qg, kq, vq, lse, kv_valid=kv_valid, **passes)
     else:
-        v = _split_heads(src @ p["wv"], hkv, dh)
+        v, _ = v_heads(None)
+        vq = v if pick is None else v[:, :, pick]
         if banded:
-            out, m, lse = banded_onepass(qg, k, v, **bands)
+            out, m, lse = banded_onepass(qg, kq, vq, **bands)
         else:
-            out, m, lse = onepass_attention(qg, k, v, kv_valid=kv_valid,
+            out, m, lse = onepass_attention(qg, kq, vq, kv_valid=kv_valid,
                                             **passes)
     rowmax = torch.exp(torch.amax(m - lse, dim=(1, 2)))        # [B, Sq]
-    if q_valid is not None:
+    out = out.reshape(b, rows.stop - rows.start, hl * dh)
+    if layout != "seq":                       # a max over heads
+        rowmax = dctx.max_over_model(rowmax)
+    elif split_rows:                          # every rank's rows, in order
+        out = dctx.gather_from_model(out, 1)
+        rowmax = dctx.all_gather(rowmax, dctx.get_mesh(), ("model",), 1)
+    if layout == "seq" and p["wo"].shape[-2] != h * dh:
+        out = out[..., dctx.model_slice(h * dh)]   # wo's rows on this rank
+    if self_valid is not None:
         # padding query rows carry garbage lse; zero importance keeps them
         # in the cheapest tier and out of capacity competition
-        rowmax = torch.where(q_valid, rowmax, 0.0)
-
-    out = out.reshape(b, sq, cfg.n_heads * dh)
-    if cfg.mca.active("o_proj") and mca_key is not None:
-        y, s_o = mca_project(fold_in(mca_key, 2), out, p["wo"], rowmax, sq,
-                             cfg.mca, "o_proj")
+        rowmax = torch.where(self_valid, rowmax, 0.0)
+    y, s_o = _o_proj(p, cfg, out, rowmax, sq, mca_key)
+    if s_o is not None:
         stats = _acc_stats(stats, s_o)
-    else:
-        y = out @ p["wo"]
 
     # the cache holds the (possibly MCA-encoded) V: decode reuses H-tilde
-    kv_out = (k, v) if return_kv else None
-    return y, kv_out, stats, rowmax
+    if return_kv and cache_kv_heads(cfg) != k.shape[2]:
+        kv = dctx.model_slice(hkv)           # the cache's share of heads
+        k, v = k[:, :, kv], v[:, :, kv]
+    return y, (k, v) if return_kv else None, stats, rowmax
 
 
 # ------------------------------------------------------------ GQA decode
+def cache_kv_heads(cfg) -> int:
+    """The KV heads a rank's cache holds: its share when they divide the
+    active mesh's ``"model"`` axis (``dist.sharding.cache_shardings``),
+    else all of them."""
+    nm = dctx.model_size()
+    return cfg.n_kv_heads // nm if cfg.n_kv_heads % nm == 0 else \
+        cfg.n_kv_heads
+
+
 def init_gqa_cache(cfg, batch, max_len, dtype, device, n_layers=None):
     """Zeroed decode cache; with ``n_layers`` every leaf is layer-stacked
-    ``[L, B, ...]`` (the layout ``models/api.py`` uses)."""
+    ``[L, B, ...]`` (the layout ``models/api.py`` uses).  On a model axis
+    it holds :func:`cache_kv_heads` KV heads."""
     slots = cfg.window if cfg.window > 0 else max_len
     lead = (batch,) if n_layers is None else (n_layers, batch)
-    shape = lead + (slots, cfg.n_kv_heads, cfg.d_head)
+    shape = lead + (slots, cache_kv_heads(cfg), cfg.d_head)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -479,16 +629,21 @@ def gqa_decode(p, cfg, x, cache, *, t, pos_off=None):
     left-padding offsets (RoPE positions shift to t - pos_off[b], slots
     before a row's first real token are masked).
 
+    On a model axis, with the KV heads split, each rank takes its q and
+    KV heads and its cache's heads; otherwise the cache holds every KV
+    head, written whole on each rank, and a rank attends its q heads
+    (``repeat_kv``) or all of them; ``wo``'s row-parallel parts are
+    summed over ``"model"``.
+
     ``cache`` ({"k", "v": [B, slots, hkv, dh], "slot_pos": [B, slots]}) is
     updated IN PLACE and returned (the reference donates it).
     Returns (y, cache, rowmax [B,1]).
     """
+    nm = dctx.model_size()
     b = x.shape[0]
     dev = x.device
-    hkv, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-    dh = cfg.d_head
-    scale = dh ** -0.5
-    slots = cache["k"].shape[1]
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    g = h // hkv
     off = (torch.zeros((b,), dtype=torch.int32, device=dev)
            if pos_off is None else pos_off)
     if isinstance(t, torch.Tensor):
@@ -496,35 +651,62 @@ def gqa_decode(p, cfg, x, cache, *, t, pos_off=None):
     else:                                  # host int: a fill, not a copy
         t_kv = int(t)                      # the cache write takes the int
         t_vec = torch.full((b,), t_kv, dtype=torch.int32, device=dev)
-
-    q = _split_heads(x @ p["wq"], cfg.n_heads, dh)
-    k1 = _split_heads(x @ p["wk"], hkv, dh)
-    v1 = _split_heads(x @ p["wv"], hkv, dh)
-    if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k1 = rmsnorm(k1, p["k_norm"], cfg.norm_eps)
     posb = t_vec[:, None] - off[:, None]
-    q = apply_rope(q, posb, cfg.rope_theta, cfg.rotary_pct)
-    k1 = apply_rope(k1, posb, cfg.rope_theta, cfg.rotary_pct)
+    split_kv = hkv % nm == 0
+    q_split = h % nm == 0 and p["wq"].shape[-1] != h * dh
+
+    def heads(t_, n, norm):
+        t_ = _split_heads(t_, n, dh)
+        if norm is not None:
+            t_ = rmsnorm(t_, p[norm], cfg.norm_eps)
+        return apply_rope(t_, posb, cfg.rope_theta, cfg.rotary_pct)
+
+    qn, kn = ("q_norm", "k_norm") if cfg.qk_norm else (None, None)
+    if split_kv:
+        n_kv = hkv // nm
+        k1 = heads(x @ p["wk"], n_kv, kn)
+        v1 = _split_heads(x @ p["wv"], n_kv, dh)
+    else:
+        n_kv = hkv
+        k1 = heads(_full_cols(x, p["wk"], hkv * dh), hkv, kn)
+        v1 = _split_heads(_full_cols(x, p["wv"], hkv * dh), hkv, dh)
+    if q_split:
+        hl = h // nm
+        q = heads(x @ p["wq"], hl, qn)
+    else:
+        hl = h
+        q = heads(_full_cols(x, p["wq"], h * dh), h, qn)
 
     kc, vc, spos = cache["k"], cache["v"], cache["slot_pos"]
     kernel_ops.kv_slot_update_layer(kc, k1.contiguous(), vc, v1.contiguous(),
                                     spos, t_kv, window=cfg.window)
-
-    qg = q.reshape(b, 1, hkv, g, dh)
+    if split_kv or not q_split:
+        qg = q.reshape(b, 1, n_kv, hl // n_kv, dh)
+        kq, vq = kc, vc
+    else:                                  # repeat_kv: the heads q reads
+        kv_idx = (dctx.model_index() * hl
+                  + torch.arange(hl, device=dev)) // g
+        qg = q.reshape(b, 1, hl, 1, dh)
+        kq, vq = kc.index_select(2, kv_idx), vc.index_select(2, kv_idx)
+    slots = kc.shape[1]
     # slot_pos are per-row global (pre-offset) positions, so the rolling-
     # window wraparound composes with the per-row padding mask
     valid = (spos >= 0) & (spos >= off[:, None])
+    scale = dh ** -0.5
     if slots >= 8192 and slots % 1024 == 0:
-        out, rowmax = _decode_attn_chunked(qg, kc, vc, valid, scale, 1024)
+        out, rowmax = _decode_attn_chunked(qg, kq, vq, valid, scale, 1024)
     else:
-        s = _scores(qg, kc, scale)
+        s = _scores(qg, kq, scale)
         s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
         a = torch.softmax(s, dim=-1)
-        out = torch.einsum("bhgqs,bshd->bqhgd", a.to(vc.dtype), vc)
+        out = torch.einsum("bhgqs,bshd->bqhgd", a.to(vq.dtype), vq)
         rowmax = torch.amax(a, dim=(1, 2, 4))                 # [B, 1]
-    out = out.reshape(b, 1, cfg.n_heads * dh)
-    y = out @ p["wo"]
+    out = out.reshape(b, 1, hl * dh)
+    if q_split:
+        rowmax = dctx.max_over_model(rowmax)
+    elif p["wo"].shape[-2] != h * dh:
+        out = out[..., dctx.model_slice(h * dh)]
+    y, _ = _o_proj(p, cfg, out, rowmax, 1, None)
     return y, cache, rowmax
 
 

@@ -24,6 +24,19 @@ each rank routes its own tokens with the capacity of its own token count
 and the replicated expert weights; ``aux`` is the mean over the ranks
 and the stats their sum.  A replicated batch (its rows do not divide the
 data axes) dispatches over the global tokens, as the reference does.
+
+On a ``"model"`` axis larger than 1 (tensor parallelism) the dense FFN
+is Megatron's: column-parallel ``w_up``/``w_gate``, row-parallel
+``w_down``, the ranks' parts summed over ``"model"`` in f32.  The MoE
+layer keeps the reference's dispatch, which splits each data shard's
+sequence over ``"model"`` (when it divides) and dispatches each piece
+with the capacity of its own token count: a model rank dispatches every
+piece of its data shard (routing is replicated work, no expert is
+gathered), computes its columns of every expert's ``w_up``/``w_gate``
+and its rows of ``w_down``, and the pieces' parts are summed over
+``"model"``.  ``aux`` is the mean over the pieces and the data ranks,
+the stats their sum, as the reference's ``pmean``/``psum`` over the
+routing axes give them.
 """
 from __future__ import annotations
 
@@ -54,11 +67,19 @@ def init_ffn(g: torch.Generator, cfg, device):
 
 
 def ffn(p, cfg, x):
+    """The dense FFN of ``x`` [B, S, d]; on a model axis with ``w_up``'s
+    columns split, Megatron's (module doc).  Replicated weights compute
+    the whole product on every rank, with no collective: the input is
+    the residual, whole on every rank, and so is each gradient."""
+    split = dctx.model_size() > 1 and p["w_up"].shape[-1] != cfg.d_ff
+    if split:                       # this rank's d_ff columns
+        x = dctx.copy_to_model(x)
     if cfg.ffn_type == "swiglu":
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     else:
         h = gelu(x @ p["w_up"])
-    return h @ p["w_down"]
+    y = h @ p["w_down"]
+    return dctx.reduce_from_model(y) if split else y
 
 
 # ------------------------------------------------------------------- MoE
@@ -90,19 +111,49 @@ def moe_ffn(p, cfg, x, *, mca_key: Optional[int] = None):
     """x: [B, S, d] -> (y, aux_loss, stats).
 
     Under a mesh of more than one rank each rank dispatches the rows it
-    holds (shard-local, see the module doc); ``aux`` is averaged over the
-    ranks (differentiable: each rank's gradient is its own term, averaged
-    with the other ranks' gradients afterwards) and the stats summed.
-    Without a mesh it is plain local dispatch."""
+    holds (shard-local, see the module doc), on a model axis in pieces
+    of its sequence; ``aux`` is averaged over the pieces and the data
+    ranks (differentiable: each rank's gradient is its own term,
+    averaged with the other ranks' gradients afterwards) and the stats
+    summed.  Without a mesh it is plain local dispatch."""
     mesh = dctx.get_mesh()
+    nm = dctx.model_size(mesh)
+    if nm > 1 and cfg.mca.active("expert_ffn") and mca_key is not None:
+        dctx.require_data_parallel(mesh, "MCA on expert_ffn")
     if mesh is not None and mesh.size > 1:
-        dctx.require_data_parallel(mesh, "moe_ffn")
-        if dctx.row_shards() > 1:
-            y, aux, stats = _moe_local(p, cfg, x, mca_key)
-            stats = {k: dctx.psum(torch.as_tensor(v, device=x.device), mesh)
-                     for k, v in stats.items()}
-            return y, dctx.pmean(aux, mesh), stats
-    return _moe_local(p, cfg, x, mca_key)
+        dctx.require_data_parallel(mesh, "moe_ffn", cfg)
+    rows = dctx.row_shards() > 1      # this rank holds its data shard
+    b, s, _ = x.shape
+    whole_shard = rows or nm == 1 or mesh.axes_size(dctx.dp_axes(mesh)) == 1
+    pieces = nm if whole_shard and s % nm == 0 else 1
+    # this rank's columns of every expert: its parts of y summed over
+    # "model"; the replicated router then gets a part of its gradient
+    # from each rank
+    split = nm > 1 and p["w_up"].shape[-1] != cfg.d_ff
+    if split:
+        p = {k: dctx.copy_to_model(v) if k == "router" else v
+             for k, v in p.items()}
+        x = dctx.copy_to_model(x)
+    per = s // pieces
+    y, aux, stats = _moe_local(p, cfg, x[:, :per], mca_key)
+    for j in range(1, pieces):
+        y_j, aux_j, st_j = _moe_local(p, cfg, x[:, j * per:(j + 1) * per],
+                                      mca_key)
+        y = torch.cat([y, y_j], dim=1)
+        aux = aux + aux_j
+        stats = {k: stats[k] + st_j[k] for k in stats}
+    if pieces > 1:
+        aux = aux / pieces
+    if split:
+        y = dctx.reduce_from_model(y)
+        # every model rank holds the same aux: counted once
+        aux = dctx.reduce_from_model(dctx.first_model_share(aux))
+    if rows:
+        aux = dctx.pmean(aux, mesh, dctx.dp_axes(mesh))
+        stats = {k: dctx.psum(torch.as_tensor(v, device=x.device), mesh,
+                              dctx.dp_axes(mesh))
+                 for k, v in stats.items()}
+    return y, aux, stats
 
 
 def _moe_local(p, cfg, x, mca_key: Optional[int] = None):

@@ -19,6 +19,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.core.amm import fold_in
+from repro_torch.dist import sharding as shd
 from . import attention as attn
 from . import ffn as ffn_mod
 from . import rglru, ssm
@@ -141,10 +142,14 @@ def init_stack(g: torch.Generator, cfg, n_layers: int, kind: str, device):
 
 
 def stack_forward(params, cfg, x, *, pos, mca_key: Optional[int], kind,
-                  enc_out=None, causal=None, window=None):
+                  enc_out=None, causal=None, window=None, gather=None):
     """Loop over layers. Returns (x, aux, stats), aux summed over layers.
     ``kind`` is one layer kind, or a list of one per layer; ``enc_out``
     is the encoder's output that ``dec_attn_ffn`` layers attend to.
+    ``gather``: under FSDP, the layers' data placements (one tree a
+    layer): each layer's weights are gathered from this rank's blocks
+    inside the layer's function (``dist.sharding.unshard``), so a
+    recompute in the backward gathers them again.
 
     Under autograd with ``cfg.remat`` each layer is recomputed in the
     backward (``torch.utils.checkpoint``, the reference's
@@ -160,12 +165,13 @@ def stack_forward(params, cfg, x, *, pos, mca_key: Optional[int], kind,
     remat = cfg.remat and torch.is_grad_enabled()
     for i, p_l in enumerate(params):
         key_l = None if mca_key is None else fold_in(mca_key, i)
+        sh_l = None if gather is None else gather[i]
 
-        def run(xx, enc, p_l=p_l, key_l=key_l, kind_l=kinds[i]):
-            out, aux_l, st, _ = layer_forward(p_l, cfg, xx, pos=pos,
-                                              mca_key=key_l, kind=kind_l,
-                                              enc_out=enc, causal=causal,
-                                              window=window)
+        def run(xx, enc, p_l=p_l, sh_l=sh_l, key_l=key_l, kind_l=kinds[i]):
+            out, aux_l, st, _ = layer_forward(shd.unshard(p_l, sh_l), cfg,
+                                              xx, pos=pos, mca_key=key_l,
+                                              kind=kind_l, enc_out=enc,
+                                              causal=causal, window=window)
             return out, aux_l, st
 
         if remat:
@@ -188,7 +194,8 @@ def init_hybrid(g: torch.Generator, cfg, device):
     return [init_layer(g, cfg, kind, device) for kind in layer_kinds(cfg)]
 
 
-def hybrid_forward(params, cfg, x, *, pos, mca_key: Optional[int]):
+def hybrid_forward(params, cfg, x, *, pos, mca_key: Optional[int],
+                   gather=None):
     """The hybrid stack: attention layers see ``cfg.window`` (the
     default), recurrent ones no window.  Layer l draws its MCA key from
     ``fold_in(mca_key, l)``: the reference folds in ``gidx * len(pat) +
@@ -196,4 +203,4 @@ def hybrid_forward(params, cfg, x, *, pos, mca_key: Optional[int]):
     remainder, and both are the flat layer index, so the flat list draws
     the same keys."""
     return stack_forward(params, cfg, x, pos=pos, mca_key=mca_key,
-                         kind=layer_kinds(cfg))
+                         kind=layer_kinds(cfg), gather=gather)

@@ -22,6 +22,15 @@ parameter from the full (all-reduced) gradient, and sends it to the
 other ranks (``NamedSharding.gather``).  The update is elementwise and
 the clip norm is taken from the full gradients, so every value is the
 unsharded update's, bit for bit.
+
+On a ``"model"`` axis a rank's parameter is its tensor-parallel shard;
+the ZeRO-1 moments sit on that shard (the data-axis part of the
+placement, ``NamedSharding.restrict``), and :func:`global_norm` counts
+each element once: the squares of a model-split leaf are summed over
+``"model"``, a replicated leaf's are taken once.  FSDP (``fsdp=True``):
+parameters and gradients are the rank's blocks already; the update
+writes only the block, and the norm gathers each gradient's blocks one
+leaf at a time, so it is the ZeRO-1 norm bit for bit.
 """
 from __future__ import annotations
 
@@ -82,22 +91,59 @@ def leaves(tree):
     return [leaf for _, leaf in named_leaves(tree)]
 
 
-def init_state(params, shardings=None):
+def init_state(params, shardings=None, param_shardings=None):
     """Zero moments (f32) and count; with ``shardings`` (the moments'
-    placement tree) each moment is this rank's block only."""
+    placement tree) each moment is this rank's block only.
+    ``param_shardings``: the placement of ``params`` when they are this
+    rank's blocks (tensor parallelism, FSDP), not the full leaves."""
     if shardings is None:
         shardings = tree_map(lambda p: None, params)
-    zeros = tree_map(lambda p, sh: torch.zeros(
-        (p if sh is None else sh.local_slice(p)).shape, dtype=torch.float32,
-        device=p.device), params, shardings)
+    if param_shardings is None:
+        param_shardings = tree_map(lambda p: None, params)
+
+    def zeros_of(p, sh, psh):
+        full = p.shape if psh is None else psh.full_shape(p.shape)
+        shape = full if sh is None else sh.local_shape(full)
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+
+    zeros = tree_map(zeros_of, params, shardings, param_shardings)
     return {"m": zeros,
             "v": tree_map(torch.clone, zeros),
             "count": torch.zeros((), dtype=torch.int32)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in leaves(tree)))
+def global_norm(tree, shardings=None, fsdp: bool = False) -> torch.Tensor:
+    """The gradient tree's L2 norm.  ``shardings`` (the moments'
+    placement tree): a leaf split over ``"model"`` adds the sum of its
+    ranks' squares; ``fsdp``: each leaf is this rank's data block, and is
+    gathered (one leaf at a time) before its squares are summed.  Each
+    leaf is summed in its contiguous layout, so the norm does not depend
+    on the strides autograd gave a gradient."""
+    if shardings is None:
+        return torch.sqrt(sum(_sum_sq(g) for g in leaves(tree)))
+    shardings = tree_map(lambda _, s: s, tree, shardings)   # tree's order
+    rep, split, mesh = 0, 0, None
+    for g, sh in zip(leaves(tree), leaves(shardings)):
+        mesh = sh.mesh
+        if fsdp:
+            g = sh.restrict(_dp(mesh)).gather(g)
+        sq = _sum_sq(g)
+        if "model" in sh.split_axes():
+            split = split + sq
+        else:
+            rep = rep + sq
+    if isinstance(split, torch.Tensor):
+        from repro_torch.dist import context as dctx
+        rep = rep + dctx.psum(split, mesh, ("model",))
+    return torch.sqrt(rep)
+
+
+def _sum_sq(g):
+    return torch.sum(torch.square(g.float().contiguous()))
+
+
+def _dp(mesh):
+    return tuple(a for a in mesh.axis_names if a != "model")
 
 
 def clip_by_global_norm(grads, max_norm: float):
@@ -107,16 +153,18 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 def apply_updates(cfg: AdamWConfig, params, grads, state, *,
-                  donate: bool = False, shardings=None):
+                  donate: bool = False, shardings=None, fsdp: bool = False):
     """One AdamW step. Returns (new_params, new_state, grad_norm).
 
     The clip scale is folded into the per-leaf update rather than
     materialized as a clipped f32 grad tree.  ``donate=True`` writes the
     new values into ``params`` and ``state`` and returns them.
     ``shardings``: the moments' placement tree (ZeRO-1, see the module
-    doc); ``grads`` are then the full gradients, the same on every rank.
+    doc); ``grads`` are then the full gradients (of the rank's
+    tensor-parallel shard), the same on every data rank.  ``fsdp``:
+    ``params`` and ``grads`` are the rank's blocks (see the module doc).
     """
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, shardings, fsdp)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
     count = int(state["count"]) + 1
@@ -125,6 +173,8 @@ def apply_updates(cfg: AdamWConfig, params, grads, state, *,
     b2c = 1.0 - cfg.b2 ** count
 
     def upd(name, p, g, m, v, sh):
+        if sh is not None:            # the data-axis part: ZeRO-1 blocks
+            sh = None if fsdp else sh.restrict(_dp(sh.mesh))
         split = sh is not None and sh.is_split()
         p_full = p
         if split:                     # ZeRO-1: this rank's block only
@@ -146,8 +196,8 @@ def apply_updates(cfg: AdamWConfig, params, grads, state, *,
             new_p = p_full
         return new_p, m, v
 
-    sh_leaves = (leaves(shardings) if shardings is not None
-                 else [None] * len(leaves(params)))
+    sh_leaves = (leaves(tree_map(lambda _, s: s, params, shardings))
+                 if shardings is not None else [None] * len(leaves(params)))
     out = [upd(n, p, g, m, v, sh) for (n, p), g, m, v, sh in zip(
         named_leaves(params), leaves(grads), leaves(state["m"]),
         leaves(state["v"]), sh_leaves)]

@@ -1,13 +1,20 @@
-"""Train and serve steps, on one device or data parallel over a mesh.
+"""Train and serve steps, on one device or sharded over a mesh.
 
 Port of ``repro/train/step.py``.  PyTorch runs eagerly, so a step is a
 plain function.  ``jit_train_step`` is the counterpart of the reference's
-sharded step, run as one process per rank: each rank takes its rows of
-the global batch (every row when they do not divide the data axes, as
-``batch_shardings`` then replicates the batch), computes the loss and
-gradients inside ``use_mesh`` (so MCA routing and MoE dispatch are
-shard-local), averages gradients and float metrics over the ranks, and
-applies the ZeRO-1 update.  Weights stay replicated.
+sharded step, run as one process per rank: each rank takes its data
+shard's rows of the global batch (every row when they do not divide the
+data axes, as ``batch_shardings`` then replicates the batch), computes
+the loss and gradients inside ``use_mesh`` (so MCA routing and MoE
+dispatch are shard-local, and a ``"model"`` axis runs Megatron tensor
+parallelism on the rank's shards), averages gradients and float metrics
+over the data ranks, and applies the update.  With ``fsdp=True`` (the
+reference's default) each rank holds its block of every parameter
+(``zero1_shardings``), each layer gathers its weights just before it
+runs, and the gather's backward reduces the gradient to the rank's
+block (a sum over the data ranks, the block, then the mean's division);
+with ``fsdp=False`` the parameters are the rank's tensor-parallel
+shards, whole over the data axes, and the update is ZeRO-1's.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ from repro_torch.dist import context as dctx
 from repro_torch.dist import sharding as shd
 from repro_torch.models.api import Model, _logits
 from repro_torch.optim import adamw
+from repro_torch.optim.adamw import leaves, tree_map
 
 
 def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
@@ -65,8 +73,7 @@ def train_step_shardings(mesh, model: Model, abstract_batch,
     """(in_shardings, out_shardings) placement trees of the train step.
 
     ``fsdp=True`` (the reference's default) also places the params over
-    the data axes; the port executes only ``fsdp=False``
-    (``jit_train_step``).
+    the data axes.
     """
     a_params, _ = abstract_state(model)
     p_sh = shd.param_shardings(mesh, a_params, model.cfg)
@@ -84,9 +91,11 @@ def _local_rows(batch, n_micro: int, mesh):
     whether the batch is replicated instead (its microbatches' rows do
     not divide the mesh, so every rank keeps every row)."""
     b = next(iter(batch.values())).shape[0]
-    if mesh.size == 1 or (b // n_micro) % mesh.size:
-        return batch, mesh.size > 1
-    rank, n = dctx.shard_index(mesh), mesh.size
+    dp = dctx.dp_axes(mesh)
+    n = mesh.axes_size(dp)
+    if n == 1 or (b // n_micro) % n:
+        return batch, n > 1
+    rank = dctx.axis_index(mesh, dp)
 
     def rows(x):
         micro = x.reshape(n_micro, b // n_micro, *x.shape[1:])
@@ -107,28 +116,30 @@ def _rows_scope(mesh, replicated: bool):
 
 def jit_train_step(mesh, model: Model, opt_cfg, abstract_batch,
                    n_micro: int = 1, seed: int = 0, donate: bool = True,
-                   fsdp: bool = False):
-    """The data-parallel train step over ``mesh`` (one process per rank):
-    train_step(params, opt_state, global batch) -> (params, opt, metrics),
-    with ``opt_state`` holding this rank's ZeRO-1 blocks
-    (``adamw.init_state(params, step.in_shardings[1]["m"])``).
+                   fsdp: bool = True):
+    """The sharded train step over ``mesh`` (one process per rank):
+    train_step(params, opt_state, global batch) -> (params, opt, metrics).
+    ``params`` are this rank's blocks under ``step.in_shardings[0]``
+    (``dist.sharding.shard_params(model.init(0), step.in_shardings[0])``)
+    and ``opt_state`` holds its ZeRO-1 blocks (``adamw.init_state(params,
+    step.in_shardings[1]["m"], step.in_shardings[0])``); see the module
+    doc for ``fsdp``.
 
-    Microbatch i of rank r is rows ``[r, r + 1) * B / (n_micro N)`` of the
-    global microbatch i, as the reference's per-microbatch shard_map sees
-    it; its MCA key is ``fold_in(key, i)`` and ``mca_project`` folds in the
-    shard.  Gradients and float metrics are averaged over the ranks (a
-    world of one leaves every bit as it was).
+    Microbatch i of data rank r is rows ``[r, r + 1) * B / (n_micro N)``
+    of the global microbatch i, as the reference's per-microbatch
+    shard_map sees it; its MCA key is ``fold_in(key, i)`` and
+    ``mca_project`` folds in the shard.  Gradients and float metrics are
+    averaged over the data ranks (a world of one leaves every bit as it
+    was).
     """
-    dctx.require_data_parallel(mesh, "jit_train_step")
-    if fsdp and mesh.size > 1:
-        raise NotImplementedError(
-            "FSDP execution (params placed over the data axes) is not "
-            "ported; use fsdp=False (ROADMAP.md, Queue 1)")
+    dctx.require_data_parallel(mesh, "jit_train_step", model.cfg)
     in_sh, _ = train_step_shardings(mesh, model, abstract_batch, fsdp=fsdp)
     moment_sh = in_sh[1]["m"]
+    dp = dctx.dp_axes(mesh)
+    data_sh = tree_map(lambda sh: sh.restrict(dp), in_sh[0])
 
     def loss_fn(p, b, k):
-        return model.loss(p, b, k)
+        return model.loss(p, b, k, gather=data_sh if fsdp else None)
 
     def train_step(params, opt_state, batch):
         key = fold_in(seed, int(opt_state["count"]))
@@ -136,18 +147,21 @@ def jit_train_step(mesh, model: Model, opt_cfg, abstract_batch,
         with _rows_scope(mesh, replicated):
             (loss, metrics), grads = adamw.accumulate_gradients(
                 loss_fn, params, local, n_micro, key)
-        for g in adamw.leaves(grads):
-            if g.is_floating_point():
-                dctx.pmean_(g, mesh)
+        # leaves FSDP gathered were reduced in the gather's backward
+        done = leaves(tree_map(lambda _, sh: fsdp and sh.is_split(), grads,
+                               data_sh))
+        for g, done_g in zip(leaves(grads), done):
+            if g.is_floating_point() and not done_g:
+                dctx.pmean_(g, mesh, dp)
         params, opt_state, gnorm = adamw.apply_updates(
             opt_cfg, params, grads, opt_state, donate=donate,
-            shardings=moment_sh)
+            shardings=moment_sh, fsdp=fsdp)
         metrics = dict(metrics)
         metrics["grad_norm"] = gnorm
         metrics["total_loss"] = loss
         for k, v in metrics.items():
             if isinstance(v, torch.Tensor) and v.is_floating_point():
-                metrics[k] = dctx.pmean_(v.detach().clone(), mesh)
+                metrics[k] = dctx.pmean_(v.detach().clone(), mesh, dp)
         return params, opt_state, metrics
 
     train_step.in_shardings = in_sh
@@ -161,8 +175,11 @@ def make_prefill_step(model: Model, max_len: int, with_mca: bool = True,
     """prefill(params, batch) -> (cache, last-position logits).
 
     Under a mesh of more than one rank the batch is the global one and
-    each rank prefills its rows (every row when they do not divide), so
-    the cache and logits are the rank's rows."""
+    each rank prefills its data shard's rows (every row when they do not
+    divide), so the cache and logits are those rows; on a model axis the
+    params are the rank's shards (``dist.sharding.shard_params`` with
+    ``serve_step_shardings``' first tree), its cache holds its KV heads
+    and the logits are gathered over the vocab."""
     def prefill(params, batch):
         key = seed if with_mca else None
         mesh = dctx.get_mesh()
@@ -178,6 +195,9 @@ def make_prefill_step(model: Model, max_len: int, with_mca: bool = True,
 
 
 def make_decode_step(model: Model):
+    """decode(params, tokens, cache, t) -> (logits, cache); under a mesh,
+    this rank's rows, params and cache (as ``make_prefill_step`` leaves
+    them)."""
     def decode(params, tokens, cache, t):
         return model.decode(params, tokens, cache, t)
     return decode
@@ -185,7 +205,9 @@ def make_decode_step(model: Model):
 
 def serve_step_shardings(mesh, model: Model, abstract_cache,
                          abstract_tokens):
-    """(params, cache, tokens) placement trees of the serve steps."""
+    """(params, cache, tokens) placement trees of the serve steps; a
+    rank's cache from ``make_prefill_step`` is ``cache_shardings``'
+    ``local_slice`` of the full cache."""
     a_params, _ = abstract_state(model)
     p_sh = shd.param_shardings(mesh, a_params, model.cfg)
     c_sh = shd.cache_shardings(mesh, abstract_cache)

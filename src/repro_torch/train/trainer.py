@@ -31,7 +31,9 @@ back to the host in one copy per step.
 
 Under a mesh (a step from ``train.step.jit_train_step``, which carries
 its mesh and placements) every rank runs this loop on the global batch
-stream: the optimizer state is the rank's ZeRO-1 blocks, the metrics it
+stream: the parameters are the rank's blocks under the step's
+placement (its tensor-parallel shards, and under FSDP its data block of
+them), the optimizer state its ZeRO-1 blocks, the metrics it
 reads are averaged over the ranks, so the skip / rollback decision is
 the same on every rank, and only rank 0 writes the JSONL sink and the
 checkpoints (the blocks gathered first, every rank taking part).
@@ -53,6 +55,7 @@ import torch
 from repro_torch import obs, resilience
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.dist import context as dctx
+from repro_torch.dist import sharding as shd
 from repro_torch.optim import adamw
 
 log = logging.getLogger("repro_torch.trainer")
@@ -182,9 +185,11 @@ class Trainer:
 
         self.params = (init_params if init_params is not None
                        else model.init(0))
-        opt_sh = self.shardings[1]
+        p_sh, opt_sh = self.shardings[0], self.shardings[1]
+        if p_sh is not None:           # the full tree -> this rank's blocks
+            self.params = shd.shard_params(self.params, p_sh)
         self.opt_state = adamw.init_state(
-            self.params, None if opt_sh is None else opt_sh["m"])
+            self.params, None if opt_sh is None else opt_sh["m"], p_sh)
         self.start_step = 0
         if cfg.ckpt_dir:
             step, state = self._restore_latest()
@@ -241,15 +246,22 @@ class Trainer:
 
     def _restore_latest(self):
         """restore_latest_valid of the checkpoint dir into this rank's
-        state (its ZeRO-1 blocks under a mesh; the stored arrays are
+        state (its blocks under a mesh; the stored arrays are
         full)."""
         like = {"params": self.params, "opt": self.opt_state}
         sh = self._state_shardings()
-        if sh is not None:           # the moments' full shapes
-            like["opt"] = dict(self.opt_state, **{k: adamw.tree_map(
-                lambda t, s: torch.empty(s.full_shape(t.shape),
-                                         dtype=t.dtype, device="meta"),
-                self.opt_state[k], sh["opt"][k]) for k in ("m", "v")})
+        if sh is not None:           # the leaves' full shapes
+            def full(tree, shs):
+                return adamw.tree_map(
+                    lambda t, s: torch.empty(s.full_shape(t.shape),
+                                             dtype=t.dtype, device="meta"),
+                    tree, shs)
+            like["params"] = adamw.tree_map(
+                lambda t, s: t if not s.is_split() else torch.empty(
+                    s.full_shape(t.shape), dtype=t.dtype, device="meta"),
+                self.params, sh["params"])
+            like["opt"] = dict(self.opt_state, **{
+                k: full(self.opt_state[k], sh["opt"][k]) for k in ("m", "v")})
         return ckpt.restore_latest_valid(self.cfg.ckpt_dir, like,
                                          shardings=sh)
 
@@ -296,7 +308,7 @@ class Trainer:
     def _save(self, step: int) -> None:
         """Async checkpoint; a failed previous write surfaces here and is
         absorbed (counted + logged) so training keeps running.  Under a
-        mesh every rank gathers the ZeRO-1 blocks and rank 0 writes."""
+        mesh every rank gathers its blocks and rank 0 writes."""
         tree = {"params": self.params, "opt": self.opt_state}
         sh = self._state_shardings()
         if sh is not None:

@@ -145,7 +145,8 @@ _WORLD = textwrap.dedent("""
         def sharded(batch=4):
             model, data, opt = T._setup(batch)
             b0 = {k: torch.as_tensor(v) for k, v in data.batch(0).items()}
-            step = jit_train_step(mesh, model, opt, b0, donate=False)
+            step = jit_train_step(mesh, model, opt, b0, donate=False,
+                                  fsdp=False)
             return model, data, opt, step
 
         # 3 ZeRO-1 steps
@@ -219,8 +220,10 @@ _LAUNCH = textwrap.dedent("""
         out = train.main(["--reduced", "--steps", "3", "--batch", "4",
                           "--seq", "16", "--mca", "--alpha", "0.3"],
                          device="cpu")
-        print(f"rank {rank} final {out['final_loss']!r} "
-              f"steps {out['steps']}", flush=True)
+        # one write per line, so the two ranks' lines cannot interleave
+        sys.stdout.write(f"rank {rank} final {out['final_loss']!r} "
+                         f"steps {out['steps']}\\n")
+        sys.stdout.flush()
 
     if __name__ == "__main__":
         mp.spawn(run, args=(int(sys.argv[1]),), nprocs=2, join=True)
@@ -419,12 +422,20 @@ def test_world_of_one_is_bitwise_the_unsharded_step():
 
 
 def test_step_refuses_what_is_not_ported():
+    """A model axis refuses the families it does not run (MLA here);
+    FSDP, the default, now builds a step whose params are the data
+    blocks (``tests/test_torch_fsdp.py`` runs it)."""
     from repro_torch.train.step import jit_train_step
     model, data, opt = _setup()
     b0 = {k: torch.as_tensor(v) for k, v in data.batch(0).items()}
+    mla = build_model(reduced(get_config("minicpm3-4b"), dtype="float32"),
+                      device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         jit_train_step(dctx.Mesh((1, 2), ("data", "model"), group=object()),
-                       model, opt, b0)
-    with pytest.raises(NotImplementedError, match="FSDP"):
-        jit_train_step(dctx.Mesh((2, 1), ("data", "model"), group=object()),
-                       model, opt, b0, fsdp=True)
+                       mla, opt, b0)
+    step = jit_train_step(dctx.Mesh((2, 1), ("data", "model"),
+                                    group=object()), model, opt, b0)
+    assert step.in_shardings[0] is not None
+    split = [sh for sh in adamw.leaves(step.in_shardings[0])
+             if sh.is_split()]
+    assert split and all(sh.split_axes() == ("data",) for sh in split)

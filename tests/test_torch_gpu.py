@@ -273,6 +273,11 @@ LAYER_CASES = [
      None),
     ("internvl_scalar_t", 4, 576, (2, 64), (2, 64), "bfloat16", "scalar", 0,
      True, None),
+    # starcoder2-3b on a model axis of 2: one KV head of 128 a rank
+    ("tp_one_kv_head", 8, 272, (1, 128), (1, 128), "bfloat16", "rows", 0,
+     True, None),
+    ("tp_one_kv_head_int_t", 8, 272, (1, 128), (1, 128), "bfloat16", "int",
+     0, True, None),
 ]
 
 
@@ -1198,3 +1203,129 @@ def test_two_ranks_share_the_card_over_gloo(cuda, tmp_path):
     assert out.returncode == 0, out.stderr[-4000:]
     assert sorted(out.stdout.split()) == sorted(
         "OK rank 0 OK rank 1".split())
+
+
+# ------------------------------------------------- tensor parallelism
+# starcoder2-3b on a model axis of 2: v_proj on a rank's 128 output
+# columns (one KV head), o_proj on its 1,536 input columns (12 blocks)
+TP_MCA_CASES = [(128, 3072, 128, r) for r in (1, 2, 4)] + [
+    (128, 1536, 3072, r) for r in (1, 2, 4)]
+
+
+@pytest.mark.parametrize("remap", [False, True])
+@pytest.mark.parametrize("m,d,f,r", TP_MCA_CASES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_mca_matmul_fixed_tp_shapes(cuda, m, d, f, r, dtype, remap):
+    """The tensor-parallel shapes against the plain version (1e-2 of max
+    in bf16, 1e-5 in f32), with telemetry on and off (bitwise the same
+    output, the reference's counts).  ``remap``: the row-parallel
+    dispatch's samples outside the rank's blocks, remapped to block 0
+    with weight 0 (every other sample here)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mca_matmul import mca_matmul_fixed
+    dt = getattr(torch, dtype)
+    x, w, idx, inv_rp = _mca_inputs(m, d, f, r, dt, seed=m + f + r)
+    if remap:
+        idx, inv_rp = idx.clone(), inv_rp.clone()
+        idx[::2], inv_rp[::2] = 0, 0.0
+    off = mca_matmul_fixed(x, w, idx, inv_rp, block=128)
+    on = mca_matmul_fixed(x, w, idx, inv_rp, block=128, telemetry=True)
+    want, counts = ref.ref_mca_matmul_fixed(x, w, idx, inv_rp, 128,
+                                            telemetry=True)
+    torch.cuda.synchronize()
+    tol = (1e-2 if dt == torch.bfloat16 else 1e-5) * float(
+        want.float().abs().max())
+    assert float((off.float() - want.float()).abs().max()) <= tol
+    _same_outputs(off, on)
+    assert torch.equal(on[1], counts)
+
+
+_TP_CARD = """
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+def run(rank, port, out):
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def _to(tree, device):
+        if isinstance(tree, dict):
+            return {k: _to(v, device) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [_to(v, device) for v in tree]
+        return tree.to(device)
+    from repro_torch.configs import get_config
+    from repro_torch.dist import context as dctx, sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build_model, reduced
+    from repro_torch.train.step import (make_decode_step, make_prefill_step,
+                                        serve_step_shardings)
+    dev = torch.device("cuda", 0)
+    cfg = reduced(get_config("starcoder2-3b"), dtype="float32")
+    weights = build_model(cfg, device="cpu").init(0)   # one set of weights
+    res = {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        model = build_model(cfg, device=device)
+        mesh = make_local_mesh(1, 2, device=device)
+        toks = torch.as_tensor(np.random.default_rng(0).integers(
+            1, 500, (4, 32)).astype(np.int32), device=device)
+        p_sh = serve_step_shardings(mesh, model, model.init_cache(4, 40),
+                                    toks)[0]
+        params = shd.shard_params(
+            _to(weights, device), p_sh)
+        ops.reset_launch_counts()
+        with torch.no_grad(), dctx.use_mesh(mesh):
+            cache, lg = make_prefill_step(model, 40)(params,
+                                                     {"tokens": toks})
+            outs = [lg]
+            tok = toks[:, -1:]
+            for i in range(3):
+                lg, cache = make_decode_step(model)(params, tok, cache,
+                                                    32 + i)
+                outs.append(lg)
+        res[name] = torch.cat(outs, 1).cpu().numpy()
+        res[name + "_kv"] = ops.launch_counts()["kv_slot_update"]
+        res[name + "_heads"] = int(cache["layers"]["k"].shape[-2])
+    np.savez(f"{out}/rank{rank}.npz", **res)
+    dist.destroy_process_group()
+
+if __name__ == "__main__":
+    mp.spawn(run, args=(int(sys.argv[1]), sys.argv[2]), nprocs=2, join=True)
+"""
+
+
+def test_reduced_tp_serve_on_card_matches_cpu(cuda, tmp_path):
+    """Two ranks on the card over gloo, mesh (1, 2), reduced starcoder2-3b
+    in f32, MCA off (the card's and the CPU's generators draw different
+    samples): the prefill and 3 decode steps' logits within 1e-4 of max
+    |logit| of the same ranks on the CPU; each rank's
+    cache holds its one KV head and the decode writes it with one
+    ``kv_slot_update`` launch a layer a step."""
+    import os
+    import pathlib
+    import socket
+    import subprocess
+    import sys
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    script = tmp_path / "tp_card.py"
+    script.write_text(_TP_CARD)
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, str(script), str(port),
+                          str(tmp_path)],
+                         env=dict(os.environ, PYTHONPATH=str(root / "src")),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    for r in range(2):
+        res = np.load(tmp_path / f"rank{r}.npz")
+        err = np.abs(res["card"] - res["cpu"]).max() / np.abs(
+            res["cpu"]).max()
+        assert err <= 1e-4, err
+        assert int(res["card_kv"]) == 2 * 3 and int(res["cpu_kv"]) == 0
+        assert int(res["card_heads"]) == 1 == int(res["cpu_heads"])

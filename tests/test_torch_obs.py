@@ -94,7 +94,10 @@ _GLOO_SCRIPT = textwrap.dedent("""
         assert math.isnan(he["min"]) and math.isnan(he["max"]), he
         assert agg2["counters"] == c
         dist.destroy_process_group()
-        print(f"OK rank {rank}", flush=True)
+        # one write per line: two ranks' print() text and newline could
+        # interleave on the shared pipe
+        sys.stdout.write(f"OK rank {rank}\\n")
+        sys.stdout.flush()
 
     if __name__ == "__main__":
         mp.spawn(run, args=(int(sys.argv[1]),), nprocs=2, join=True)
