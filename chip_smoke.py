@@ -248,8 +248,32 @@ Phases, each of which must pass:
              norms within 1e-5 relative.  The new mca_matmul_fixed
              shapes are held as in phase 13; phases 3 and 7 hold and
              time them and the one-head layer write.
+16. tp-families — tensor parallelism of the other five families, two
+             ranks on the card over gloo in one launch
+             (``--dist-part tp-families``), family by family: (a)
+             minicpm3-4b, mamba2-2.7b, recurrentgemma-9b, whisper-small
+             and internvl2-1b at full width (bf16, seed-0 weights, depth
+             not cut) on (1, 2), MCA on v_proj and o_proj (use_kernel):
+             ``make_prefill_step`` of 4 x 256 tokens (whisper's frames [4,
+             1500, 768], internvl's patches [4, 256, 896]) then 8 greedy
+             decode steps: mca_matmul_fixed at each rank's routing (two
+             chunks of half the rows), kv_slot_update once per attention
+             layer a step, no fallback, every logit finite, the ranks'
+             tokens equal, each rank holding about half the elements, its
+             cache's shapes printed, every kernel shape listed in
+             TP16_MCA_CASES (which phase 3 holds and phase 7 times);
+             prefill time, decode step p50, peak a rank; (b) the same
+             models cut to 4 layers (4 encoder layers) in f32 with TF32
+             off, 4 x 128: MCA off, the (1, 2) ranks' logits within 1e-5
+             of max |logit| of a world of one; MCA on (the plain sampled
+             product), layer 0's tier_hist on (1, 2) equal to (2, 1)'s,
+             the logits between them printed; (c) 2 AdamW steps on (1, 2)
+             through ``jit_train_step`` against a world of one, MCA off:
+             losses and grad norms within 1e-5 relative.  Rank 0 holds
+             every mca_matmul_fixed shape of (a) against the plain
+             version, as phase 13.
 
-Phase 10 runs between phases 5b and 7; phases 14 and 15 last.  Builds four
+Phase 10 runs between phases 5b and 7; phases 14, 15 and 16 last.  Builds four
 sources (one
 ``nvcc`` each, in parallel).  Ends with a
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
@@ -305,6 +329,31 @@ TP_MCA_CASES = [(128, 3072, 128, r) for r in (1, 2, 4)] + [
     (128, 1536, 3072, r) for r in (1, 2, 4)]
 TP_MCA_TIMED = [(128, 3072, 128, 4), (128, 1536, 3072, 4)]
 TP_KV = (272, (1, 128))
+# phase 16's shapes: the five families on a model axis of 2, at the rows
+# 4 x 256 prompts route to each sampled tier of a rank's two chunks of
+# 512 tokens (internvl: 1,024 positions): minicpm3-4b w_uv (d 256, 20
+# heads' 1,280 columns) and wo (its 10 input blocks); whisper-small v_proj
+# (6 heads' 384 columns) and self and cross o_proj (3 input blocks);
+# internvl2-1b v_proj (one KV head's 64 columns) and o_proj (448 input
+# columns, 3.5 blocks, on the block grid: 4 blocks with 64 zero columns);
+# recurrentgemma-9b v_proj (128 of 256 columns under repeat_kv) and o_proj
+# (16 input blocks).  Phase 16 fails on a shape not listed here.
+TP16_MCA_CASES = [
+    (512, 256, 1280, 1), (512, 1280, 2560, 1), (256, 1280, 2560, 2),
+    (512, 768, 384, 1), (256, 768, 384, 2), (512, 384, 768, 1),
+    (256, 384, 768, 2), (1024, 896, 64, 1), (512, 896, 64, 2),
+    (384, 896, 64, 4), (1024, 512, 896, 1), (512, 512, 896, 2),
+    (384, 512, 896, 4), (512, 4096, 128, 1), (256, 4096, 128, 2),
+    (512, 2048, 4096, 1), (256, 2048, 4096, 2)]
+TP16_MCA_TIMED = [(128, 256, 1280, 1), (128, 1280, 2560, 4),
+                  (128, 768, 384, 4), (128, 384, 768, 4), (128, 896, 64, 4),
+                  (128, 512, 896, 4), (128, 4096, 128, 4),
+                  (128, 2048, 4096, 4)]
+# phase 16's layer writes: a rank's self K/V heads (whisper 6 of 12,
+# internvl 1 of 2); minicpm3-4b's latent rows and recurrentgemma-9b's one
+# KV head are phase 9's and phase 11's, whole on every rank
+TP16_KV = [("whisper-small TP 2 (6 heads)", 320, (6, 64)),
+           ("internvl2-1b TP 2 (one KV head)", 576, (1, 64))]
 # (m, R) of every sampled tier of the serve path: a prefill bucket of n
 # tokens (16..256) fills the 1-, 2- and 4-block tiers up to n, n/2, 3n/8
 SERVE_MR = [(6, 4), (8, 2), (12, 4), (16, 1), (16, 2), (24, 4), (32, 1),
@@ -489,7 +538,8 @@ def phase_kernels():
     from repro_torch.kernels.mca_matmul import mca_matmul_fixed
     errs = {"mca_matmul_fixed": 0.0, "kv_slot_update": 0.0}
     cases = [(c, "sampled") for c in MCA_CASES + FAMILY_MCA_CASES
-             + HYBRID_MCA_CASES + ENCDEC_VLM_MCA_CASES + TP_MCA_CASES] + [
+             + HYBRID_MCA_CASES + ENCDEC_VLM_MCA_CASES + TP_MCA_CASES
+             + TP16_MCA_CASES] + [
         ((128, 3072, 3072, 24), "exact")] + [
         (c, "telemetry") for c in TEL_MCA_CASES]
     for (m, d, f, r), mode in cases:
@@ -641,7 +691,9 @@ def _check_family_layer_writes(g):
         (f"{arch} K, V [4,{slots},{tail[0]},{tail[1]}] + slot_pos", slots,
          tail, None, True) for arch, slots, tail in ENCDEC_VLM_KV] + [
         ("starcoder2-3b TP 2, one KV head: K, V [4,272,1,128] + slot_pos",
-         TP_KV[0], TP_KV[1], None, True)]
+         TP_KV[0], TP_KV[1], None, True)] + [
+        (f"{what}: K, V [4,{slots},{tail[0]},{tail[1]}] + slot_pos", slots,
+         tail, None, True) for what, slots, tail in TP16_KV]
     for what, s, tail, v_tail, with_spos in cases:
         for host_int in (False, True):
             k, v, kn, vn, spos, t = _layer_inputs(g, s=s, tail=tail,
@@ -1853,6 +1905,12 @@ def phase_numbers():
             case, plain_too=True)
     out["families"]["kv_slot_update_layer TP"] = _numbers_gqa_write(
         "starcoder2-3b TP 2 (one KV head)", *TP_KV, window=0, seed=30)
+    for case in TP16_MCA_TIMED:
+        out["families"][f"mca_matmul_fixed {case}"] = _numbers_fixed(
+            case, plain_too=True)
+    for i, (what, slots, tail) in enumerate(TP16_KV):
+        out["families"][f"kv_slot_update_layer {what}"] = _numbers_gqa_write(
+            what, slots, tail, window=0, seed=40 + i)
     shapes = list(MCA_CASES)
     for m, r in SERVE_MR:
         for f in (256, 3072):
@@ -3683,7 +3741,8 @@ def dist_part_main() -> int:
     out = pathlib.Path(sys.argv[sys.argv.index("--out") + 1])
     rank = int(os.environ["RANK"])
     res = {"a": _dist_part_a, "b": _dist_part_b, "c": _dist_part_c,
-           "tp-serve": _tp_part_serve, "tp-train": _tp_part_train}[part](
+           "tp-serve": _tp_part_serve, "tp-train": _tp_part_train,
+           "tp-families": _tp16_part}[part](
         out)
     (out / f"rank{rank}.json").write_text(json.dumps(res))
     import torch.distributed as dist
@@ -4257,6 +4316,383 @@ def phase_tp():
     return launches, serve[0]["a"]["path_shapes_err"], nums
 
 
+# ------------------------------------------------------------ phase 16
+TP16_ARCHS = ("minicpm3-4b", "mamba2-2.7b", "recurrentgemma-9b",
+              "whisper-small", "internvl2-1b")
+TP16_PROMPTS = (4, 256)          # (a): 4 prompts of 256 tokens
+TP16_DECODE = 8
+TP16_MAX_LEN = {"whisper-small": 320, "internvl2-1b": 576}   # else 272
+TP16_LAYERS = 4                  # (b), (c): depth cut, full width, f32
+TP16_PARITY = (4, 128)           # (b), (c): rows x tokens
+
+
+def _tp16_batch(cfg, b, s, seed, dev):
+    """Tokens [b, s] (with the family's frames or patches) from ``seed``,
+    and the first decode position."""
+    import numpy as np
+    import torch
+    if cfg.is_encoder_decoder or cfg.family == "vlm":
+        return _encdec_vlm_batch(cfg, b, s, seed, dev)
+    toks = np.random.default_rng(seed).integers(1, cfg.vocab_size, (b, s))
+    return {"tokens": torch.as_tensor(toks.astype(np.int32),
+                                      device=dev)}, s
+
+
+def _tp16_expected(cfg, b, s):
+    """(mca_matmul_fixed launches a rank in a prefill of ``b`` rows on (1,
+    2), kv_slot_update launches a decode step): each rank routes the two
+    chunks of half the rows, as (2, 1)'s two ranks would."""
+    from repro_torch.models import stack
+    if cfg.family == "ssm":
+        return 0, 0
+    if cfg.is_encoder_decoder or cfg.family == "vlm":
+        enc, dec = _encdec_vlm_expected_mca(cfg, b // 2, s)
+        return 2 * (enc + dec), cfg.n_layers
+    kinds = stack.layer_kinds(cfg)
+    return (2 * _expected_mca(cfg, [b // 2 * s])[0],
+            sum(k.startswith("attn") for k in kinds))
+
+
+def _tp16_shard(model, mesh, full):
+    """This rank's tensor-parallel shards of ``full`` (the serve
+    placements), and the share of the elements it holds."""
+    import torch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.train.step import serve_step_shardings
+    p_sh = serve_step_shardings(mesh, model, {},
+                                torch.empty((1, 1), device="meta"))[0]
+    params = shd.shard_params(full, p_sh)
+    share = (sum(t.numel() for t in _leaves(params))
+             / sum(t.numel() for t in _leaves(full)))
+    return params, share
+
+
+def _cache_shapes(cache):
+    out = {}
+    for k, v in cache["layers"].items():
+        if isinstance(v, dict):
+            out.update({f"{k}.{n}": list(t.shape) for n, t in v.items()})
+        else:
+            out[k] = list(v.shape)
+    return out
+
+
+def _tp16_serve(rank, mesh, dev, arch):
+    """(a) ``arch`` at full width (bf16, seed-0 weights, depth not cut) on
+    (1, 2), MCA on v_proj and o_proj through the kernel: ``make_prefill_
+    step`` of 4 x 256 tokens (whisper's frames, internvl's patches), then
+    8 greedy decode steps, each synchronised and timed."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import MCAConfig
+    from repro_torch.dist import context as dctx
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.train.step import make_prefill_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    mca = MCAConfig(enabled=True, alpha=0.2, block=128, use_kernel=True,
+                    sites=("v_proj", "o_proj"))
+    cfg = get_config(arch, mca=mca)
+    model = build_model(cfg, device=dev)
+    b, s = TP16_PROMPTS
+    batch, t0 = _tp16_batch(cfg, b, s, 16, dev)
+    max_len = TP16_MAX_LEN.get(arch, DIST_MAX_LEN)
+    full = model.init(0)
+    params, share = _tp16_shard(model, mesh, full)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_start
+    torch.cuda.reset_peak_memory_stats()        # the serving peak
+
+    def clock():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    with torch.no_grad(), obs.scoped() as reg, _MCAShapes() as shapes, \
+            dctx.use_mesh(mesh):
+        ops.reset_launch_counts()
+        t1 = clock()
+        cache, logits = make_prefill_step(model, max_len)(params, batch)
+        prefill_s = clock() - t1
+        pre = ops.launch_counts()
+        ops.reset_launch_counts()
+        tok = torch.argmax(logits[..., :cfg.vocab_size], -1).to(torch.int32)
+        toks, _, bad, step_s = _decode_greedy(model, params, tok, cache,
+                                              t0, TP16_DECODE, clock)
+        dec = ops.launch_counts()
+        counters = _kernel_counters(reg.snapshot())
+    want_mca, kv_step = _tp16_expected(cfg, b, s)
+    res = {"arch": arch, "rank": rank, "share": share, "init_s": init_s,
+           "prefill_s": prefill_s,
+           "decode_p50_s": float(np.median(step_s)),
+           "decode_s": float(np.sum(step_s)),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "mca_launches": pre["mca_matmul_fixed"], "want_mca": want_mca,
+           "kv_launches": dec["kv_slot_update"],
+           "want_kv": kv_step * TP16_DECODE,
+           "entry_launches": sum(pre[k] + dec[k] for k in ENTRY_KERNELS),
+           "fallbacks": {k: v for k, v in counters.items()
+                         if k.endswith("fallback_calls") and v},
+           "finite": not bool(bad), "cache": _cache_shapes(cache),
+           "tokens": torch.cat([tok] + toks, 1).cpu().tolist(),
+           "shapes": sorted(shapes.seen)}
+    del cache, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _tp16_cfg(arch, **kw):
+    """``arch`` cut to TP16_LAYERS layers (and as many encoder layers), in
+    f32: (b) and (c)'s models."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch, dtype="float32", n_layers=TP16_LAYERS, **kw)
+    if cfg.is_encoder_decoder:
+        cfg = cfg.replace(n_encoder_layers=TP16_LAYERS)
+    return cfg
+
+
+def _tp16_parity(rank, tp_mesh, dp_mesh, dev, arch, out):
+    """(b) ``arch`` at 4 layers, full width, f32 (TF32 off), 4 x 128: MCA
+    off, each rank's last-position logits on (1, 2) and, on rank 0, a
+    world of one's, saved for the check; MCA on v_proj and o_proj (the
+    plain sampled product), every routing's tier_hist and the logits on
+    (1, 2) and on (2, 1).  (c) 2 AdamW steps (MCA off) on (1, 2) through
+    ``jit_train_step``, and on rank 0 a world of one's: losses and grad
+    norms."""
+    import gc
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import policy
+    from repro_torch.core.policy import MCAConfig
+    from repro_torch.dist import context as dctx
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import jit_train_step, make_prefill_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    cfg = _tp16_cfg(arch)
+    model = build_model(cfg, device=dev)
+    b, s = TP16_PARITY
+    batch, t0 = _tp16_batch(cfg, b, s, 17, dev)
+    max_len = t0 + TP16_DECODE
+    full = model.init(0)
+    params, _ = _tp16_shard(model, tp_mesh, full)
+    res = {"arch": arch, "rank": rank}
+    tag = arch.split("-")[0]
+
+    def save(name, lg):           # the real vocabulary (padding is -1e30)
+        np.save(out / f"{tag}_{name}.npy",
+                lg[..., :cfg.vocab_size].cpu().numpy())
+
+    with torch.no_grad():
+        with dctx.use_mesh(tp_mesh):
+            _, lg = make_prefill_step(model, max_len, with_mca=False)(
+                params, batch)
+        save(f"off_{rank}", lg)
+        if rank == 0:
+            _, lg = make_prefill_step(model, max_len, with_mca=False)(
+                full, batch)
+            save("off_world1", lg)
+    del lg
+    if cfg.family != "ssm":
+        mca = MCAConfig(enabled=True, alpha=0.2, block=128,
+                        sites=("v_proj", "o_proj"))
+        m_mca = build_model(cfg.replace(mca=mca), device=dev)
+        for mtag, mesh, p in (("12", tp_mesh, params), ("21", dp_mesh, full)):
+            calls = []
+            undo = _spy(policy, "_tiered_maybe_sharded", calls)
+            try:
+                with torch.no_grad(), dctx.use_mesh(mesh):
+                    _, lg = make_prefill_step(m_mca, max_len)(p, batch)
+            finally:
+                undo()
+            res["hists" + mtag] = [r[1].tolist() for _, _, r in calls]
+            save(f"mca{mtag}_{rank}", lg)
+        del m_mca, lg
+    res["b_s"] = time.perf_counter() - t_start
+    # (c) two AdamW steps, MCA off
+    t_c = time.perf_counter()
+    opt = adamw.AdamWConfig(lr=3e-4, schedule=adamw.cosine_schedule(1, 2))
+    batches = []
+    for i in range(2):
+        bi, _ = _tp16_batch(cfg, b, s, 18 + i, dev)
+        labels = torch.roll(bi["tokens"], -1, 1)
+        labels[:, -1] = -1
+        batches.append(dict(bi, labels=labels))
+    step = jit_train_step(tp_mesh, model, opt, batches[0], donate=False)
+    p_sh = step.in_shardings[0]
+    params = shd.shard_params(full, p_sh)
+    if rank != 0:
+        del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = adamw.init_state(params, step.in_shardings[1]["m"], p_sh)
+    losses, gnorms = [], []
+    with dctx.use_mesh(tp_mesh):
+        for bi in batches:
+            params, state, m = step(params, state, bi)
+            losses.append(float(m["total_loss"]))
+            gnorms.append(float(m["grad_norm"]))
+    res["c"] = {"losses": losses, "gnorms": gnorms,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()                    # rank 1's state freed before rank 0's
+    if rank == 0:                     # world of one, the same steps
+        flat = make_train_step(model, opt, with_mca=False)
+        state = adamw.init_state(full)
+        losses, gnorms = [], []
+        for bi in batches:
+            full, state, m = flat(full, state, bi)
+            losses.append(float(m["total_loss"]))
+            gnorms.append(float(m["grad_norm"]))
+        res["c"]["world1"] = {"losses": losses, "gnorms": gnorms}
+        del full, state
+    dist.barrier()
+    res["c_s"] = time.perf_counter() - t_c
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _tp16_part(out):
+    """Phase 16, two ranks on the card: each family's (a), (b) and (c)
+    in turn, in this one launch; rank 0 then holds every mca_matmul_fixed
+    shape (a) gave against the plain version."""
+    rank, tp_mesh, dev = _tp_setup(1, 2)
+    _, dp_mesh, _ = _tp_setup(2, 1)
+    res = {"rank": rank, "a": {}, "b": {}}
+    seen = set()
+    for arch in TP16_ARCHS:
+        res["a"][arch] = _tp16_serve(rank, tp_mesh, dev, arch)
+        seen.update(map(tuple, res["a"][arch]["shapes"]))
+        res["b"][arch] = _tp16_parity(rank, tp_mesh, dp_mesh, dev, arch, out)
+        log(f"[tp-families] rank {rank} {arch} done")
+    if rank == 0:
+        res["path_shapes_err"] = phase_path_shapes(seen)
+    return res
+
+
+def _tp16_check(ranks):
+    """Phase 16's checks and lines; returns (launches, numbers)."""
+    import numpy as np
+    out = DIST_DIR / "tp-families"
+    nums = {}
+    launches = {"mca_matmul_fixed": 0, "kv_slot_update": 0}
+    fail = []
+    for arch in TP16_ARCHS:
+        tag = arch.split("-")[0]
+        a0 = ranks[0]["a"][arch]
+        for r in ranks:
+            a = r["a"][arch]
+            launches["mca_matmul_fixed"] += a["mca_launches"]
+            launches["kv_slot_update"] += a["kv_launches"]
+            unlisted = [sh for sh in map(tuple, a["shapes"])
+                        if sh[4:] == ("bfloat16", 128)
+                        and sh[:4] not in TP16_MCA_CASES]
+            log(f"[tp-families] (a) {arch} (1, 2) rank {a['rank']}: holds "
+                f"{a['share']:.4f} of the elements; made in "
+                f"{a['init_s']:.1f} s; prefill of 4 x 256 in "
+                f"{a['prefill_s']:.3f} s, mca_matmul_fixed "
+                f"{a['mca_launches']} launches (predicted {a['want_mca']}),"
+                f" fallbacks {a['fallbacks'] or 0}; {TP16_DECODE} decode "
+                f"steps p50 {1e3 * a['decode_p50_s']:.2f} ms, "
+                f"kv_slot_update {a['kv_launches']} launches (predicted "
+                f"{a['want_kv']}); logits finite {a['finite']}; peak "
+                f"{a['peak_mem_gb']:.2f} GB; cache {a['cache']}; kernel "
+                f"shapes {[sh[:4] for sh in map(tuple, a['shapes'])]}")
+            if (a["mca_launches"] != a["want_mca"] or a["fallbacks"]
+                    or a["kv_launches"] != a["want_kv"] or not a["finite"]
+                    or a["entry_launches"] or unlisted
+                    or not 0.4 < a["share"] < 0.6
+                    or (arch != "mamba2-2.7b" and not a["want_mca"])):
+                fail.append(f"(a) {arch} rank {a['rank']} (unlisted "
+                            f"shapes {unlisted})")
+        if ranks[1]["a"][arch]["tokens"] != a0["tokens"]:
+            fail.append(f"(a) {arch}: the ranks' greedy tokens differ")
+        world1 = np.load(out / f"{tag}_off_world1.npy")
+        err = max(float(np.abs(np.load(out / f"{tag}_off_{r}.npy")
+                               - world1).max() / np.abs(world1).max())
+                  for r in (0, 1))
+        b0 = ranks[0]["b"][arch]
+        line = (f"[tp-families] (b) {arch} {TP16_LAYERS} layers f32, 4 x "
+                f"128, MCA off: (1, 2) logits vs a world of one "
+                f"max|diff|/max|logit| {err:.3e} (limit 1e-5)")
+        mca_err, layer0_ok, later = None, True, []
+        if "hists12" in b0:
+            dp = np.concatenate([np.load(out / f"{tag}_mca21_{r}.npy")
+                                 for r in (0, 1)])
+            mca_err = max(float(np.abs(np.load(out / f"{tag}_mca12_{r}.npy")
+                                       - dp).max() / np.abs(dp).max())
+                          for r in (0, 1))
+            for r in ranks:
+                h12, h21 = r["b"][arch]["hists12"], r["b"][arch]["hists21"]
+                layer0_ok &= h12[:2] == h21[:2] and len(h12) == len(h21)
+                later.append([int(np.abs(np.array(x) - np.array(y)).sum())
+                              for x, y in zip(h12, h21)])
+            line += (f"; MCA on: layer 0's tier_hist (v_proj, o_proj) "
+                     f"{b0['hists12'][:2]} on (1, 2), {b0['hists21'][:2]} on "
+                     f"(2, 1): equal {layer0_ok}; every routing's summed "
+                     f"|difference| {later}; logits (1, 2) vs (2, 1) "
+                     f"max|diff|/max|logit| {mca_err:.3e} (measured)")
+        c = b0["c"]
+        rel = max(_rel(c["losses"], c["world1"]["losses"]),
+                  _rel(c["gnorms"], c["world1"]["gnorms"]))
+        line += (f"; (c) 2 AdamW steps on (1, 2): losses {c['losses']} "
+                 f"grad norms {c['gnorms']} vs a world of one "
+                 f"{c['world1']['losses']} {c['world1']['gnorms']}: max rel "
+                 f"{rel:.2e} (limit 1e-5); peak "
+                 f"{c['peak_mem_gb']:.2f} GB a rank; (b) {b0['b_s']:.1f} s, "
+                 f"(c) {b0['c_s']:.1f} s")
+        log(line)
+        if not (err <= 1e-5 and layer0_ok and rel <= 1e-5):
+            fail.append(f"(b)/(c) {arch}")
+        nums[arch] = {
+            "prefill_s": [r["a"][arch]["prefill_s"] for r in ranks],
+            "decode_p50_ms": [1e3 * r["a"][arch]["decode_p50_s"]
+                              for r in ranks],
+            "peak_gb": [r["a"][arch]["peak_mem_gb"] for r in ranks],
+            "mca_launches": a0["mca_launches"],
+            "kv_launches": a0["kv_launches"], "b_off_err": err,
+            "b_mca_err": mca_err, "c_rel": rel}
+    if fail:
+        raise AssertionError("phase 16 failed: " + "; ".join(fail))
+    return launches, nums
+
+
+def phase_tp_families():
+    """Phase 16: tensor parallelism of the MLA, SSM, hybrid, encoder-
+    decoder and VLM families, two ranks on the card over gloo.  Returns
+    (main-path launches, the max error of the shapes held, numbers)."""
+    import gc
+    import shutil
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = _torchrun(2, "tp-families", 600)
+    launches, nums = _tp16_check(ranks)
+    nums["phase_s"] = time.perf_counter() - t0
+    log(f"[tp-families] phase 16 in {nums['phase_s']:.1f}s; main-path "
+        f"launches {launches}")
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    return launches, ranks[0]["path_shapes_err"], nums
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4287,15 +4723,17 @@ def main() -> int:
                                    phase_path_shapes(path_shapes.seen))
     dist_launches, dist_err, dist_nums = phase_dist()
     tp_launches, tp_err, tp_nums = phase_tp()
+    tp16_launches, tp16_err, tp16_nums = phase_tp_families()
     errs["mca_matmul_fixed"] = max(errs["mca_matmul_fixed"], dist_err,
-                                   tp_err)
+                                   tp_err, tp16_err)
     for k in SERVE_KERNELS:
         launches[k] += (fam_launches[k] + ssm_launches[k] + ev_launches[k]
-                        + dist_launches[k] + tp_launches[k])
+                        + dist_launches[k] + tp_launches[k]
+                        + tp16_launches[k])
         per[k] += (f"; phase 9: {fam_launches[k]}; phase 11: "
                    f"{ssm_launches[k]}; phase 12: {ev_launches[k]}; "
                    f"phase 14: {dist_launches[k]}; phase 15: "
-                   f"{tp_launches[k]}")
+                   f"{tp_launches[k]}; phase 16: {tp16_launches[k]}")
     per["mca_matmul_fixed"] += (" (per prefill of <= 256 tokens: olmoe "
                                 "16 x 2 x 3 = 96, minicpm3 62 x (1 + 3) "
                                 "= 248; recurrentgemma-9b: 12 attention "
@@ -4304,11 +4742,14 @@ def main() -> int:
                                 "the encoder; internvl2-1b 24 x 2 x 3 = "
                                 "144; phase 15, two chunks a rank: "
                                 "starcoder2-3b 2 x 180 = 360 a rank, "
-                                "olmoe-1b-7b 2 x 64 = 128 a rank)")
+                                "olmoe-1b-7b 2 x 64 = 128 a rank; phase "
+                                "16, two chunks a rank: the routing's, "
+                                "printed on its (a) lines)")
     per["kv_slot_update"] += (" (per decode step: olmoe 16, minicpm3 62, "
                               "recurrentgemma-9b 12, mamba2-2.7b 0, "
                               "whisper-small 12, internvl2-1b 24; phase "
-                              "15: 30 a rank, one KV head each)")
+                              "15: 30 a rank, one KV head each; phase 16: "
+                              "as phases 9, 11 and 12, a rank)")
     meta = {
         "mca_matmul_fixed": ("src/repro_torch/csrc/mca_matmul.cu",
                              "src/repro/kernels/mca_matmul.py:84"),
@@ -4336,11 +4777,13 @@ def main() -> int:
         f"{devtel_nums['phase_s']:.1f}s, phase 11: "
         f"{ssm_nums['phase_s']:.1f}s, phase 12: {ev_nums['phase_s']:.1f}s, "
         f"phase 14: {dist_nums['phase_s']:.1f}s, phase 15: "
-        f"{tp_nums['phase_s']:.1f}s)")
+        f"{tp_nums['phase_s']:.1f}s, phase 16: "
+        f"{tp16_nums['phase_s']:.1f}s)")
     log(json.dumps({"serve": serve_nums, "train": train_nums,
                     "families": fam_nums, "devtel": devtel_nums,
                     "ssm_hybrid": ssm_nums, "encdec_vlm": ev_nums,
                     "dist": dist_nums, "tp": tp_nums,
+                    "tp_families": tp16_nums,
                     "family_kernels": nums["families"], "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -110,7 +110,8 @@ def tiered_mca_matmul(key: int, x: torch.Tensor, w: torch.Tensor,
 
 def per_token_mca_matmul(key: int, x: torch.Tensor, w: torch.Tensor,
                          r_blocks: torch.Tensor, block: int = DEFAULT_BLOCK,
-                         probs: Optional[torch.Tensor] = None
+                         probs: Optional[torch.Tensor] = None,
+                         local_blocks: Optional[Sequence[int]] = None
                          ) -> torch.Tensor:
     """Paper-faithful per-token estimator (Mode A / oracle): token j uses
     the first r_blocks[j] of K i.i.d. draws.  x: [n, d] -> [n, f].
@@ -118,13 +119,19 @@ def per_token_mca_matmul(key: int, x: torch.Tensor, w: torch.Tensor,
     Leading dims batch independent problems, each with its own weight (the
     reference ``vmap``s over experts): x [*L, n, d], w [*L, d, f],
     r_blocks [*L, n] -> [*L, n, f]; every row draws from one generator.
+
+    ``local_blocks = (first, count)``: ``x`` and ``w`` hold only the
+    blocks ``first .. first + count`` of the K that ``probs`` spans
+    (row-parallel tensor parallelism, as ``tiered_mca_matmul``): the
+    draws are over all K, and the result is this rank's part of the
+    estimate.
     """
     lead = x.shape[:-2]
-    n, d = x.shape[-2], x.shape[-1]
+    n = x.shape[-2]
     f = w.shape[-1]
-    k = num_blocks(d, block)
     if probs is None:
         probs = block_probs(w, block, lead=len(lead))
+    k = probs.shape[-1]
     idx = torch.multinomial(probs.float().reshape(-1, k), n * k,
                             replacement=True,
                             generator=generator(key, x.device)
@@ -134,6 +141,9 @@ def per_token_mca_matmul(key: int, x: torch.Tensor, w: torch.Tensor,
     onehot = (idx[..., None] == ar) & use[..., None]
     counts = torch.sum(onehot.float(), dim=-2)                   # [*L, n, K]
     scale = counts / (r_blocks[..., None].float() * probs[..., None, :])
+    if local_blocks is not None:
+        first, k = local_blocks
+        scale = scale[..., first:first + k]
     xb = x.reshape(*lead, n, k, block)
     wb = w.reshape(*lead, k, block, f)
     out = torch.einsum("...nk,...nkb,...kbf->...nf",

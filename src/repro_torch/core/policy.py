@@ -31,11 +31,18 @@ model ranks route the same chunks and ``tier_hist`` sums over the data
 axes only.  No weight is gathered.  ``tp="col"``: ``w`` holds this
 rank's output columns; the block probabilities sum the ranks' block
 norms, and the sampled product runs on the local columns.  ``tp="row"``:
-``x`` and ``w`` hold this rank's input blocks; the probabilities gather
-the ranks' block norms, samples are drawn over every block and those
-outside the rank's blocks weigh 0 (``dispatch.tiered_mca_matmul``'s
-``local_blocks``), and the caller sums the ranks' parts over
-``"model"``.
+``x`` and ``w`` hold this rank's input columns, placed on the whole
+weight's block grid and zero-padded to the blocks they touch, so a
+block split between two ranks is a block of each whose parts sum to
+its product; the probabilities sum the ranks' norms of each block,
+samples are drawn over every block and those outside the rank's blocks
+weigh 0 (``dispatch.tiered_mca_matmul``'s ``local_blocks``), and the
+caller sums the ranks' parts over ``"model"``.
+
+The per-token mode on a model axis draws, on every model rank, the same
+samples from the whole weight's block probabilities (the key is folded
+with the data shard only): a column shard computes its columns, a row
+shard the samples that fall in its blocks (``local_blocks`` as above).
 """
 from __future__ import annotations
 
@@ -135,17 +142,18 @@ def mca_project(key: Optional[int], x: torch.Tensor, w: torch.Tensor,
     mesh = dctx.get_mesh()
 
     if cfg.mode == "per_token":
-        if shards > 1:          # the rank's own rows draw their own samples
-            dctx.require_data_parallel(mesh, "per-token mca_project")
-            key = amm.fold_in(key, dctx.shard_index(mesh))
-        elif dctx.model_size(mesh) > 1:
-            dctx.require_data_parallel(mesh, "per-token mca_project")
-        y2 = dispatch.per_token_mca_matmul(key, x2, w, r_blocks, block)
-        mca_fl = amm.sampled_flops(r_blocks, f, block)
+        if shards > 1:          # the data shard's rows draw their own
+            key = amm.fold_in(key, dctx.axis_index(mesh, dctx.dp_axes(mesh)))
+        x2, w, probs, local_blocks = _tp_operands(x2, w, block, tp, mesh)
+        y2 = dispatch.per_token_mca_matmul(key, x2, w, r_blocks, block,
+                                           probs=probs,
+                                           local_blocks=local_blocks)
+        mca_fl = amm.sampled_flops(r_blocks, f_full, block)
         hist = local_hist = dispatch.tier_histogram(tier, len(ladder))
         if shards > 1:
-            mca_fl = dctx.psum(torch.as_tensor(mca_fl), mesh)
-            hist = dctx.psum(hist, mesh)
+            dp = dctx.dp_axes(mesh)
+            mca_fl = dctx.psum(torch.as_tensor(mca_fl), mesh, dp)
+            hist = dctx.psum(hist, mesh, dp)
     else:
         y2, hist, local_hist = _tiered_maybe_sharded(
             key, x2, w, tier, imp, ladder, cfg, block, tp)
@@ -170,14 +178,33 @@ def mca_project(key: Optional[int], x: torch.Tensor, w: torch.Tensor,
     return y, stats
 
 
-def _probs(w, block, tp, mesh):
-    """The block probabilities of the whole weight from this rank's
-    shard of it (see the module doc)."""
-    n2 = amm.block_sq_norms(w, block)
-    if tp is not None and dctx.model_size(mesh) > 1:
-        n2 = (dctx.psum(n2, mesh, ("model",)) if tp == "col"
-              else dctx.all_gather(n2, mesh, ("model",), 0))
-    return amm.probs_from_sq_norms(n2)
+def _tp_operands(x2, w, block, tp, mesh):
+    """(x2, w, the whole weight's block probabilities, local_blocks) for
+    this rank's shard (see the module doc): ``"col"`` sums the ranks'
+    block norms; ``"row"`` places this rank's columns on the block grid,
+    zero-padding ``x2``'s columns and ``w``'s rows to the blocks they
+    touch, and sums the ranks' norms of each block (a split block's is
+    the sum of its parts).  The sums are differentiable, as the norms
+    are at one rank."""
+    if tp is None or dctx.model_size(mesh) == 1:
+        return x2, w, amm.block_probs(w, block), None
+    if tp == "col":
+        n2 = dctx.sum_over_model(amm.block_sq_norms(w, block))
+        return x2, w, amm.probs_from_sq_norms(n2), None
+    d = x2.shape[1]
+    off = dctx.model_index(mesh) * d
+    first = off // block
+    count = -(-(off + d) // block) - first
+    lo = off - first * block
+    hi = count * block - d - lo
+    if lo or hi:
+        x2 = torch.nn.functional.pad(x2, (lo, hi))
+        w = torch.nn.functional.pad(w, (0, 0, lo, hi))
+    k = d * dctx.model_size(mesh) // block
+    n2 = torch.nn.functional.pad(amm.block_sq_norms(w, block),
+                                 (first, k - first - count))
+    probs = amm.probs_from_sq_norms(dctx.sum_over_model(n2))
+    return x2, w, probs, (first, count)
 
 
 def _tiered_maybe_sharded(key, x2, w, tier, imp, ladder, cfg, block,
@@ -195,15 +222,7 @@ def _tiered_maybe_sharded(key, x2, w, tier, imp, ladder, cfg, block,
     mesh = dctx.get_mesh()
     shards = dctx.row_shards()
     nm = dctx.model_size(mesh)
-    probs = _probs(w, block, tp, mesh)
-    local_blocks = None
-    if tp == "row" and nm > 1:
-        if x2.shape[1] % block:
-            raise NotImplementedError(
-                f"row-parallel MCA needs a rank's {x2.shape[1]} input "
-                f"columns to be whole blocks of {block} (ROADMAP.md)")
-        count = x2.shape[1] // block
-        local_blocks = (dctx.model_index(mesh) * count, count)
+    x2, w, probs, local_blocks = _tp_operands(x2, w, block, tp, mesh)
     chunks = None
     if mesh is not None and mesh.size > 1:
         if shards > 1:

@@ -11,13 +11,14 @@ so a rank's number in the group is its linear index over the mesh
 Execution: one process per rank.  The data axes split the global batch
 (each rank holds its rows, shard-local MCA routing and MoE dispatch,
 statistics summed over the data ranks).  A ``"model"`` axis larger than
-1 runs Megatron tensor parallelism for the dense and MoE families with
-GQA attention: each rank holds its shard of every weight as
-``dist.sharding.param_shardings`` places it, computes its heads and its
-FFN columns, and the Megatron pair of differentiable collectives joins
-the shards (:func:`copy_to_model`: identity forward, sum over
-``"model"`` backward; :func:`reduce_from_model`: the reverse).  The
-other families refuse a model axis (:func:`require_data_parallel`).
+1 runs Megatron tensor parallelism for every model family: each rank
+holds its shard of every weight as ``dist.sharding.param_shardings``
+places it, computes its heads (attention, SSD), its channels (RG-LRU)
+and its FFN columns, and the Megatron pair of differentiable
+collectives joins the shards (:func:`copy_to_model`: identity forward,
+sum over ``"model"`` backward; :func:`reduce_from_model`: the reverse).
+Only code with no tensor-parallel form refuses a model axis
+(:func:`require_data_parallel` given no config).
 :func:`constrain`, :func:`constrain_heads` and :func:`constrain_residual`
 return ``x`` unchanged: the residual stream is replicated over
 ``"model"``, which is numerically what the reference's placement hints
@@ -176,25 +177,23 @@ def model_size(mesh: Optional[Mesh] = None) -> int:
 
 def tp_family(cfg) -> bool:
     """Whether ``cfg``'s family runs on a ``"model"`` axis larger than 1:
-    the dense and MoE decoder-only families with GQA attention."""
-    return (cfg.family in ("dense", "moe") and cfg.attn_type == "gqa"
-            and not cfg.is_encoder_decoder)
+    every family the port builds (dense, MoE, VLM and audio with GQA or
+    MLA attention, the encoder-decoder, SSM and the hybrid)."""
+    return cfg.family in ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
 
 
 def require_data_parallel(mesh: Mesh, what: str = "execution",
                           cfg=None) -> None:
     """Raise unless ``mesh`` can execute ``cfg``'s family: a ``"model"``
-    axis larger than 1 runs only the families :func:`tp_family` names
-    (``cfg=None``: a piece of code with no tensor-parallel form), and a
+    axis larger than 1 refuses only code with no tensor-parallel form
+    (``cfg=None``) and a family :func:`tp_family` does not name, and a
     mesh of more than one rank needs a process group."""
     nm = mesh.shape.get("model", 1)
     if nm > 1 and (cfg is None or not tp_family(cfg)):
-        name = "" if cfg is None else (
-            f" for {cfg.name} ({cfg.family}, {cfg.attn_type} attention)")
+        name = "" if cfg is None else f" for {cfg.name} ({cfg.family})"
         raise NotImplementedError(
             f"{what}{name} with a 'model' axis of {nm} (tensor "
-            "parallelism) is not ported: only the dense and MoE families "
-            "with GQA attention run on one (ROADMAP.md, Queue 1)")
+            "parallelism) has no tensor-parallel form (ROADMAP.md)")
     if mesh.size > 1 and mesh.group is None:
         raise ValueError(f"{what} on {mesh} needs a process group: build "
                          "it with launch.mesh.make_local_mesh")
@@ -382,6 +381,23 @@ class _GatherFromModel(torch.autograd.Function):
                         ctx.n), None, None
 
 
+class _GatherReplicated(torch.autograd.Function):
+    """All-gather along ``dim`` over ``"model"`` forward; backward this
+    rank's block of the gradient, with no sum: for a gathered tensor
+    that joins the replicated residual, whose gradient every model rank
+    holds whole."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim, ctx.n = mesh, dim, x.shape[dim]
+        return all_gather(x.detach(), mesh, _MODEL, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, model_index(ctx.mesh) * ctx.n,
+                        ctx.n).contiguous(), None, None
+
+
 def _tp_mesh() -> Optional[Mesh]:
     mesh = get_mesh()
     return mesh if mesh is not None and model_size(mesh) > 1 else None
@@ -407,6 +423,50 @@ def gather_from_model(x: torch.Tensor, dim: int) -> torch.Tensor:
     mesh = _tp_mesh()
     return x if mesh is None else _GatherFromModel.apply(x, mesh,
                                                           dim % x.dim())
+
+
+def gather_replicated(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The model ranks' ``x`` concatenated on ``dim``, for a result that
+    joins the replicated residual (see :class:`_GatherReplicated`)."""
+    mesh = _tp_mesh()
+    return x if mesh is None else _GatherReplicated.apply(x, mesh,
+                                                           dim % x.dim())
+
+
+def sum_over_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over ``"model"`` (in f32) that every rank then
+    uses in its own way: forward and backward both sum over the ranks
+    (:func:`reduce_from_model`, then :func:`copy_to_model`)."""
+    return copy_to_model(reduce_from_model(x))
+
+
+def full_cols(x: torch.Tensor, w: torch.Tensor, full: int) -> torch.Tensor:
+    """``x @ w`` with all ``full`` output columns on every rank: gathered
+    over ``"model"`` from a column-parallel ``w``, or the product with
+    a replicated ``w`` (whose gradient is then summed over the ranks,
+    each of which uses the result in its own way).  ``x`` is the input
+    as the ranks share it (:func:`copy_to_model`'s output on a model
+    axis)."""
+    if w.shape[-1] == full:
+        return x @ copy_to_model(w)
+    return gather_from_model(x @ w, -1)
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor, full: int
+                 ) -> torch.Tensor:
+    """``x @ w`` for a row-parallel ``w`` of ``full`` rows, whole on every
+    rank: with its rows split, this rank's part (``x`` holds this rank's
+    columns, or all ``full`` of them and is cut here) summed over
+    ``"model"`` in f32; a whole ``w`` gives its product from the first
+    model rank and 0 from the others, so the sum is exact.  Without a
+    model axis, ``x @ w``."""
+    if _tp_mesh() is None:
+        return x @ w
+    if w.shape[-2] != full:
+        if x.shape[-1] == full:
+            x = x[..., model_slice(full)]
+        return reduce_from_model(x @ w)
+    return reduce_from_model(first_model_share(x @ copy_to_model(w)))
 
 
 def first_model_share(x: torch.Tensor) -> torch.Tensor:

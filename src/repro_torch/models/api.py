@@ -43,9 +43,11 @@ stats only, its loss metrics have no ``mca_tier_hist``, and its prefill
 draws the cross attention's samples from the layer key where the forward
 draws them from ``fold_in(layer key, 7)`` (ROADMAP.md, Queue 3).
 
-On a ``"model"`` axis larger than 1 (the dense and MoE families with
-GQA; the others raise, naming ROADMAP.md) each rank holds its shards
-(``dist.sharding.shard_params``) and the vocabulary is split too: the
+On a ``"model"`` axis larger than 1 (every family) each rank holds its
+shards (``dist.sharding.shard_params``), the VLM's column-parallel
+``patch_proj`` gives each rank its columns of the patch embeddings,
+gathered before they join the token embeddings, and the vocabulary is
+split too: the
 embedding looks up the rank's rows of the table and sums over
 ``"model"``, the logits are gathered over it, and :func:`chunked_xent`
 takes the log-sum-exp over the vocab shards (a max and a sum over
@@ -256,6 +258,8 @@ def _lm_embed(params, cfg, batch):
     x = _embed(params, cfg, batch["tokens"])
     if cfg.family == "vlm" and "patches" in batch:
         px = batch["patches"].to(x.dtype) @ params["patch_proj"]
+        if px.shape[-1] != cfg.d_model:      # this rank's columns
+            px = dctx.gather_replicated(px, -1)
         x = torch.cat([px, x], dim=1)
     if cfg.add_sinusoidal_pos:
         pe = sinusoidal_pos_emb(x.shape[1], cfg.d_model, x.dtype, x.device)
@@ -542,7 +546,7 @@ def _encdec_hidden(params, cfg, batch, mca_key=None, gather=None):
     enc_key = None if mca_key is None else fold_in(mca_key, 101)
     enc_out, enc_stats = _encode(params, cfg, batch["frames"], enc_key,
                                  gather)
-    x = _with_pe(embed_tokens(params["embed"], batch["tokens"]))
+    x = _with_pe(_embed(params, cfg, batch["tokens"]))
     pos = torch.arange(x.shape[1], device=x.device)[None]
     x, aux, stats = stack.stack_forward(
         params["dec_layers"], cfg, x, pos=pos, mca_key=mca_key,
@@ -563,8 +567,11 @@ def _encdec_loss(params, cfg, batch, mca_key=None, gather=None):
 
 
 def _encdec_cache(cfg, batch, max_len, enc_len, device):
+    """On a model axis the self and cross K/V hold this rank's KV heads
+    (``attention.cache_kv_heads``)."""
     dt = cfg.torch_dtype
-    cross = (cfg.n_layers, batch, enc_len, cfg.n_kv_heads, cfg.d_head)
+    cross = (cfg.n_layers, batch, enc_len, attn.cache_kv_heads(cfg),
+             cfg.d_head)
     return {"layers": {
         "self": attn.init_gqa_cache(cfg, batch, max_len, dt, device,
                                     n_layers=cfg.n_layers),
@@ -580,7 +587,7 @@ def _encdec_prefill(params, cfg, batch, max_len, mca_key=None):
             "pos_offset prefill is not supported for encoder-decoder models")
     enc_key = None if mca_key is None else fold_in(mca_key, 101)
     enc_out, _ = _encode(params, cfg, batch["frames"], enc_key)
-    x = _with_pe(embed_tokens(params["embed"], batch["tokens"]))
+    x = _with_pe(_embed(params, cfg, batch["tokens"]))
     b, s = x.shape[0], x.shape[1]
     pos = torch.arange(s, device=x.device)[None]
     # the prefill fills max_len self slots whatever the window, as the
@@ -615,15 +622,13 @@ def _encdec_prefill(params, cfg, batch, max_len, mca_key=None):
 
 def _cross_decode(p, cfg, x, ck, cv):
     """One-query cross attention against cached encoder K/V: f32 scores
-    and softmax, the probabilities cast to the cache's dtype for A@V."""
-    b = x.shape[0]
-    hkv, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-    dh = cfg.d_head
-    q = (x @ p["wq"]).reshape(b, 1, hkv, g, dh)
-    s = torch.einsum("bqhgd,bshd->bhgqs", q.float(), ck.float())
-    a = torch.softmax(s * dh ** -0.5, dim=-1)
-    out = torch.einsum("bhgqs,bshd->bqhgd", a.to(cv.dtype), cv)
-    return out.reshape(b, 1, cfg.n_heads * dh) @ p["wo"]
+    and softmax, the probabilities cast to the cache's dtype for A@V.
+    On a model axis a rank attends its q heads (or all of them, as
+    ``gqa_decode``) and ``wo``'s parts are summed over ``"model"``."""
+    q_split = attn.decode_q_split(p, cfg)
+    y, _ = attn.attend_cached(p, cfg, attn.decode_q(p, cfg, x, q_split),
+                              ck, cv, None, q_split)
+    return y
 
 
 def _pe_row(t, n: int, d: int, dtype, device):
@@ -642,7 +647,7 @@ def _encdec_decode(params, cfg, tokens, cache, t):
     (logits [B, 1, Vp] f32, cache)."""
     layers = cache["layers"]
     self_c = layers["self"]
-    x = embed_tokens(params["embed"], tokens)
+    x = _embed(params, cfg, tokens)
     x = x + _pe_row(t, self_c["k"].shape[2], cfg.d_model, x.dtype, x.device)
     for i, p_l in enumerate(params["dec_layers"]):
         h = apply_norm(p_l["ln1"], cfg, x)
@@ -677,8 +682,9 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 def _on_mesh(cfg: ModelConfig, fn: Callable) -> Callable:
-    """``fn`` that first refuses a model axis its family does not run on
-    (``dist.context.require_data_parallel``, naming ROADMAP.md)."""
+    """``fn`` that first checks a mesh with a model axis can run it
+    (``dist.context.require_data_parallel``: a process group, and a
+    family with a tensor-parallel form)."""
     def entry(*args, **kwargs):
         mesh = dctx.get_mesh()
         if mesh is not None and dctx.model_size(mesh) > 1:

@@ -383,37 +383,31 @@ def _project(key, x, w, importance, n, cfg, site, tp=None):
     return mca_project(key, x, w, importance, n, cfg.mca, site, **extra)
 
 
-def _full_cols(x, w, full: int):
-    """``x @ w`` with all ``full`` output columns on every rank: gathered
-    over ``"model"`` from a column-parallel ``w``, or the product with
-    the replicated ``w`` (whose gradient is then summed over the ranks,
-    each of which uses the result in its own way)."""
-    if w.shape[-1] == full:
-        return x @ dctx.copy_to_model(w)
-    return dctx.gather_from_model(x @ w, -1)
-
-
-def _full_v(p, cfg, src, colmax, skv, mca_key, kv_full: int):
-    """(V's full columns, MCA stats or None): ``mca_project`` on this
-    rank's columns of ``wv`` (``tp="col"``), then gathered."""
+def _full_v(w, cfg, src, colmax, skv, mca_key, full: int):
+    """(``src @ w``'s ``full`` columns on every rank, MCA stats or None):
+    ``mca_project`` at ``v_proj`` on this rank's columns of ``w``
+    (``tp="col"``), then gathered."""
     if colmax is None:
-        return _full_cols(src, p["wv"], kv_full), None
-    split = p["wv"].shape[-1] != kv_full
-    w = p["wv"] if split else dctx.copy_to_model(p["wv"])
-    v, st = _project(fold_in(mca_key, 1), src, w, colmax, skv, cfg,
-                     "v_proj", "col" if split else None)
+        return dctx.full_cols(src, w, full), None
+    split = w.shape[-1] != full
+    v, st = _project(fold_in(mca_key, 1), src,
+                     w if split else dctx.copy_to_model(w), colmax, skv,
+                     cfg, "v_proj", "col" if split else None)
     return (dctx.gather_from_model(v, -1) if split else v), st
 
 
 def _o_proj(p, cfg, out, rowmax, sq, mca_key):
     """The output projection of ``out``; on a model axis row-parallel
-    (this rank's input columns of ``wo``), the ranks' parts summed over
-    ``"model"`` in f32.  A replicated ``wo`` (its rows do not divide the
-    axis; only the sequence-parallel layout, whose gathers sum the
-    ranks' gradients) gives its whole product from the first model rank
-    and 0 from the others, so the sum is exact.  Returns (y, stats or
-    None)."""
-    split = p["wo"].shape[-2] != cfg.n_heads * cfg.d_head
+    (this rank's input columns of ``wo``; ``out`` holds them, or every
+    head's, cut here), the ranks' parts summed over ``"model"`` in f32.
+    A replicated ``wo`` (its rows do not divide the axis; only layouts
+    whose gathers sum the ranks' gradients) gives its whole product
+    from the first model rank and 0 from the others, so the sum is
+    exact.  Returns (y, stats or None)."""
+    full = cfg.attn_out_dim
+    split = p["wo"].shape[-2] != full
+    if split and out.shape[-1] == full:
+        out = out[..., dctx.model_slice(full)]    # wo's rows on this rank
     tp = dctx.model_size() > 1
     w = p["wo"] if split or not tp else dctx.copy_to_model(p["wo"])
     st = None
@@ -435,7 +429,7 @@ def gqa_attention(p, cfg, x, *, pos, mca_key: Optional[int] = None,
 
     x: [B, S, d]; kv_x: the cross-attention source [B, Skv, d] (defaults
     to x): keys and values come from it, at positions 0..Skv-1, and the
-    v_proj importance is the colmax over its keys (no model axis);
+    v_proj importance is the colmax over its keys;
     kv_valid: optional [B, S] bool marking real (non-left-padding) tokens
     of the self-attention sequence.  On a model axis ``p`` holds this
     rank's shards and the layout is :func:`tp_layout`'s (module doc).
@@ -444,15 +438,13 @@ def gqa_attention(p, cfg, x, *, pos, mca_key: Optional[int] = None,
     causal = cfg.causal if causal is None else causal
     window = cfg.window if window is None else window
     nm = dctx.model_size()
-    if kv_x is not None and nm > 1:
-        dctx.require_data_parallel(dctx.get_mesh(), "cross attention")
     layout = tp_layout(cfg, nm)
     b, sq, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     g = h // hkv
     stats = zero_stats(cfg.mca.n_tiers, x.device)
     xin = dctx.copy_to_model(x)
-    src = xin if kv_x is None else kv_x
+    src = xin if kv_x is None else dctx.copy_to_model(kv_x)
     skv = src.shape[1]
     kv_pos = pos if kv_x is None else torch.arange(skv, device=x.device)
     # in self-attention, query validity is key validity
@@ -472,7 +464,8 @@ def gqa_attention(p, cfg, x, *, pos, mca_key: Optional[int] = None,
         """(V's heads as the cache keeps them, MCA stats or None); the
         colmax is None with MCA off."""
         if layout != "heads":                 # every KV head
-            v, st = _full_v(p, cfg, src, colmax, skv, mca_key, hkv * dh)
+            v, st = _full_v(p["wv"], cfg, src, colmax, skv, mca_key,
+                            hkv * dh)
             return _split_heads(v, hkv, dh), st
         if colmax is None:
             return _split_heads(src @ p["wv"], hkv // nm, dh), None
@@ -492,12 +485,12 @@ def gqa_attention(p, cfg, x, *, pos, mca_key: Optional[int] = None,
         pick = (dctx.model_index() * hl
                 + torch.arange(hl, device=x.device)) // g
         q = heads(xin @ p["wq"], hl, q_norm, pos)
-        k = heads(_full_cols(src, p["wk"], hkv * dh), hkv, k_norm, kv_pos)
+        k = heads(dctx.full_cols(src, p["wk"], hkv * dh), hkv, k_norm, kv_pos)
         qg = q.reshape(b, sq, hl, 1, dh)
     else:                                     # every head, its query rows
         hl = h
-        q = heads(_full_cols(xin, p["wq"], h * dh), h, q_norm, pos)
-        k = heads(_full_cols(src, p["wk"], hkv * dh), hkv, k_norm, kv_pos)
+        q = heads(dctx.full_cols(xin, p["wq"], h * dh), h, q_norm, pos)
+        k = heads(dctx.full_cols(src, p["wk"], hkv * dh), hkv, k_norm, kv_pos)
         if sq % nm == 0 and cfg.attn_parallel != "dp":
             rows = dctx.model_slice(sq)
         qg = q[:, rows].reshape(b, rows.stop - rows.start, hkv, g, dh)
@@ -546,8 +539,6 @@ def gqa_attention(p, cfg, x, *, pos, mca_key: Optional[int] = None,
     elif split_rows:                          # every rank's rows, in order
         out = dctx.gather_from_model(out, 1)
         rowmax = dctx.all_gather(rowmax, dctx.get_mesh(), ("model",), 1)
-    if layout == "seq" and p["wo"].shape[-2] != h * dh:
-        out = out[..., dctx.model_slice(h * dh)]   # wo's rows on this rank
     if self_valid is not None:
         # padding query rows carry garbage lse; zero importance keeps them
         # in the cheapest tier and out of capacity competition
@@ -642,8 +633,7 @@ def gqa_decode(p, cfg, x, cache, *, t, pos_off=None):
     nm = dctx.model_size()
     b = x.shape[0]
     dev = x.device
-    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    g = h // hkv
+    hkv, dh = cfg.n_kv_heads, cfg.d_head
     off = (torch.zeros((b,), dtype=torch.int32, device=dev)
            if pos_off is None else pos_off)
     if isinstance(t, torch.Tensor):
@@ -653,7 +643,7 @@ def gqa_decode(p, cfg, x, cache, *, t, pos_off=None):
         t_vec = torch.full((b,), t_kv, dtype=torch.int32, device=dev)
     posb = t_vec[:, None] - off[:, None]
     split_kv = hkv % nm == 0
-    q_split = h % nm == 0 and p["wq"].shape[-1] != h * dh
+    q_split = decode_q_split(p, cfg)
 
     def heads(t_, n, norm):
         t_ = _split_heads(t_, n, dh)
@@ -661,53 +651,83 @@ def gqa_decode(p, cfg, x, cache, *, t, pos_off=None):
             t_ = rmsnorm(t_, p[norm], cfg.norm_eps)
         return apply_rope(t_, posb, cfg.rope_theta, cfg.rotary_pct)
 
-    qn, kn = ("q_norm", "k_norm") if cfg.qk_norm else (None, None)
+    kn = "k_norm" if cfg.qk_norm else None
     if split_kv:
-        n_kv = hkv // nm
-        k1 = heads(x @ p["wk"], n_kv, kn)
-        v1 = _split_heads(x @ p["wv"], n_kv, dh)
+        k1 = heads(x @ p["wk"], hkv // nm, kn)
+        v1 = _split_heads(x @ p["wv"], hkv // nm, dh)
     else:
-        n_kv = hkv
-        k1 = heads(_full_cols(x, p["wk"], hkv * dh), hkv, kn)
-        v1 = _split_heads(_full_cols(x, p["wv"], hkv * dh), hkv, dh)
-    if q_split:
-        hl = h // nm
-        q = heads(x @ p["wq"], hl, qn)
-    else:
-        hl = h
-        q = heads(_full_cols(x, p["wq"], h * dh), h, qn)
+        k1 = heads(dctx.full_cols(x, p["wk"], hkv * dh), hkv, kn)
+        v1 = _split_heads(dctx.full_cols(x, p["wv"], hkv * dh), hkv, dh)
+    q = decode_q(p, cfg, x, q_split)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+    q = apply_rope(q, posb, cfg.rope_theta, cfg.rotary_pct)
 
     kc, vc, spos = cache["k"], cache["v"], cache["slot_pos"]
     kernel_ops.kv_slot_update_layer(kc, k1.contiguous(), vc, v1.contiguous(),
                                     spos, t_kv, window=cfg.window)
-    if split_kv or not q_split:
-        qg = q.reshape(b, 1, n_kv, hl // n_kv, dh)
-        kq, vq = kc, vc
-    else:                                  # repeat_kv: the heads q reads
-        kv_idx = (dctx.model_index() * hl
-                  + torch.arange(hl, device=dev)) // g
-        qg = q.reshape(b, 1, hl, 1, dh)
-        kq, vq = kc.index_select(2, kv_idx), vc.index_select(2, kv_idx)
-    slots = kc.shape[1]
     # slot_pos are per-row global (pre-offset) positions, so the rolling-
     # window wraparound composes with the per-row padding mask
     valid = (spos >= 0) & (spos >= off[:, None])
+    y, rowmax = attend_cached(p, cfg, q, kc, vc, valid, q_split)
+    return y, cache, rowmax
+
+
+def decode_q_split(p, cfg) -> bool:
+    """Whether this rank's decode query holds its own q heads only (the q
+    heads divide the model axis and ``wq``'s columns are split)."""
+    return (cfg.n_heads % dctx.model_size() == 0
+            and p["wq"].shape[-1] != cfg.n_heads * cfg.d_head)
+
+
+def decode_q(p, cfg, x, q_split: bool):
+    """The decode query's heads [B, 1, hl, dh] before norm and RoPE:
+    this rank's (``q_split``) or all of them."""
+    h, dh = cfg.n_heads, cfg.d_head
+    if q_split:
+        return _split_heads(x @ p["wq"], h // dctx.model_size(), dh)
+    return _split_heads(dctx.full_cols(x, p["wq"], h * dh), h, dh)
+
+
+def attend_cached(p, cfg, q, kc, vc, valid, q_split: bool):
+    """One query row of GQA attention over cached K/V, then ``wo``.
+
+    q: [B, 1, hl, dh], this rank's q heads (``q_split``) or all of them;
+    kc/vc: [B, slots, n_kv, dh], the rank's KV heads or all of them;
+    valid: [B, slots] bool, or None (every slot: cross attention).
+    Without ``q_split`` every rank attends every head and ``wo``'s rows
+    on this rank take their columns of the output.  Returns (y, rowmax
+    [B, 1])."""
+    b, _, hl, dh = q.shape
+    g = cfg.n_heads // cfg.n_kv_heads
+    n_kv = kc.shape[2]
+    if n_kv * g == hl:                     # the KV heads q reads, in place
+        qg = q.reshape(b, 1, n_kv, g, dh)
+        kq, vq = kc, vc
+    else:                                  # repeat_kv: the heads q reads
+        kv_idx = (dctx.model_index() * hl
+                  + torch.arange(hl, device=q.device)) // g
+        qg = q.reshape(b, 1, hl, 1, dh)
+        kq, vq = kc.index_select(2, kv_idx), vc.index_select(2, kv_idx)
+    slots = kc.shape[1]
     scale = dh ** -0.5
     if slots >= 8192 and slots % 1024 == 0:
+        if valid is None:
+            valid = torch.ones((b, slots), dtype=torch.bool,
+                               device=q.device)
         out, rowmax = _decode_attn_chunked(qg, kq, vq, valid, scale, 1024)
     else:
         s = _scores(qg, kq, scale)
-        s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+        if valid is not None:
+            s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
         a = torch.softmax(s, dim=-1)
         out = torch.einsum("bhgqs,bshd->bqhgd", a.to(vq.dtype), vq)
         rowmax = torch.amax(a, dim=(1, 2, 4))                 # [B, 1]
     out = out.reshape(b, 1, hl * dh)
     if q_split:
         rowmax = dctx.max_over_model(rowmax)
-    elif p["wo"].shape[-2] != h * dh:
-        out = out[..., dctx.model_slice(h * dh)]
     y, _ = _o_proj(p, cfg, out, rowmax, 1, None)
-    return y, cache, rowmax
+    return y, rowmax
 
 
 # ------------------------------------------------------------ MLA module
@@ -729,6 +749,33 @@ def init_mla(g: torch.Generator, cfg, device):
     }
 
 
+def mla_heads_split(cfg) -> bool:
+    """Whether a rank computes only its own MLA heads on the active
+    mesh's model axis (the heads divide it: ``w_uq``/``w_uk``/``w_uv``
+    split on head boundaries, ``wo`` on its rows); otherwise every rank
+    computes every head."""
+    nm = dctx.model_size()
+    return nm > 1 and cfg.n_heads % nm == 0
+
+
+def _mla_latents(p, cfg, x, pos):
+    """(cq, ckv, k_rope [B,S,1,dr]) from the replicated down-projections:
+    whole on every rank, which each uses for its own heads (so their
+    gradients are summed over ``"model"``)."""
+    cq = rmsnorm(x @ p["w_dq"], p["q_ln"], cfg.norm_eps)
+    ckv = rmsnorm(x @ p["w_dkv"], p["kv_ln"], cfg.norm_eps)
+    k_rope = apply_rope((x @ p["w_kr"])[:, :, None, :], pos,
+                        cfg.rope_theta)
+    return (dctx.copy_to_model(cq), dctx.copy_to_model(ckv),
+            dctx.copy_to_model(k_rope))
+
+
+def _mla_up(src, w, split: bool, full: int):
+    """``src @ w`` for an up-projection: this rank's heads' columns
+    (``split``) or all of them."""
+    return src @ w if split else dctx.full_cols(src, w, full)
+
+
 def mla_attention(p, cfg, x, *, pos, mca_key: Optional[int] = None,
                   return_cache=False, kv_valid=None):
     """MLA (latent) attention, full sequence.  MCA applies to the latent
@@ -738,6 +785,12 @@ def mla_attention(p, cfg, x, *, pos, mca_key: Optional[int] = None,
     QK heads are ``dn + dr`` wide (the rotary part's key is shared by
     every head), V heads ``dv``; every head is its own group (hkv = h).
     kv_valid: optional [B, S] bool marking real (non-left-padding) tokens.
+
+    On a model axis whose size divides the heads (:func:`mla_heads_split`)
+    each rank computes its heads from the latents, which every rank
+    computes whole, and the row-parallel ``wo``'s parts are summed over
+    ``"model"`` in f32; colmax and rowmax, maxima over heads, are maxed
+    over it.  Otherwise every rank computes every head.
     Returns (y, (ckv [B,S,dl], kr [B,S,dr]) or None, stats, rowmax).
     """
     b, s, _ = x.shape
@@ -745,18 +798,18 @@ def mla_attention(p, cfg, x, *, pos, mca_key: Optional[int] = None,
     dn, dr, dv = cfg.mla_qk_nope, cfg.mla_qk_rope, cfg.mla_v_dim
     scale = (dn + dr) ** -0.5
     stats = zero_stats(cfg.mca.n_tiers, x.device)
+    split = mla_heads_split(cfg)
+    hl = h // dctx.model_size() if split else h
 
-    cq = rmsnorm(x @ p["w_dq"], p["q_ln"], cfg.norm_eps)
-    q = _split_heads(cq @ p["w_uq"], h, dn + dr)
+    cq, ckv, k_rope = _mla_latents(p, cfg, x, pos)
+    q = _split_heads(_mla_up(cq, p["w_uq"], split, h * (dn + dr)),
+                     hl, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
-
-    ckv = rmsnorm(x @ p["w_dkv"], p["kv_ln"], cfg.norm_eps)
-    k_rope = apply_rope((x @ p["w_kr"])[:, :, None, :], pos,
-                        cfg.rope_theta)                      # [B,S,1,dr]
-    k_nope = _split_heads(ckv @ p["w_uk"], h, dn)
-    k = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
-    qg = torch.cat([q_nope, q_rope], dim=-1).reshape(b, s, h, 1, dn + dr)
+    k_nope = _split_heads(_mla_up(ckv, p["w_uk"], split, h * dn),
+                          hl, dn)
+    k = torch.cat([k_nope, k_rope.expand(b, s, hl, dr)], dim=-1)
+    qg = torch.cat([q_nope, q_rope], dim=-1).reshape(b, s, hl, 1, dn + dr)
 
     chunk = pick_chunk(s, cfg.attn_chunk)
     passes = dict(scale=scale, causal=cfg.causal, window=0, chunk=chunk)
@@ -764,26 +817,31 @@ def mla_attention(p, cfg, x, *, pos, mca_key: Optional[int] = None,
         m, lse = chunked_lse(qg, k, kv_valid=kv_valid, **passes)
         colmax = chunked_colmax(qg, k, lse, kv_valid=kv_valid,
                                 q_valid=kv_valid, **passes)
-        hv, s_v = mca_project(fold_in(mca_key, 1), ckv, p["w_uv"], colmax,
-                              s, cfg.mca, "v_proj")
+        if split:                      # a max over heads: over "model"
+            hv, s_v = _project(fold_in(mca_key, 1), ckv, p["w_uv"],
+                               dctx.max_over_model(colmax), s, cfg,
+                               "v_proj", "col")
+        else:
+            hv, s_v = _full_v(p["w_uv"], cfg, ckv, colmax, s, mca_key,
+                              h * dv)
         stats = _acc_stats(stats, s_v)
-        v = _split_heads(hv, h, dv)
+        v = _split_heads(hv, hl, dv)
         out = chunked_av(qg, k, v, lse, kv_valid=kv_valid, **passes)
     else:
-        v = _split_heads(ckv @ p["w_uv"], h, dv)
+        v = _split_heads(_mla_up(ckv, p["w_uv"], split, h * dv), hl,
+                         dv)
         out, m, lse = onepass_attention(qg, k, v, kv_valid=kv_valid,
                                         **passes)
     rowmax = torch.exp(torch.amax(m - lse, dim=(1, 2)))        # [B, S]
+    if split:
+        rowmax = dctx.max_over_model(rowmax)
     if kv_valid is not None:
         rowmax = torch.where(kv_valid, rowmax, 0.0)
 
-    out = out.reshape(b, s, h * dv)
-    if cfg.mca.active("o_proj") and mca_key is not None:
-        y, s_o = mca_project(fold_in(mca_key, 2), out, p["wo"], rowmax, s,
-                             cfg.mca, "o_proj")
+    out = out.reshape(b, s, hl * dv)
+    y, s_o = _o_proj(p, cfg, out, rowmax, s, mca_key)
+    if s_o is not None:
         stats = _acc_stats(stats, s_o)
-    else:
-        y = out @ p["wo"]
 
     cache = (ckv, k_rope[:, :, 0, :]) if return_cache else None
     return y, cache, stats, rowmax
@@ -811,6 +869,9 @@ def mla_decode(p, cfg, x, cache, *, t, pos_off=None):
     One ``kernels.ops.kv_slot_update_layer`` call (one launch on the card)
     writes the ``ckv`` and ``kr`` rows at slot t.  ``cache`` ({"ckv":
     [B, S, dl], "kr": [B, S, dr]}) is updated IN PLACE and returned.
+    On a model axis the latent cache is whole on every rank, each of
+    which writes it, and a rank absorbs its own heads' ``w_uk`` and
+    ``w_uv`` (:func:`mla_heads_split`; otherwise every head's).
     Returns (y, cache, rowmax [B, 1]).
     """
     b = x.shape[0]
@@ -819,6 +880,8 @@ def mla_decode(p, cfg, x, cache, *, t, pos_off=None):
     dn, dr, dv = cfg.mla_qk_nope, cfg.mla_qk_rope, cfg.mla_v_dim
     dl = cfg.mla_kv_lora
     scale = (dn + dr) ** -0.5
+    split = mla_heads_split(cfg)
+    hl = h // dctx.model_size() if split else h
     off = (torch.zeros((b,), dtype=torch.int32, device=dev)
            if pos_off is None else pos_off)
     if isinstance(t, torch.Tensor):
@@ -826,22 +889,24 @@ def mla_decode(p, cfg, x, cache, *, t, pos_off=None):
     else:                                  # host int: a fill, not a copy
         t_kv = int(t)
         t_vec = torch.full((b,), t_kv, dtype=torch.int32, device=dev)
-
-    cq = rmsnorm(x @ p["w_dq"], p["q_ln"], cfg.norm_eps)
-    q = _split_heads(cq @ p["w_uq"], h, dn + dr)             # [B,1,h,dn+dr]
-    q_nope, q_rope = q[..., :dn], q[..., dn:]
     posb = t_vec[:, None] - off[:, None]
-    q_rope = apply_rope(q_rope, posb, cfg.rope_theta)
 
-    ckv1 = rmsnorm(x @ p["w_dkv"], p["kv_ln"], cfg.norm_eps)   # [B,1,dl]
-    kr1 = apply_rope((x @ p["w_kr"])[:, :, None, :], posb,
-                     cfg.rope_theta)[:, :, 0, :]               # [B,1,dr]
+    cq, ckv1, kr1 = _mla_latents(p, cfg, x, posb)        # [B,1,..]
+    q = _split_heads(_mla_up(cq, p["w_uq"], split, h * (dn + dr)),
+                     hl, dn + dr)                        # [B,1,hl,dn+dr]
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, posb, cfg.rope_theta)
     ckv, kr = cache["ckv"], cache["kr"]
     kernel_ops.kv_slot_update_layer(ckv, ckv1.contiguous(), kr,
-                                    kr1.contiguous(), None, t_kv, window=0)
+                                    kr1[:, :, 0, :].contiguous(), None,
+                                    t_kv, window=0)
+
+    def whole(w, full):                    # every head's columns
+        return w if split or w.shape[-1] == full else dctx.all_gather(
+            w, dctx.get_mesh(), ("model",), -1)
 
     # absorb W_UK into the query:  q_lat[b,h,dl] = q_nope . W_UK[:, h, :]
-    w_uk = p["w_uk"].reshape(dl, h, dn)
+    w_uk = whole(p["w_uk"], h * dn).reshape(dl, hl, dn)
     q_lat = torch.einsum("bqhd,lhd->bqhl", q_nope, w_uk)
     s_lat = torch.einsum("bqhl,bsl->bhqs", q_lat.float(), ckv.float())
     s_rot = torch.einsum("bqhd,bsd->bhqs", q_rope.float(), kr.float())
@@ -853,8 +918,11 @@ def mla_decode(p, cfg, x, cache, *, t, pos_off=None):
     a = torch.softmax(sc, dim=-1)
     out_lat = torch.einsum("bhqs,bsl->bqhl", a.to(ckv.dtype), ckv)
     # absorb W_UV on the way out
-    w_uv = p["w_uv"].reshape(dl, h, dv)
-    out = torch.einsum("bqhl,lhv->bqhv", out_lat, w_uv).reshape(b, 1, h * dv)
-    y = out @ p["wo"]
+    w_uv = whole(p["w_uv"], h * dv).reshape(dl, hl, dv)
+    out = torch.einsum("bqhl,lhv->bqhv", out_lat, w_uv).reshape(b, 1,
+                                                                hl * dv)
     rowmax = torch.amax(a, dim=(1, 3))                          # [B, 1]
+    if split:
+        rowmax = dctx.max_over_model(rowmax)
+    y, _ = _o_proj(p, cfg, out, rowmax, 1, None)
     return y, cache, rowmax

@@ -16,7 +16,10 @@ reference rounds after each add, this sum once.
 
 MoE + MCA (``expert_ffn`` site): the router gate is the slot's importance
 and the expert up-projection runs under the per-token estimator, batched
-over experts (``dispatch.per_token_mca_matmul``).
+over experts (``dispatch.per_token_mca_matmul``).  With the experts'
+columns split over ``"model"`` every model rank draws the same samples
+(one key, the block probabilities of each whole expert from the ranks'
+summed block norms) and computes its columns.
 
 Under a mesh of more than one rank whose ranks hold their rows of the
 batch, dispatch is shard-local, as the reference's ``shard_map`` branch:
@@ -118,8 +121,6 @@ def moe_ffn(p, cfg, x, *, mca_key: Optional[int] = None):
     summed.  Without a mesh it is plain local dispatch."""
     mesh = dctx.get_mesh()
     nm = dctx.model_size(mesh)
-    if nm > 1 and cfg.mca.active("expert_ffn") and mca_key is not None:
-        dctx.require_data_parallel(mesh, "MCA on expert_ffn")
     if mesh is not None and mesh.size > 1:
         dctx.require_data_parallel(mesh, "moe_ffn", cfg)
     rows = dctx.row_shards() > 1      # this rank holds its data shard
@@ -231,14 +232,19 @@ def _mca_expert_matmul(key: int, cfg, xe, w_up, sorted_e, slot,
     experts.  One generator seeded from the layer key draws every
     expert's samples (the reference splits the key per expert)."""
     e, c, d = xe.shape
-    f = w_up.shape[-1]
+    f = cfg.d_ff                       # every column's FLOPs, on any mesh
     block = cfg.mca.block_for(d)
+    probs = None
+    if w_up.shape[-1] != f:            # this rank's columns of each expert
+        probs = amm.probs_from_sq_norms(dctx.sum_over_model(
+            amm.block_sq_norms(w_up, block, lead=1)))
     imp = torch.zeros((e, cap + 1), dtype=torch.float32, device=xe.device)
     imp = imp.index_put((sorted_e, slot), gate_sorted.detach().float())
     imp = imp[:, :cap]
     r_cols = schedule.r_cols_from_attention(imp, seq_len, cfg.mca.alpha, d)
     r_blocks = schedule.r_blocks_from_cols(r_cols, block)    # [E, C]
-    out = mca_dispatch.per_token_mca_matmul(key, xe, w_up, r_blocks, block)
+    out = mca_dispatch.per_token_mca_matmul(key, xe, w_up, r_blocks, block,
+                                            probs=probs)
     # exact FLOPs are a host number (no host-to-device copy, which would
     # synchronise); the sampled count depends on the routing
     stats = {"exact_flops": float(amm.exact_flops(e * c, d, f)),

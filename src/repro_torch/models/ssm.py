@@ -8,15 +8,29 @@ scan, the conv and the decode step are plain tensor code in both
 packages.
 
 The state is f32 (``a = -exp(a_log)``, dt = softplus(dt_raw + dt_bias));
-activations keep the model dtype.  The reference's ``constrain_heads``
-is a mesh sharding hint with no single-device counterpart and is left
-out.
+activations keep the model dtype.
+
+On a ``"model"`` axis whose size divides the SSD heads (and the groups,
+unless there is one; :func:`heads_split`) a rank computes its heads, as
+the reference's ``constrain_heads`` places them.  ``in_proj`` is
+column-parallel over its ``[z | x | B | C | dt]`` columns, whose
+contiguous split cuts through the segments, so its output is gathered
+over ``"model"`` (B x S x its columns, no weight moved) and each rank
+takes its heads' z, x and dt and the whole B and C (its groups' with
+several).  The replicated conv convolves those channels; the gated
+RMSNorm's sum of squares over the whole inner width is summed over
+``"model"``; ``out_proj``'s rows, ordered by head, are the rank's, and
+the parts are summed over ``"model"`` in f32.  The decode cache holds
+the rank's heads' state and its channels' conv tail (the reference
+places both replicated: a difference of placement, not of value).
+Otherwise every rank computes every head.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import context as dctx
 from .common import dense_init, rmsnorm
 
 
@@ -124,36 +138,100 @@ def ssd_sequential(xs, dt, a, bmat, cmat):
     return y.to(xs.dtype), state
 
 
+def heads_split(cfg) -> bool:
+    """Whether a rank computes only its own SSD heads on the active
+    mesh's model axis: it divides the heads and, with several groups,
+    the groups."""
+    nm = dctx.model_size()
+    g = cfg.ssm_groups
+    return nm > 1 and cfg.ssm_heads % nm == 0 and (g == 1 or g % nm == 0)
+
+
+def _local(cfg):
+    """(this rank's heads, its groups) as slices, and the inner width's
+    channels of its heads (everything without :func:`heads_split`)."""
+    h, g, ph = cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_headdim
+    if not heads_split(cfg):
+        return slice(0, h), slice(0, g), slice(0, h * ph)
+    hs = dctx.model_slice(h)
+    gs = slice(0, 1) if g == 1 else dctx.model_slice(g)
+    return hs, gs, slice(hs.start * ph, hs.stop * ph)
+
+
+def _split_zxbcdt(zxbcdt, cfg):
+    """(z, pre-conv xBC, dt_raw) of this rank's heads from the whole
+    ``in_proj`` output (module doc), and the matching conv channels."""
+    d_in = cfg.ssm_inner
+    g, n, h = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    if not heads_split(cfg):
+        return (zxbcdt[..., :d_in], zxbcdt[..., d_in:2 * d_in + 2 * g * n],
+                zxbcdt[..., -h:], slice(0, d_in + 2 * g * n))
+    hs, gs, ch = _local(cfg)
+    b0 = 2 * d_in
+    bc = [slice(b0 + gs.start * n, b0 + gs.stop * n),
+          slice(b0 + (g + gs.start) * n, b0 + (g + gs.stop) * n)]
+    cols = [slice(d_in + ch.start, d_in + ch.stop)] + bc
+    conv = torch.cat([torch.arange(c.start - d_in, c.stop - d_in)
+                      for c in cols]).to(zxbcdt.device)
+    xbc = torch.cat([zxbcdt[..., c] for c in cols], dim=-1)
+    return (zxbcdt[..., ch], xbc,
+            zxbcdt[..., b0 + 2 * g * n + hs.start:b0 + 2 * g * n + hs.stop],
+            conv)
+
+
+def _shared(p):
+    """The block's replicated parameters, each rank's use of which gives
+    a part of their gradient (summed over ``"model"``)."""
+    return {k: v if k in ("in_proj", "out_proj") else dctx.copy_to_model(v)
+            for k, v in p.items()}
+
+
+def _gated_norm(y, z, p, cfg, ch):
+    """RMSNorm over the whole inner width, gated by silu(z): with the
+    heads split, the sum of squares summed over ``"model"``."""
+    if not heads_split(cfg):
+        return rmsnorm(y, p["norm"], cfg.norm_eps) * F.silu(z)
+    yf = y.float()
+    ss = dctx.sum_over_model(torch.sum(torch.square(yf), dim=-1,
+                                       keepdim=True))
+    var = ss / cfg.ssm_inner
+    out = (yf * torch.rsqrt(var + cfg.norm_eps)) * (1.0 + p["norm"][ch])
+    return out.to(y.dtype) * F.silu(z)
+
+
 def mamba2_forward(p, cfg, x, *, return_state=False):
     """Full-sequence Mamba-2 block. x: [B, S, d_model].  With
     ``return_state`` also returns the final SSD state [B,G,HG,N,P] (f32)
     and the decode conv cache: the last ``conv_width - 1``
-    PRE-activation xBC rows."""
+    PRE-activation xBC rows (on a model axis, this rank's heads and
+    channels: module doc)."""
     b, s, _ = x.shape
     d_in = cfg.ssm_inner
     g, n = cfg.ssm_groups, cfg.ssm_state
     h = cfg.ssm_heads
     ph = cfg.ssm_headdim
+    hs, gs, ch = _local(cfg)
+    hl, gl, dl = hs.stop - hs.start, gs.stop - gs.start, ch.stop - ch.start
 
-    zxbcdt = x @ p["in_proj"]
-    z = zxbcdt[..., :d_in]
-    xbc_raw = zxbcdt[..., d_in:d_in + d_in + 2 * g * n]
-    dt_raw = zxbcdt[..., -h:]
-    xbc = F.silu(causal_conv1d(xbc_raw, p["conv_w"], p["conv_b"]))
-    xs = xbc[..., :d_in].reshape(b, s, h, ph)
-    bmat = xbc[..., d_in:d_in + g * n].reshape(b, s, g, n)
-    cmat = xbc[..., d_in + g * n:].reshape(b, s, g, n)
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])
-    a = -torch.exp(p["a_log"])
+    p = _shared(p)
+    zxbcdt = dctx.full_cols(dctx.copy_to_model(x), p["in_proj"],
+                            2 * d_in + 2 * g * n + h)
+    z, xbc_raw, dt_raw, conv = _split_zxbcdt(zxbcdt, cfg)
+    xbc = F.silu(causal_conv1d(xbc_raw, p["conv_w"][:, conv],
+                               p["conv_b"][conv]))
+    xs = xbc[..., :dl].reshape(b, s, hl, ph)
+    bmat = xbc[..., dl:dl + gl * n].reshape(b, s, gl, n)
+    cmat = xbc[..., dl + gl * n:].reshape(b, s, gl, n)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"][hs])
+    a = -torch.exp(p["a_log"][hs])
 
     chunk = min(cfg.ssm_chunk, s)
     while s % chunk != 0:
         chunk //= 2
     y, final_state = ssd_chunked(xs, dt, a, bmat, cmat, chunk)
-    y = y + p["d_skip"].to(y.dtype)[None, None, :, None] * xs
-    y = y.reshape(b, s, d_in)
-    y = rmsnorm(y, p["norm"], cfg.norm_eps) * F.silu(z)
-    out = y @ p["out_proj"]
+    y = y + p["d_skip"][hs].to(y.dtype)[None, None, :, None] * xs
+    y = _gated_norm(y.reshape(b, s, dl), z, p, cfg, ch)
+    out = dctx.row_parallel(y, p["out_proj"], d_in)
     if return_state:
         return out, final_state, xbc_raw[:, -(cfg.conv_width - 1):]
     return out
@@ -162,50 +240,55 @@ def mamba2_forward(p, cfg, x, *, return_state=False):
 def init_mamba2_cache(cfg, batch, dtype, device, n_layers=None):
     """Zeroed decode cache: the f32 SSD state and the conv tail in
     ``dtype``; with ``n_layers`` every leaf is layer-stacked ``[L, B,
-    ...]`` (the layout ``models/api.py`` uses)."""
-    d_in = cfg.ssm_inner
-    g, n = cfg.ssm_groups, cfg.ssm_state
-    h, ph = cfg.ssm_heads, cfg.ssm_headdim
+    ...]`` (the layout ``models/api.py`` uses).  On a model axis with
+    the heads split, this rank's heads and conv channels."""
+    n, ph = cfg.ssm_state, cfg.ssm_headdim
+    hs, gs, ch = _local(cfg)
+    hl, gl = hs.stop - hs.start, gs.stop - gs.start
     lead = (batch,) if n_layers is None else (n_layers, batch)
     return {
-        "state": torch.zeros(lead + (g, h // g, n, ph), dtype=torch.float32,
-                             device=device),
-        "conv": torch.zeros(lead + (cfg.conv_width - 1, d_in + 2 * g * n),
+        "state": torch.zeros(lead + (gl, hl // gl, n, ph),
+                             dtype=torch.float32, device=device),
+        "conv": torch.zeros(lead + (cfg.conv_width - 1,
+                                    ch.stop - ch.start + 2 * gl * n),
                             dtype=dtype, device=device),
     }
 
 
 def mamba2_decode(p, cfg, x, cache):
-    """Single-token decode. x: [B, 1, d_model]; cache {"state", "conv"}.
-    Returns (y [B, 1, d_model], new cache); the caller writes the new
-    cache where it keeps it."""
+    """Single-token decode. x: [B, 1, d_model]; cache {"state", "conv"}
+    (on a model axis, this rank's heads and channels).  Returns (y [B, 1,
+    d_model], new cache); the caller writes the new cache where it keeps
+    it."""
     b = x.shape[0]
     d_in = cfg.ssm_inner
     g, n = cfg.ssm_groups, cfg.ssm_state
     h, ph = cfg.ssm_heads, cfg.ssm_headdim
-    hg = h // g
+    hs, gs, ch = _local(cfg)
+    hl, gl, dl = hs.stop - hs.start, gs.stop - gs.start, ch.stop - ch.start
+    hg = hl // gl
 
-    zxbcdt = (x @ p["in_proj"])[:, 0]                          # [B, ...]
-    z = zxbcdt[..., :d_in]
-    xbc_new = zxbcdt[..., d_in:d_in + d_in + 2 * g * n]
-    dt_raw = zxbcdt[..., -h:]
+    zxbcdt = dctx.full_cols(x, p["in_proj"],
+                            2 * d_in + 2 * g * n + h)[:, 0]     # [B, ...]
+    z, xbc_new, dt_raw, conv = _split_zxbcdt(zxbcdt, cfg)
 
     conv_buf = torch.cat([cache["conv"], xbc_new[:, None]], dim=1)
-    xbc = torch.sum(conv_buf * p["conv_w"][None], dim=1) + p["conv_b"][None]
+    xbc = torch.sum(conv_buf * p["conv_w"][:, conv][None], dim=1) \
+        + p["conv_b"][conv][None]
     xbc = F.silu(xbc)
 
-    xs = xbc[..., :d_in].reshape(b, g, hg, ph).float()
-    bmat = xbc[..., d_in:d_in + g * n].reshape(b, g, n).float()
-    cmat = xbc[..., d_in + g * n:].reshape(b, g, n).float()
-    dt = F.softplus(dt_raw.float() + p["dt_bias"]).reshape(b, g, hg)
-    a = -torch.exp(p["a_log"]).reshape(g, hg)
+    xs = xbc[..., :dl].reshape(b, gl, hg, ph).float()
+    bmat = xbc[..., dl:dl + gl * n].reshape(b, gl, n).float()
+    cmat = xbc[..., dl + gl * n:].reshape(b, gl, n).float()
+    dt = F.softplus(dt_raw.float() + p["dt_bias"][hs]).reshape(b, gl, hg)
+    a = -torch.exp(p["a_log"][hs]).reshape(gl, hg)
 
     decay = torch.exp(dt * a[None])
     upd = torch.einsum("bgn,bghp->bghnp", bmat, xs * dt[..., None])
     state = cache["state"] * decay[..., None, None] + upd
     y = torch.einsum("bgn,bghnp->bghp", cmat, state)
-    y = y + p["d_skip"].reshape(g, hg)[None, ..., None] * xs
-    y = y.reshape(b, 1, d_in).to(x.dtype)
-    y = rmsnorm(y, p["norm"], cfg.norm_eps) * F.silu(z[:, None])
-    out = y @ p["out_proj"]
+    y = y + p["d_skip"][hs].reshape(gl, hg)[None, ..., None] * xs
+    y = y.reshape(b, 1, dl).to(x.dtype)
+    y = _gated_norm(y, z[:, None], p, cfg, ch)
+    out = dctx.row_parallel(y, p["out_proj"], d_in)
     return out, {"state": state, "conv": conv_buf[:, 1:]}

@@ -47,7 +47,7 @@ from repro.core import schedule as j_schedule  # noqa: E402
 from repro.dist import compress as j_compress  # noqa: E402
 from repro.models import ffn as j_ffn  # noqa: E402
 from repro_torch.core.policy import MCAConfig  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.dist import compress, context as dctx  # noqa: E402
 from repro_torch.dist import sharding as shd  # noqa: E402
 
@@ -358,16 +358,17 @@ def test_production_mesh_and_hw():
 
 
 def test_model_axis_execution_raises():
-    """A model axis runs the dense and MoE families with GQA only: the
-    others (and code with no tensor-parallel form, ``cfg=None``) raise,
-    naming ROADMAP.md; the constraint helpers stay placement hints."""
+    """A model axis runs every family of the port (``tp_family`` is true
+    for every config); only code with no tensor-parallel form
+    (``cfg=None``) raises, naming ROADMAP.md, and a mesh needs a process
+    group; the constraint helpers stay placement hints."""
     mesh = dctx.Mesh((2, 2), ("data", "model"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         dctx.require_data_parallel(mesh)
-    for arch in ("minicpm3-4b", "mamba2-2.7b", "recurrentgemma-9b",
-                 "whisper-small", "internvl2-1b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            dctx.require_data_parallel(mesh, arch, get_config(arch))
+    grouped = dctx.Mesh((2, 2), ("data", "model"), group=object())
+    for arch in ARCHS:
+        assert dctx.tp_family(get_config(arch)), arch
+        dctx.require_data_parallel(grouped, arch, get_config(arch))
     with pytest.raises(ValueError, match="process group"):
         dctx.require_data_parallel(mesh, "x", get_config("starcoder2-3b"))
     with pytest.raises(ValueError, match="process group"):

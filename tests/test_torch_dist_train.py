@@ -422,17 +422,22 @@ def test_world_of_one_is_bitwise_the_unsharded_step():
 
 
 def test_step_refuses_what_is_not_ported():
-    """A model axis refuses the families it does not run (MLA here);
-    FSDP, the default, now builds a step whose params are the data
-    blocks (``tests/test_torch_fsdp.py`` runs it)."""
+    """A model axis takes every family, MLA here, with its heads' weights
+    placed over "model" (``tests/test_torch_tp_families.py`` runs it);
+    what is refused is a mesh with no process group.  FSDP, the
+    default, builds a step whose params are the data blocks
+    (``tests/test_torch_fsdp.py`` runs it)."""
     from repro_torch.train.step import jit_train_step
     model, data, opt = _setup()
     b0 = {k: torch.as_tensor(v) for k, v in data.batch(0).items()}
     mla = build_model(reduced(get_config("minicpm3-4b"), dtype="float32"),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        jit_train_step(dctx.Mesh((1, 2), ("data", "model"), group=object()),
-                       mla, opt, b0)
+    step = jit_train_step(dctx.Mesh((1, 2), ("data", "model"),
+                                    group=object()), mla, opt, b0)
+    w_uq = step.in_shardings[0]["layers"][0]["mixer"]["w_uq"]
+    assert w_uq.split_axes() == ("model",)
+    with pytest.raises(ValueError, match="process group"):
+        jit_train_step(dctx.Mesh((1, 2), ("data", "model")), mla, opt, b0)
     step = jit_train_step(dctx.Mesh((2, 1), ("data", "model"),
                                     group=object()), model, opt, b0)
     assert step.in_shardings[0] is not None

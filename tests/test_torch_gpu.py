@@ -278,6 +278,16 @@ LAYER_CASES = [
      True, None),
     ("tp_one_kv_head_int_t", 8, 272, (1, 128), (1, 128), "bfloat16", "int",
      0, True, None),
+    # on a model axis of 2: whisper-small's 6 heads of 64 a rank, internvl2-
+    # 1b's one KV head of 64 a rank
+    ("tp_whisper_6_heads", 4, 320, (6, 64), (6, 64), "bfloat16", "rows", 0,
+     True, None),
+    ("tp_whisper_6_heads_scalar_t", 4, 320, (6, 64), (6, 64), "bfloat16",
+     "scalar", 0, True, None),
+    ("tp_internvl_one_kv_head", 4, 576, (1, 64), (1, 64), "bfloat16",
+     "rows", 0, True, None),
+    ("tp_internvl_one_kv_head_int_t", 4, 576, (1, 64), (1, 64), "bfloat16",
+     "int", 0, True, None),
 ]
 
 
@@ -1238,6 +1248,92 @@ def test_mca_matmul_fixed_tp_shapes(cuda, m, d, f, r, dtype, remap):
     assert float((off.float() - want.float()).abs().max()) <= tol
     _same_outputs(off, on)
     assert torch.equal(on[1], counts)
+
+
+# the other families on a model axis of 2, at the rows 4 x 256 prompts
+# route to each sampled tier of a rank's chunk of 512 tokens (1,024
+# positions for internvl): minicpm3-4b w_uv (20 heads' 1,280 columns)
+# and wo (10 input blocks); whisper-small v_proj (6 heads' 384 columns)
+# and o_proj (3 input blocks); internvl2-1b v_proj (one KV head, 64
+# columns) and o_proj (448 input columns on the block grid: 4 blocks,
+# 64 of their columns zero); recurrentgemma-9b v_proj (128 columns) and
+# o_proj (16 input blocks)
+TP_FAMILY_MCA_CASES = [
+    (512, 256, 1280, 1), (512, 1280, 2560, 1), (256, 1280, 2560, 2),
+    (512, 768, 384, 1), (256, 768, 384, 2), (512, 384, 768, 1),
+    (256, 384, 768, 2), (1024, 896, 64, 1), (512, 896, 64, 2),
+    (384, 896, 64, 4), (1024, 512, 896, 1), (512, 512, 896, 2),
+    (384, 512, 896, 4), (512, 4096, 128, 1), (256, 4096, 128, 2),
+    (512, 2048, 4096, 1), (256, 2048, 4096, 2)]
+
+
+@pytest.mark.parametrize("m,d,f,r", TP_FAMILY_MCA_CASES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_mca_matmul_fixed_tp_family_shapes(cuda, m, d, f, r, dtype):
+    """The other families' tensor-parallel shapes against the plain
+    version with the same samples (1e-2 of max in bf16, 1e-5 in f32),
+    every other sample remapped to block 0 with weight 0 as the
+    row-parallel dispatch remaps samples outside a rank's blocks;
+    telemetry on and off give bitwise the same output and the
+    reference's counts."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mca_matmul import mca_matmul_fixed
+    dt = getattr(torch, dtype)
+    x, w, idx, inv_rp = _mca_inputs(m, d, f, r, dt, seed=m + d + f + r)
+    idx, inv_rp = idx.clone(), inv_rp.clone()
+    idx[1::2], inv_rp[1::2] = 0, 0.0
+    off = mca_matmul_fixed(x, w, idx, inv_rp, block=128)
+    on = mca_matmul_fixed(x, w, idx, inv_rp, block=128, telemetry=True)
+    want, counts = ref.ref_mca_matmul_fixed(x, w, idx, inv_rp, 128,
+                                            telemetry=True)
+    torch.cuda.synchronize()
+    tol = (1e-2 if dt == torch.bfloat16 else 1e-5) * float(
+        want.float().abs().max())
+    assert float((off.float() - want.float()).abs().max()) <= tol
+    _same_outputs(off, on)
+    assert torch.equal(on[1], counts)
+
+
+@pytest.mark.parametrize("m,r", [(1024, 1), (512, 2), (384, 4)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_mca_matmul_fixed_split_block_o_proj(cuda, m, r, dtype):
+    """internvl2-1b's o_proj (d = f = 896, 7 blocks) on a model axis of 2:
+    each rank's 448 input columns (3.5 blocks) zero-padded to the 4
+    blocks they touch, as ``core.policy`` places them; the samples of
+    the whole weight remapped to each rank's blocks.  Each rank's part
+    is its plain version's (telemetry on and off), and the two parts sum
+    to the unsplit product with the same samples within 1e-2 (bf16) or
+    1e-5 (f32) of its max."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mca_matmul import mca_matmul_fixed
+    dt = getattr(torch, dtype)
+    x, w, idx, inv_rp = _mca_inputs(m, 896, 896, r, dt, seed=m + r)
+    whole = ref.ref_mca_matmul_fixed(x, w, idx, inv_rp, 128).float()
+    parts = []
+    for rank in range(2):
+        off = rank * 448
+        first = off // 128
+        lo = off - first * 128
+        hi = 4 * 128 - 448 - lo
+        xp = F.pad(x[:, off:off + 448], (lo, hi)).contiguous()
+        wp = F.pad(w[off:off + 448], (0, 0, lo, hi)).contiguous()
+        mine = (idx >= first) & (idx < first + 4)
+        li = torch.where(mine, idx - first, 0).to(torch.int32)
+        lr = torch.where(mine, inv_rp, 0.0)
+        got = mca_matmul_fixed(xp, wp, li, lr, block=128)
+        on = mca_matmul_fixed(xp, wp, li, lr, block=128, telemetry=True)
+        want, counts = ref.ref_mca_matmul_fixed(xp, wp, li, lr, 128,
+                                                telemetry=True)
+        torch.cuda.synchronize()
+        tol = (1e-2 if dt == torch.bfloat16 else 1e-5) * float(
+            want.float().abs().max())
+        assert float((got.float() - want.float()).abs().max()) <= tol
+        _same_outputs(got, on)
+        assert torch.equal(on[1], counts)
+        parts.append(got.float())
+    tol = (1e-2 if dt == torch.bfloat16 else 1e-5) * float(whole.abs().max())
+    assert float((parts[0] + parts[1] - whole).abs().max()) <= tol
 
 
 _TP_CARD = """

@@ -131,21 +131,6 @@ def test_moe_ffn_grads_match():
         _close_rel(g, want, 1e-4)
 
 
-def test_moe_ffn_refuses_across_ranks(monkeypatch):
-    """Under a mesh whose "model" axis is larger than 1 (tensor
-    parallelism) moe_ffn runs, but not MCA on ``expert_ffn``, whose
-    per-token estimator has no tensor-parallel form yet: that raises,
-    naming ROADMAP.md (``tests/test_torch_tp.py`` runs the MoE layer on
-    model axes)."""
-    from repro_torch.dist import context as dctx
-    mca = dict(enabled=True, alpha=0.5, block=8, sites=("expert_ffn",))
-    _, _, tcfg, tp, x = _moe_pair((2, 8, 32), mca=mca)
-    mesh = dctx.Mesh((1, 4), ("data", "model"))
-    with dctx.use_mesh(mesh), pytest.raises(NotImplementedError,
-                                            match="ROADMAP.md"):
-        ffn.moe_ffn(tp, tcfg, _t(x), mca_key=2)
-
-
 # ------------------------------------------------------ expert_ffn MCA
 def _spy_r_blocks(monkeypatch, module):
     seen = []

@@ -33,8 +33,8 @@ d_head 32) in f32, the port's params converted from the reference's
   ``"model"`` into pieces of their own capacity; logits within 1e-5 of
   the reference's on (1, 2) and (2, 2), ``aux`` and the loss within
   1e-6 relative.
-* Refusals: the MLA, SSM, hybrid, encoder-decoder and VLM families on a
-  model axis raise ``NotImplementedError`` naming ROADMAP.md.
+* The other families (MLA, SSM, hybrid, encoder-decoder, VLM) on model
+  axes: ``tests/test_torch_tp_families.py``.
 """
 import json
 import os
@@ -54,8 +54,7 @@ from _torch_parity import assert_routing_margins, model_pair  # noqa: E402
 from repro.core.policy import MCAConfig as JMCAConfig  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.policy import MCAConfig  # noqa: E402
-from repro_torch.dist import context as dctx  # noqa: E402
-from repro_torch.models import build_model, reduced  # noqa: E402
+from repro_torch.models import reduced  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 MCA = {"enabled": True, "alpha": 0.3, "block": 16,
@@ -542,17 +541,3 @@ def test_one_by_two_equals_two_by_one_mca_on(runs):
     dp = np.concatenate([r["mca_logits"] for r in runs["21"]])
     for r in runs["12"]:
         _close(r["mca_logits"], dp, 1e-5, "(1, 2) vs (2, 1)")
-
-
-@pytest.mark.parametrize("arch", ["minicpm3-4b", "mamba2-2.7b",
-                                  "recurrentgemma-9b", "whisper-small",
-                                  "internvl2-1b"])
-def test_unported_families_refuse_a_model_axis(arch):
-    model = build_model(reduced(get_config(arch), dtype="float32"),
-                        device="cpu")
-    mesh = dctx.Mesh((1, 2), ("data", "model"), group=object())
-    with dctx.use_mesh(mesh):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            model.init_cache(2, 16)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            model.loss({}, {}, None)
