@@ -273,9 +273,31 @@ Phases, each of which must pass:
              every mca_matmul_fixed shape of (a) against the plain
              version, as phase 13.
 
-Phase 10 runs between phases 5b and 7; phases 14, 15 and 16 last.  Builds four
-sources (one
-``nvcc`` each, in parallel).  Ends with a
+17. sp — the sequence-parallel residual (the residual between layers
+             split by sequence over "model", as the reference places
+             it), two ranks on the card over gloo (``--dist-part sp``),
+             mesh (1, 2): (a) starcoder2-3b at full width cut to 8
+             layers, bf16, remat on, MCA on v_proj (the plain sampled
+             product): one loss and backward of 4 x 1,024 tokens (split:
+             each rank's checkpointed layer inputs [4, 512, 3072]) after
+             a warm-up, then of 4 x 1,023 (the reference's rule keeps it
+             whole): the bytes held after the forward differ by 8 x 4 x
+             1,024 x 3,072 x 2 B / 2 = 100.7 MB a rank, within 10%; peak
+             and step time of both; (b) starcoder2-3b at full width, a
+             no-grad ``forward_hidden`` of 4 x 512 with the split, MCA on
+             v_proj and o_proj (use_kernel): mca_matmul_fixed at the
+             routing's count (two chunks of 1,024 tokens a rank), no
+             fallback, hidden states finite; 4 layers in f32 (TF32 and
+             MCA off): each rank's hidden states within 1e-4 of max |h|
+             of a world of one; then in this process (c) (a)'s train step
+             with MCA off on one rank: ``FlopCounterMode``'s count on the
+             card equal to ``launch.dryrun``'s on meta tensors, the step
+             time printed beside the roofline's t_compute; (d)
+             ``examples/torch_quickstart.py`` and
+             ``examples/torch_serve_mca.py`` each exit 0 within 60 s.
+
+Phase 10 runs between phases 5b and 7; phases 14, 15, 16 and 17 last.
+Builds four sources (one ``nvcc`` each, in parallel).  Ends with a
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
 line and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero (and
 prints no result) on any failure or without a card.
@@ -3516,6 +3538,21 @@ def _spy(module, name, record):
     return lambda: setattr(module, name, orig)
 
 
+def _call_counter(module, name):
+    """Replace ``module.name`` by a wrapper that counts its calls and keeps
+    no reference to their arguments or results (``_spy`` keeps both,
+    which would hold every layer's activations); returns (the count, a
+    one-element list, and a function that undoes it)."""
+    orig = getattr(module, name)
+    count = [0]
+
+    def wrapper(*a, **kw):
+        count[0] += 1
+        return orig(*a, **kw)
+    setattr(module, name, wrapper)
+    return count, lambda: setattr(module, name, orig)
+
+
 def _kernel_counters(snap):
     c = snap["counters"]
     return {k: v for k, v in c.items() if k.startswith("kernels.")}
@@ -3742,8 +3779,7 @@ def dist_part_main() -> int:
     rank = int(os.environ["RANK"])
     res = {"a": _dist_part_a, "b": _dist_part_b, "c": _dist_part_c,
            "tp-serve": _tp_part_serve, "tp-train": _tp_part_train,
-           "tp-families": _tp16_part}[part](
-        out)
+           "tp-families": _tp16_part, "sp": _sp_part}[part](out)
     (out / f"rank{rank}.json").write_text(json.dumps(res))
     import torch.distributed as dist
     if dist.is_initialized():
@@ -4693,6 +4729,377 @@ def phase_tp_families():
     return launches, ranks[0]["path_shapes_err"], nums
 
 
+# ------------------------------------------------------------ phase 17
+SP_LAYERS = 8                    # (a), (c): starcoder2-3b cut to 8 layers
+SP_TRAIN = (4, 1024)             # (a), (c): rows x tokens (1,023: whole)
+SP_PREFILL = (4, 512)            # (b): rows x tokens
+SP_PARITY_LAYERS = 4             # (b): the f32 check's depth
+SP_EXAMPLES = ("torch_quickstart.py", "torch_serve_mca.py")
+SP_EXAMPLE_S = 60                # (d): each example's time limit
+
+
+def _sp_batch(cfg, b, s, seed, dev):
+    """Tokens [b, s] from ``seed`` and their next-token labels (the last
+    position ignored)."""
+    import numpy as np
+    import torch
+    toks = np.random.default_rng(seed).integers(1, cfg.vocab_size, (b, s))
+    tokens = torch.as_tensor(toks.astype(np.int32), device=dev)
+    labels = torch.roll(tokens, -1, 1)
+    labels[:, -1] = -1
+    return {"tokens": tokens, "labels": labels}
+
+
+def _sp_memory(rank, mesh, dev):
+    """(a) starcoder2-3b at full width cut to SP_LAYERS layers, bf16,
+    remat on, MCA on v_proj (the plain sampled product), on (1, 2): one
+    loss and backward of 4 x 1,024 tokens (the residual split: each
+    rank's checkpointed layers save [4, 512, 3072]), after one that
+    warms up, then of 4 x 1,023 (whole); the bytes the forward leaves
+    held, the peak over the step, the step time."""
+    import gc
+    import torch
+    import torch.utils.checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import MCAConfig
+    from repro_torch.dist import context as dctx
+    from repro_torch.models import build_model
+    cfg = get_config("starcoder2-3b", n_layers=SP_LAYERS, mca=MCAConfig(
+        enabled=True, alpha=0.2, block=128, sites=("v_proj",)))
+    model = build_model(cfg, device=dev)
+    full = model.init(0)
+    params, share = _tp16_shard(model, mesh, full)
+    del full
+    leaves = [t for t in _leaves(params) if t.is_floating_point()]
+    for t in leaves:
+        t.requires_grad_(True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    b, s = SP_TRAIN
+    saved = []
+    orig_ckpt = torch.utils.checkpoint.checkpoint
+
+    def spy_ckpt(fn, *args, **kw):
+        if fn.__name__ == "run":                # a layer of the stack
+            saved.append((list(args[0].shape), str(args[0].dtype)))
+        return orig_ckpt(fn, *args, **kw)
+
+    runs = []
+    for seq in (s, s, s - 1):                   # the first warms up
+        batch = _sp_batch(cfg, b, seq, 17, dev)
+        saved[:] = []
+        calls, undo = _call_counter(dctx, "split_sequence")
+        torch.utils.checkpoint.checkpoint = spy_ckpt
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        try:
+            with dctx.use_mesh(mesh):
+                loss, _ = model.loss(params, batch, 0)
+                torch.cuda.synchronize()
+                held = torch.cuda.memory_allocated() - before
+                grads = torch.autograd.grad(loss, leaves)
+            torch.cuda.synchronize()
+        finally:
+            undo()
+            torch.utils.checkpoint.checkpoint = orig_ckpt
+        runs.append({
+            "seq": seq, "held": held, "step_s": time.perf_counter() - t0,
+            "peak": torch.cuda.max_memory_allocated() - before,
+            "splits": calls[0], "saved": saved[:1], "n_saved": len(saved),
+            "loss": float(loss.detach()),
+            "finite": all(bool(torch.isfinite(g).all()) for g in grads)})
+        del loss, grads
+    del params, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"warm": runs[0], "split": runs[1], "whole": runs[2],
+            "share": share}
+
+
+def _sp_kernel(rank, mesh, dev, out):
+    """(b) starcoder2-3b at full width on (1, 2), a no-grad
+    ``forward_hidden`` of 4 x 512 tokens with the residual split and MCA
+    on v_proj and o_proj through the kernel: its launches, counters and
+    shapes; then 4 layers in f32 (TF32 off, MCA off): each rank's hidden
+    states and, on rank 0, a world of one's, saved for the check."""
+    import gc
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import MCAConfig
+    from repro_torch.dist import context as dctx
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    mca = MCAConfig(enabled=True, alpha=0.2, block=128, use_kernel=True,
+                    sites=("v_proj", "o_proj"))
+    cfg = get_config("starcoder2-3b", mca=mca)
+    model = build_model(cfg, device=dev)
+    full = model.init(0)
+    params, _ = _tp16_shard(model, mesh, full)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    b, s = SP_PREFILL
+    batch = {"tokens": _sp_batch(cfg, b, s, 18, dev)["tokens"]}
+    calls, undo = _call_counter(dctx, "split_sequence")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with torch.no_grad(), obs.scoped() as reg, _MCAShapes() as shapes, \
+                dctx.use_mesh(mesh):
+            hidden, _, stats = model.forward_hidden(params, batch, 0)
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+            counters = _kernel_counters(reg.snapshot())
+    finally:
+        undo()
+    res = {"s": time.perf_counter() - t0,
+           "mca_launches": launches["mca_matmul_fixed"],
+           "want_mca": 2 * _expected_mca(cfg, [b * s // 2])[0],
+           "other_launches": {k: v for k, v in launches.items()
+                              if k != "mca_matmul_fixed" and v},
+           "fallbacks": {k: v for k, v in counters.items()
+                         if k.endswith("fallback_calls") and v},
+           "splits": calls[0], "finite": bool(torch.isfinite(hidden).all()),
+           "hidden_shape": list(hidden.shape),
+           "flops_reduction": float(stats["exact_flops"]
+                                    / stats["mca_flops"]),
+           "shapes": sorted(shapes.seen)}
+    del params, model, hidden
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = get_config("starcoder2-3b", dtype="float32",
+                       n_layers=SP_PARITY_LAYERS)
+    m32 = build_model(cfg32, device=dev)
+    full = m32.init(0)
+    p32, _ = _tp16_shard(m32, mesh, full)
+    calls, undo = _call_counter(dctx, "split_sequence")
+    try:
+        with torch.no_grad(), dctx.use_mesh(mesh):
+            h = m32.forward_hidden(p32, batch)[0]
+    finally:
+        undo()
+    res["f32_splits"] = calls[0]
+    np.save(out / f"h32_{rank}.npy", h.cpu().numpy())
+    del p32, h
+    if rank == 0:
+        with torch.no_grad():
+            h = m32.forward_hidden(full, batch)[0]
+        np.save(out / "h32_world1.npy", h.cpu().numpy())
+        del h
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
+def _sp_part(out):
+    """Phase 17, two ranks on the card over gloo, mesh (1, 2): (a) the
+    memory the split saves, (b) the split path through the MCA kernel;
+    rank 0 then holds every mca_matmul_fixed shape (b) gave against the
+    plain version."""
+    rank, mesh, dev = _tp_setup(1, 2)
+    res = {"rank": rank}
+    t0 = time.perf_counter()
+    res["a"] = _sp_memory(rank, mesh, dev)
+    res["a_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["b"] = _sp_kernel(rank, mesh, dev, out)
+    res["b_s"] = time.perf_counter() - t0
+    if rank == 0:
+        res["path_shapes_err"] = phase_path_shapes(
+            set(map(tuple, res["b"]["shapes"])))
+    return res
+
+
+def _sp_check(ranks):
+    """Phase 17 (a), (b): the checks and their lines."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    cfg = get_config("starcoder2-3b")
+    b, s = SP_TRAIN
+    # the checkpointed layer inputs: [b, s, d] bf16 (2 bytes) whole, half
+    # of the rows a rank with the split
+    predicted = SP_LAYERS * b * s * cfg.d_model * 2 / 2
+    nums = {"a_predicted_mb": predicted / 1e6}
+    fail = []
+    for r in ranks:
+        a = r["a"]
+        sp, wh = a["split"], a["whole"]
+        diff = wh["held"] - sp["held"]
+        log(f"[sp] (a) rank {r['rank']} starcoder2-3b {SP_LAYERS} layers "
+            f"bf16, remat, MCA on v_proj, (1, 2), holds {a['share']:.4f} "
+            f"of the elements: {b} x {sp['seq']} (split: "
+            f"{sp['splits']} split calls, {sp['n_saved']} checkpointed "
+            f"layer inputs of {sp['saved']}) held {sp['held'] / 1e6:.1f} "
+            f"MB after the forward, peak {sp['peak'] / 1e6:.1f} MB, step "
+            f"{sp['step_s']:.3f} s (warm-up {a['warm']['step_s']:.3f} s); "
+            f"{b} x {wh['seq']} (whole: {wh['splits']} split calls, "
+            f"{wh['n_saved']} of {wh['saved']}) held "
+            f"{wh['held'] / 1e6:.1f} MB, peak {wh['peak'] / 1e6:.1f} MB, "
+            f"step {wh['step_s']:.3f} s; held difference "
+            f"{diff / 1e6:.2f} MB (predicted {predicted / 1e6:.2f} MB, "
+            f"limit 10%); losses {sp['loss']:.4f} {wh['loss']:.4f}")
+        if not (abs(diff - predicted) <= 0.1 * predicted
+                and sp["splits"] > 0 and wh["splits"] == 0
+                and sp["finite"] and wh["finite"]
+                and sp["saved"][0] == [[b, s // 2, cfg.d_model],
+                                       "torch.bfloat16"]
+                and wh["saved"][0][0] == [b, s - 1, cfg.d_model]):
+            fail.append(f"(a) rank {r['rank']}")
+        nums[f"a_rank{r['rank']}"] = {
+            "held_split_mb": sp["held"] / 1e6,
+            "held_whole_mb": wh["held"] / 1e6, "diff_mb": diff / 1e6,
+            "peak_split_mb": sp["peak"] / 1e6,
+            "peak_whole_mb": wh["peak"] / 1e6,
+            "step_split_s": sp["step_s"], "step_whole_s": wh["step_s"]}
+    out = DIST_DIR / "sp"
+    world1 = np.load(out / "h32_world1.npy")
+    errs = [float(np.abs(np.load(out / f"h32_{r}.npy") - world1).max()
+                  / np.abs(world1).max()) for r in (0, 1)]
+    for r in ranks:
+        k = r["b"]
+        log(f"[sp] (b) rank {r['rank']} starcoder2-3b full width (1, 2), "
+            f"no-grad forward_hidden of {SP_PREFILL[0]} x {SP_PREFILL[1]} "
+            f"in {k['s']:.3f} s: {k['splits']} split calls, "
+            f"mca_matmul_fixed {k['mca_launches']} launches (predicted "
+            f"{k['want_mca']}: two chunks of {SP_PREFILL[0]} x "
+            f"{SP_PREFILL[1]} / 2), other launches "
+            f"{k['other_launches'] or 0}, fallbacks {k['fallbacks'] or 0},"
+            f" hidden {k['hidden_shape']} finite {k['finite']}, "
+            f"flops_reduction {k['flops_reduction']:.3f}; kernel shapes "
+            f"{[sh[:4] for sh in map(tuple, k['shapes'])]}")
+        if (k["mca_launches"] != k["want_mca"] or not k["want_mca"]
+                or k["fallbacks"] or not k["splits"] or not k["finite"]
+                or not k["f32_splits"]):
+            fail.append(f"(b) rank {r['rank']}")
+    log(f"[sp] (b) {SP_PARITY_LAYERS} layers f32, TF32 off, MCA off, split "
+        f"({ranks[0]['b']['f32_splits']} split calls): each rank's hidden "
+        f"states against a world of one, max|diff|/max|h| {errs} (limit "
+        f"1e-4)")
+    if not max(errs) <= 1e-4:
+        fail.append("(b) f32 hidden states")
+    if fail:
+        raise AssertionError("phase 17 failed: " + "; ".join(fail))
+    nums["b_h32_err"] = max(errs)
+    nums["b_s"] = [r["b"]["s"] for r in ranks]
+    return nums
+
+
+def _sp_count():
+    """(c) the train step of (a) (MCA off, a world of one) on the card:
+    ``launch.dryrun.count_flops`` there and on ``meta`` tensors must be
+    equal; the measured step time beside the roofline's t_compute."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.models import build_model
+    cfg = get_config("starcoder2-3b", n_layers=SP_LAYERS)
+    b, s = SP_TRAIN
+    dev = torch.device("cuda")
+    model = build_model(cfg, device=dev)
+    batch = _sp_batch(cfg, b, s, 17, dev)
+    card = dryrun.count_flops(model, "train", batch)
+    meta = dryrun.count_flops(build_model(cfg, device="meta"), "train",
+                              specs.train_specs(cfg, s, b))
+    params = model.init(0)
+    leaves = [t for t in _leaves(params) if t.is_floating_point()]
+    for t in leaves:
+        t.requires_grad_(True)
+    times = []
+    for _ in range(3):                       # the first warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = model.loss(params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del loss, grads
+    arg_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    terms = dryrun.roofline_terms({"flops": card, "bytes_accessed":
+                                   arg_bytes})
+    step = sorted(times[1:])[0]
+    log(f"[sp] (c) starcoder2-3b {SP_LAYERS} layers bf16, {b} x {s}, MCA "
+        f"off, one rank: FlopCounterMode on the card {card} (loss and "
+        f"backward), launch.dryrun on meta tensors {meta}: equal "
+        f"{card == meta}; step {step:.4f} s (best of {len(times) - 1} "
+        f"after a warm-up; measured) beside roofline t_compute "
+        f"{terms['t_compute']:.4f} s and t_memory {terms['t_memory']:.6f} "
+        f"s (the params read once): {terms['t_compute'] / step:.3f} of "
+        f"the bf16 peak (not gated)")
+    del params, leaves, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if card != meta:
+        raise AssertionError("phase 17 (c): the card's count differs from "
+                             "the dry-run's")
+    return {"c_flops": card, "c_step_s": step,
+            "c_t_compute_s": terms["t_compute"]}
+
+
+def _sp_examples():
+    """(d) the port's examples on the card, each in a subprocess within
+    SP_EXAMPLE_S seconds."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    nums = {}
+    for script in SP_EXAMPLES:
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run([sys.executable,
+                                   str(ROOT / "examples" / script)],
+                                  cwd=ROOT, env=env, capture_output=True,
+                                  text=True, timeout=SP_EXAMPLE_S)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"phase 17 (d): {script} passed its "
+                                 f"{SP_EXAMPLE_S} s") from None
+        dt = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            log(f"[sp] (d) {script}: {line}")
+        log(f"[sp] (d) {script} exited {proc.returncode} in {dt:.1f} s "
+            f"(limit {SP_EXAMPLE_S} s)")
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 17 (d): {script} failed:\n"
+                                 f"{proc.stderr[-4000:]}")
+        nums[script] = dt
+    return {"d_s": nums}
+
+
+def phase_sp():
+    """Phase 17: the sequence-parallel residual, two ranks on the card
+    over gloo ((a) memory, (b) the MCA kernel on the split path), then in
+    this process (c) the dry-run's count against the card's and (d) the
+    examples.  Returns (main-path launches, the max error of the shapes
+    held, numbers)."""
+    import gc
+    import shutil
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = _torchrun(2, "sp", 600)
+    nums = _sp_check(ranks)
+    nums.update(_sp_count())
+    nums.update(_sp_examples())
+    launches = {"mca_matmul_fixed": sum(r["b"]["mca_launches"]
+                                        for r in ranks),
+                "kv_slot_update": 0}
+    nums["phase_s"] = time.perf_counter() - t0
+    log(f"[sp] phase 17 in {nums['phase_s']:.1f}s; main-path launches "
+        f"{launches}")
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    return launches, ranks[0]["path_shapes_err"], nums
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4724,16 +5131,18 @@ def main() -> int:
     dist_launches, dist_err, dist_nums = phase_dist()
     tp_launches, tp_err, tp_nums = phase_tp()
     tp16_launches, tp16_err, tp16_nums = phase_tp_families()
+    sp_launches, sp_err, sp_nums = phase_sp()
     errs["mca_matmul_fixed"] = max(errs["mca_matmul_fixed"], dist_err,
-                                   tp_err, tp16_err)
+                                   tp_err, tp16_err, sp_err)
     for k in SERVE_KERNELS:
         launches[k] += (fam_launches[k] + ssm_launches[k] + ev_launches[k]
                         + dist_launches[k] + tp_launches[k]
-                        + tp16_launches[k])
+                        + tp16_launches[k] + sp_launches[k])
         per[k] += (f"; phase 9: {fam_launches[k]}; phase 11: "
                    f"{ssm_launches[k]}; phase 12: {ev_launches[k]}; "
                    f"phase 14: {dist_launches[k]}; phase 15: "
-                   f"{tp_launches[k]}; phase 16: {tp16_launches[k]}")
+                   f"{tp_launches[k]}; phase 16: {tp16_launches[k]}; "
+                   f"phase 17: {sp_launches[k]}")
     per["mca_matmul_fixed"] += (" (per prefill of <= 256 tokens: olmoe "
                                 "16 x 2 x 3 = 96, minicpm3 62 x (1 + 3) "
                                 "= 248; recurrentgemma-9b: 12 attention "
@@ -4744,7 +5153,9 @@ def main() -> int:
                                 "starcoder2-3b 2 x 180 = 360 a rank, "
                                 "olmoe-1b-7b 2 x 64 = 128 a rank; phase "
                                 "16, two chunks a rank: the routing's, "
-                                "printed on its (a) lines)")
+                                "printed on its (a) lines; phase 17 (b), "
+                                "two chunks of 4 x 256 a rank: the "
+                                "routing's, printed on its (b) lines)")
     per["kv_slot_update"] += (" (per decode step: olmoe 16, minicpm3 62, "
                               "recurrentgemma-9b 12, mamba2-2.7b 0, "
                               "whisper-small 12, internvl2-1b 24; phase "
@@ -4778,12 +5189,13 @@ def main() -> int:
         f"{ssm_nums['phase_s']:.1f}s, phase 12: {ev_nums['phase_s']:.1f}s, "
         f"phase 14: {dist_nums['phase_s']:.1f}s, phase 15: "
         f"{tp_nums['phase_s']:.1f}s, phase 16: "
-        f"{tp16_nums['phase_s']:.1f}s)")
+        f"{tp16_nums['phase_s']:.1f}s, phase 17: "
+        f"{sp_nums['phase_s']:.1f}s)")
     log(json.dumps({"serve": serve_nums, "train": train_nums,
                     "families": fam_nums, "devtel": devtel_nums,
                     "ssm_hybrid": ssm_nums, "encdec_vlm": ev_nums,
                     "dist": dist_nums, "tp": tp_nums,
-                    "tp_families": tp16_nums,
+                    "tp_families": tp16_nums, "sp": sp_nums,
                     "family_kernels": nums["families"], "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -33,8 +33,13 @@ def fold_in(key: int, data: int) -> int:
     return (z ^ (z >> 31)) >> 1          # 63 bits: a valid manual_seed
 
 
-def generator(key: int, device: Union[str, torch.device]) -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` seeded from ``key``."""
+def generator(key: int, device: Union[str, torch.device]
+              ) -> Optional[torch.Generator]:
+    """A ``torch.Generator`` on ``device`` seeded from ``key``; None on the
+    ``meta`` device, which has no generator and whose draws are shapes
+    only (``launch.dryrun`` counts a step's operations there)."""
+    if torch.device(device).type == "meta":
+        return None
     g = torch.Generator(device=device)
     g.manual_seed(key)
     return g

@@ -70,3 +70,8 @@ def importance_from_attention(attn: torch.Tensor) -> torch.Tensor:
     if col.dim() >= 2:
         col = torch.amax(col, dim=-2)       # over heads
     return col
+
+
+def effective_alpha(alpha: float, delta: float = 1.0) -> float:
+    """Theorem 2 tail: with prob >= 1-delta the error is alpha*beta*||W||/delta."""
+    return alpha / delta

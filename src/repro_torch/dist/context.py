@@ -19,11 +19,21 @@ collectives joins the shards (:func:`copy_to_model`: identity forward,
 sum over ``"model"`` backward; :func:`reduce_from_model`: the reverse).
 Only code with no tensor-parallel form refuses a model axis
 (:func:`require_data_parallel` given no config).
-:func:`constrain`, :func:`constrain_heads` and :func:`constrain_residual`
-return ``x`` unchanged: the residual stream is replicated over
-``"model"``, which is numerically what the reference's placement hints
-compute (the n_model-fold saving of stored activations that its
-sequence-sharded residual gives is not taken; ROADMAP.md).
+The residual stream between layers is split by sequence over
+``"model"`` (Megatron sequence parallelism, the reference's
+:func:`constrain_residual` placement) whenever :func:`residual_split`
+holds: a model axis larger than 1, ``attn_parallel != "dp"`` and a
+sequence that the axis divides.  ``models.stack.stack_forward`` then
+keeps this rank's rows ``[B, S / n_model, d]`` between layers (so a
+checkpointed layer saves n_model-fold fewer bytes), runs the norms on
+them, gathers the normed rows for each mixer (:func:`gather_replicated`:
+its narrow backward and the mixer's :func:`copy_to_model` give the
+reduce-scatter), keeps its rows of the mixer's whole output
+(:func:`split_sequence`: narrow forward, all-gather backward) and
+gathers the rows again at the stack's exit.  The prefill and decode
+keep the residual whole, as the reference's do.  :func:`constrain` and
+:func:`constrain_heads` return ``x`` unchanged: a placement hint, where
+the port places activations by what each rank computes.
 
 Inside :func:`use_mesh` each rank holds its rows of the batch (the rows
 of its data shard, shared by the ranks of its ``"model"`` row).  When
@@ -513,8 +523,48 @@ def constrain_heads(x: torch.Tensor, *, head_dims: Sequence[int],
     return x
 
 
+class _SplitSequence(torch.autograd.Function):
+    """This rank's block along ``dim`` of a tensor every model rank holds
+    whole forward; backward every rank's block of the gradient gathered
+    over ``"model"``: the rank's rows of a mixer's replicated output,
+    whose gradient the mixer's ranks each need whole."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        n = x.shape[dim] // model_size(mesh)
+        return x.narrow(dim, model_index(mesh) * n, n).clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.mesh, _MODEL, ctx.dim), \
+            None, None
+
+
+def split_sequence(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` over ``"model"`` (see
+    :class:`_SplitSequence`); ``x`` itself without a model axis."""
+    mesh = _tp_mesh()
+    return x if mesh is None else _SplitSequence.apply(x, mesh,
+                                                        dim % x.dim())
+
+
+def residual_split(seq_len: int, attn_parallel: str = "auto") -> bool:
+    """The reference's rule for the residual stream between layers: split
+    by sequence over ``"model"`` when the active mesh has a model axis
+    larger than 1, ``attn_parallel`` is not ``"dp"`` and the axis
+    divides ``seq_len``; otherwise it stays whole on every rank."""
+    nm = model_size()
+    return nm > 1 and attn_parallel != "dp" and seq_len % nm == 0
+
+
 def constrain_residual(x: torch.Tensor, attn_parallel: str = "auto"
                        ) -> torch.Tensor:
-    """Residual-stream hint at layer boundaries: ``x`` unchanged (the
-    residual stays replicated over ``"model"``; see module doc)."""
+    """The residual stream ``[B, S, d]`` at a stack's entry: this rank's
+    rows of the sequence when :func:`residual_split` holds (Megatron
+    sequence parallelism: stored activations shrink n_model-fold), else
+    ``x`` unchanged."""
+    if x.dim() >= 2 and residual_split(x.shape[1], attn_parallel):
+        return split_sequence(x, 1)
     return x

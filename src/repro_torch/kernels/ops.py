@@ -2,7 +2,8 @@
 
 One rule for every wrapper: a CPU tensor takes the kernel's plain PyTorch
 version (``kernels/ref.py``, the role interpret mode plays in the
-reference), a CUDA tensor launches the CUDA kernel or raises.  There is
+reference), and so does a ``meta`` one (shapes only, no data), a CUDA
+tensor launches the CUDA kernel or raises.  There is
 no fallback on the card: the kernels mask ragged edges themselves, so the
 shapes for which the reference's wrappers fall back (``m``, ``sq`` or
 ``skv`` not a multiple of the block) run the kernel there.  The
@@ -67,6 +68,13 @@ _COUNTERS = {op: (f"kernels.{op}.fallback_calls", f"kernels.{op}.kernel_calls")
                         "flash_attention", "attn_colmax")}
 
 
+def _plain(x: torch.Tensor) -> bool:
+    """Whether a call on ``x`` takes the plain version: on the CPU, and on
+    the ``meta`` device, whose tensors hold shapes only (``launch.dryrun``
+    counts a step's operations there)."""
+    return x.device.type in ("cpu", "meta")
+
+
 def _count(op: str, used_kernel: bool, n: int = 1) -> None:
     obs.get_registry().counter(_COUNTERS[op][used_kernel]).inc(n)
 
@@ -97,9 +105,9 @@ def mca_matmul(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
     x: [m, d]; w: [d, f]; idx: [R] int32; inv_rp: [R] f32 -> [m, f].
     """
     _refuse_grad("mca_matmul", x, w, inv_rp)
-    on_cpu = x.device.type == "cpu"
-    _count("mca_matmul", not on_cpu)
-    impl = _ref.ref_mca_matmul_fixed if on_cpu else _mca_mod.mca_matmul_fixed
+    plain = _plain(x)
+    _count("mca_matmul", not plain)
+    impl = _ref.ref_mca_matmul_fixed if plain else _mca_mod.mca_matmul_fixed
     tel_on = devtel.enabled()
     with obs.trace("mca_matmul"):
         out = impl(x, w, idx, inv_rp, block=block, telemetry=tel_on,
@@ -126,9 +134,9 @@ def mca_matmul_ragged(x: torch.Tensor, w: torch.Tensor, r_tile: torch.Tensor,
         raise ValueError(f"x {tuple(x.shape)}: rows are not a multiple of "
                          f"{m_tiles} row tiles")
     _refuse_grad("mca_matmul_ragged", x, w, inv_rp)
-    on_cpu = x.device.type == "cpu"
-    _count("mca_matmul_ragged", not on_cpu)
-    impl = _ref.ref_mca_matmul_ragged if on_cpu else \
+    plain = _plain(x)
+    _count("mca_matmul_ragged", not plain)
+    impl = _ref.ref_mca_matmul_ragged if plain else \
         _mca_mod.mca_matmul_ragged
     tel_on = devtel.enabled()
     with obs.trace("mca_matmul_ragged"):
@@ -149,9 +157,9 @@ def kv_slot_update(cache: torch.Tensor, new: torch.Tensor,
     reference donates its buffer and returns the aliased output).
     """
     _refuse_grad("kv_slot_update", cache, new)
-    on_cpu = cache.device.type == "cpu"
-    _count("kv_slot_update", not on_cpu)
-    impl = _ref.ref_kv_slot_update if on_cpu else _cache_mod.kv_slot_update
+    plain = _plain(cache)
+    _count("kv_slot_update", not plain)
+    impl = _ref.ref_kv_slot_update if plain else _cache_mod.kv_slot_update
     tel_on = devtel.enabled()
     with obs.trace("kv_slot_update"):
         out = impl(cache, new, pos, telemetry=tel_on)
@@ -184,9 +192,9 @@ def kv_slot_update_layer(k_cache: torch.Tensor, k_new: torch.Tensor,
     launches, one per call.
     """
     _refuse_grad("kv_slot_update", k_cache, k_new, v_cache, v_new)
-    on_cpu = k_cache.device.type == "cpu"
-    _count("kv_slot_update", not on_cpu, 2)
-    impl = _ref.ref_kv_slot_update_layer if on_cpu else \
+    plain = _plain(k_cache)
+    _count("kv_slot_update", not plain, 2)
+    impl = _ref.ref_kv_slot_update_layer if plain else \
         _cache_mod.kv_slot_update_layer
     tel_on = devtel.enabled()
     with obs.trace("kv_slot_update"):
@@ -206,9 +214,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the diagonal offset ``skv - sq`` (suffix queries).
     """
     _refuse_grad("flash_attention", q, k, v)
-    on_cpu = q.device.type == "cpu"
-    _count("flash_attention", not on_cpu)
-    impl = _ref.ref_attention if on_cpu else _flash_mod.flash_attention
+    plain = _plain(q)
+    _count("flash_attention", not plain)
+    impl = _ref.ref_attention if plain else _flash_mod.flash_attention
     tel_on = devtel.enabled()
     with obs.trace("flash_attention"):
         out = impl(q, k, v, scale=scale, causal=causal, telemetry=tel_on,
@@ -227,9 +235,9 @@ def attn_colmax(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor, *,
     """Column max of A from (q, k, lse): [B, Hq, Skv] f32, or [B, Skv]
     reduced over heads (``reduce_heads``, the reference's default)."""
     _refuse_grad("attn_colmax", q, k, lse)
-    on_cpu = q.device.type == "cpu"
-    _count("attn_colmax", not on_cpu)
-    impl = _ref.ref_colmax if on_cpu else _colmax_mod.attn_colmax
+    plain = _plain(q)
+    _count("attn_colmax", not plain)
+    impl = _ref.ref_colmax if plain else _colmax_mod.attn_colmax
     tel_on = devtel.enabled()
     with obs.trace("attn_colmax"):
         cm = impl(q, k, lse, scale=scale, causal=causal, telemetry=tel_on,

@@ -174,9 +174,12 @@ def ref_kv_slot_update_layer(k_cache: torch.Tensor, k_new: torch.Tensor,
                             device=k_cache.device).expand(b)
     slot = (t_vec % s if window > 0 else t_vec).long()
     keep = (slot >= 0) & (slot < s)
-    rows, slot = torch.arange(b, device=k_cache.device)[keep], slot[keep]
-    k_cache[rows, slot] = k_new[keep, 0]
-    v_cache[rows, slot] = v_new[keep, 0]
+    # a skipped row rewrites the entry it reads (no shape depends on the
+    # data, so the meta device runs it too)
+    rows, slot = torch.arange(b, device=k_cache.device), slot.clamp(0, s - 1)
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        mask = keep.view(b, *([1] * (new.dim() - 2)))
+        cache[rows, slot] = torch.where(mask, new[:, 0], cache[rows, slot])
     if slot_pos is not None:
-        slot_pos[rows, slot] = t_vec[keep]
+        slot_pos[rows, slot] = torch.where(keep, t_vec, slot_pos[rows, slot])
     return tel

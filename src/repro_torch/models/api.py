@@ -637,7 +637,7 @@ def _pe_row(t, n: int, d: int, dtype, device):
     stays on the device."""
     pe = sinusoidal_pos_emb(n, d, dtype, device)
     if isinstance(t, torch.Tensor):
-        return pe[torch.clamp(t.reshape(()), 0, n - 1).long()][None, None]
+        return pe[torch.clamp(t.reshape(1), 0, n - 1).long()][None]
     return pe[min(max(int(t), 0), n - 1)][None, None]
 
 

@@ -102,6 +102,12 @@ def embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:
     return params["table"][tokens.long()]
 
 
+def logits_from_hidden(table: torch.Tensor, x: torch.Tensor
+                       ) -> torch.Tensor:
+    """x: [..., d] @ table.T -> [..., padded_vocab], in f32."""
+    return torch.einsum("...d,vd->...v", x.float(), table.float())
+
+
 def sinusoidal_pos_emb(s: int, d: int, dtype=torch.float32,
                        device=None) -> torch.Tensor:
     """[S, d] fixed sinusoidal embedding: sin of the first d/2 channels,

@@ -19,6 +19,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.core.amm import fold_in
+from repro_torch.dist import context as dctx
 from repro_torch.dist import sharding as shd
 from . import attention as attn
 from . import ffn as ffn_mod
@@ -86,8 +87,17 @@ def init_layer(g: torch.Generator, cfg, kind: str, device):
     return p
 
 
+def _norm(p, cfg, x, split: bool):
+    """The norm of ``x``; with ``x`` this rank's rows, each rank's part of
+    the norm weights' gradient is summed over ``"model"``."""
+    if split:
+        p = {k: dctx.copy_to_model(v) for k, v in p.items()}
+    return apply_norm(p, cfg, x)
+
+
 def layer_forward(p, cfg, x, *, pos, mca_key: Optional[int], kind: str,
-                  enc_out=None, causal=None, window=None, kv_valid=None):
+                  enc_out=None, causal=None, window=None, kv_valid=None,
+                  split: bool = False):
     """One residual block.  Returns (x, aux, stats, cache pieces): the
     cache pieces are (k, v) for GQA (of the self attention in a
     ``dec_attn_ffn`` layer), (ckv, kr) for MLA, (state, conv_tail) for
@@ -95,13 +105,25 @@ def layer_forward(p, cfg, x, *, pos, mca_key: Optional[int], kind: str,
     router's load-balance loss, None otherwise (no tensor, so such a
     layer launches nothing for it).  A ``dec_attn_ffn`` layer given
     ``enc_out`` runs its cross attention (non-causal, no window) over it,
-    its MCA samples drawn from ``fold_in(mca_key, 7)``."""
+    its MCA samples drawn from ``fold_in(mca_key, 7)``.
+
+    ``split``: ``x`` holds this rank's rows of the sequence
+    (``dist.context.residual_split``); the norms run on them, each mixer
+    gets the gathered sequence and the layer keeps its rows of the
+    mixer's output, so the mixers, their routing and ``pos`` are those
+    of the whole sequence."""
+    def whole(h):
+        return dctx.gather_replicated(h, 1) if split else h
+
+    def mine(y):
+        return dctx.split_sequence(y, 1) if split else y
+
     stats = zero_carry_stats(cfg, x.device)
-    h = apply_norm(p["ln1"], cfg, x)
+    h = whole(_norm(p["ln1"], cfg, x, split))
     if kind == "ssm":
         y, state, tail = ssm.mamba2_forward(p["mixer"], cfg, h,
                                             return_state=True)
-        return x + y, None, stats, (state, tail)
+        return x + mine(y), None, stats, (state, tail)
     if kind == "rec_ffn":
         y, tail, h_last = rglru.recurrent_block_with_state(p["mixer"], cfg,
                                                            h)
@@ -118,23 +140,23 @@ def layer_forward(p, cfg, x, *, pos, mca_key: Optional[int], kind: str,
                                              window=window, return_kv=True,
                                              kv_valid=kv_valid)
         stats = add_stats(stats, st)
-    x = x + y
+    x = x + mine(y)
     if kind == "dec_attn_ffn" and enc_out is not None:
-        h = apply_norm(p["ln_x"], cfg, x)
+        h = whole(_norm(p["ln_x"], cfg, x, split))
         y, _, st, _ = attn.gqa_attention(
             p["cross"], cfg, h, pos=pos,
             mca_key=None if mca_key is None else fold_in(mca_key, 7),
             causal=False, window=0, kv_x=enc_out)
         stats = add_stats(stats, st)
-        x = x + y
-    h = apply_norm(p["ln2"], cfg, x)
+        x = x + mine(y)
+    h = whole(_norm(p["ln2"], cfg, x, split))
     if kind == "attn_moe":
         y, aux, st = ffn_mod.moe_ffn(p["ffn"], cfg, h, mca_key=mca_key)
         stats = add_stats(stats, st)
     else:
         y = ffn_mod.ffn(p["ffn"], cfg, h)
         aux = None
-    return x + y, aux, stats, cache
+    return x + mine(y), aux, stats, cache
 
 
 def init_stack(g: torch.Generator, cfg, n_layers: int, kind: str, device):
@@ -158,8 +180,15 @@ def stack_forward(params, cfg, x, *, pos, mca_key: Optional[int], kind,
     every layer.  The recompute draws the same MCA samples: they come
     from a generator seeded from the layer's integer key, never from the
     global RNG, so the RNG state is not stashed.
+
+    Where ``dist.context.residual_split`` holds, the stack keeps this
+    rank's rows of the sequence between layers (``constrain_residual``
+    at its entry, the rows gathered at its exit), so a checkpointed
+    layer saves ``[B, S / n_model, d]``; ``x`` and the result are whole.
     """
     kinds = [kind] * len(params) if isinstance(kind, str) else kind
+    split = dctx.residual_split(x.shape[1], cfg.attn_parallel)
+    x = dctx.constrain_residual(x, cfg.attn_parallel)
     stats = zero_carry_stats(cfg, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -171,18 +200,26 @@ def stack_forward(params, cfg, x, *, pos, mca_key: Optional[int], kind,
             out, aux_l, st, _ = layer_forward(shd.unshard(p_l, sh_l), cfg,
                                               xx, pos=pos, mca_key=key_l,
                                               kind=kind_l, enc_out=enc,
-                                              causal=causal, window=window)
+                                              causal=causal, window=window,
+                                              split=split)
             return out, aux_l, st
 
         if remat:
-            x, aux_l, st = torch.utils.checkpoint.checkpoint(
-                run, x, enc_out, use_reentrant=False,
-                preserve_rng_state=False)
+            # the whole layer is recomputed on every rank: stopping once
+            # this rank's saved tensors are back would skip collectives
+            # that another rank, which saved more (``first_model_share``),
+            # still runs
+            with torch.utils.checkpoint.set_checkpoint_early_stop(False):
+                x, aux_l, st = torch.utils.checkpoint.checkpoint(
+                    run, x, enc_out, use_reentrant=False,
+                    preserve_rng_state=False)
         else:
             x, aux_l, st = run(x, enc_out)
         if aux_l is not None:
             aux = aux + aux_l
         stats = add_stats(stats, st)
+    if split:
+        x = dctx.gather_replicated(x, 1)
     return x, aux, stats
 
 

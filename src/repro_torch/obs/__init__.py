@@ -7,7 +7,7 @@ annotations), with the reference's metric names.
   ``torch.distributed`` process group;
 - spans: ``obs.record_span`` / ``obs.mark`` / ``obs.export_chrome_trace``
   when enabled with ``obs.enable_tracing()`` / ``obs.tracing()``;
-- profiler hooks: ``obs.trace("name")`` over
+- profiler hooks: ``obs.trace("name")`` / ``@obs.annotate("name")`` over
   ``torch.profiler.record_function``;
 - device telemetry: ``obs.devtel`` accumulates the kernels' launch and
   work counts on the device (``kernels.<op>.device_launches``, against
@@ -21,13 +21,13 @@ from .aggregate import snapshot
 from .registry import (Counter, Gauge, Histogram, Registry, get_registry,
                        scoped)
 from .sink import JsonlSink, read_jsonl
-from .trace import trace
+from .trace import annotate, trace
 from .tracing import (enable_tracing, export_chrome_trace, mark, record_span,
                       tracing, tracing_enabled)
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "Registry", "get_registry", "scoped",
-    "snapshot", "devtel", "JsonlSink", "read_jsonl", "trace",
+    "snapshot", "devtel", "JsonlSink", "read_jsonl", "annotate", "trace",
     "enable_tracing", "tracing", "tracing_enabled", "record_span", "mark",
     "export_chrome_trace",
 ]

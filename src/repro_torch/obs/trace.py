@@ -9,6 +9,8 @@ device time.
 from __future__ import annotations
 
 import contextlib
+import functools
+from typing import Callable
 
 import torch
 
@@ -22,3 +24,15 @@ def trace(name: str):
     if not torch.autograd._profiler_enabled():
         return _NO_SPAN
     return torch.profiler.record_function(name)
+
+
+def annotate(name: str) -> Callable:
+    """Decorator running the function inside :func:`trace` ``(name)``: a
+    ``record_function`` span while a profiler runs, nothing otherwise."""
+    def deco(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            with trace(name):
+                return fn(*args, **kwargs)
+        return wrapped
+    return deco

@@ -4,6 +4,8 @@ card is reduced on the card and only the verdict crosses to the host."""
 from __future__ import annotations
 
 import math
+from typing import Any
+
 import numpy as np
 import torch
 
@@ -24,6 +26,16 @@ def is_finite(value) -> bool:
     if not np.issubdtype(arr.dtype, np.floating):
         return True
     return bool(np.isfinite(arr).all())
+
+
+def tree_finite(tree: Any) -> bool:
+    """True iff every float leaf of a tree of dicts, lists and tuples is
+    finite."""
+    if isinstance(tree, dict):
+        return all(tree_finite(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return all(tree_finite(v) for v in tree)
+    return is_finite(tree)
 
 
 def check_finite(value, what: str):

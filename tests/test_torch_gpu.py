@@ -1425,3 +1425,100 @@ def test_reduced_tp_serve_on_card_matches_cpu(cuda, tmp_path):
         assert err <= 1e-4, err
         assert int(res["card_kv"]) == 2 * 3 and int(res["cpu_kv"]) == 0
         assert int(res["card_heads"]) == 1 == int(res["cpu_heads"])
+
+
+# ------------------------------------------- sequence-parallel residual
+_SP_CARD = """
+import sys
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+def run(rank, port):
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.dist import context as dctx, sharding as shd
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build_model, reduced
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import serve_step_shardings
+    dev = torch.device("cuda", 0)
+    mesh = make_local_mesh(1, 2, device=dev)
+    g = torch.Generator(dev).manual_seed(0)
+    x = torch.randn(2, 8, 5, generator=g, device=dev).to(torch.bfloat16)
+    x.requires_grad_(True)
+    w = torch.randn(2, 8, 5, generator=g, device=dev).to(torch.bfloat16)
+    with dctx.use_mesh(mesh):
+        part = dctx.split_sequence(x, 1)
+        assert part.device == dev
+        assert torch.equal(part, x.detach()[:, 4 * rank:4 * rank + 4])
+        (part.float() * w[:, 4 * rank:4 * rank + 4].float()).sum().backward()
+        # every rank's rows of the gradient, gathered
+        assert torch.equal(x.grad, w), "split_sequence backward"
+        y = torch.randn(2, 4, 5, generator=torch.Generator(dev).manual_seed(
+            rank), device=dev).requires_grad_(True)
+        whole = dctx.gather_replicated(y, 1)
+        others = [torch.randn(2, 4, 5, generator=torch.Generator(
+            dev).manual_seed(r), device=dev) for r in (0, 1)]
+        assert torch.equal(whole.detach(), torch.cat(others, 1))
+        (whole * torch.arange(8.0, device=dev)[None, :, None]).sum().backward()
+        want = torch.arange(8.0, device=dev)[4 * rank:4 * rank + 4]
+        assert torch.equal(y.grad, want[None, :, None].expand(2, 4, 5))
+    # a reduced model's loss and gradients with the split, card and CPU,
+    # from the same weights (drawn on the CPU)
+    cfg = reduced(get_config("starcoder2-3b"), dtype="float32")
+    cpu_full = build_model(cfg, device="cpu").init(0)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        model = build_model(cfg, device=d)
+        m = make_local_mesh(1, 2, device=d)
+        full = adamw.tree_map(lambda t: t.to(d), cpu_full)
+        toks = torch.arange(64, device=d, dtype=torch.int32).reshape(4, 16)
+        b = {"tokens": toks % 500 + 1, "labels": (toks * 7) % 500}
+        p_sh = serve_step_shardings(m, model, {}, b["tokens"])[0]
+        local = shd.shard_params(full, p_sh)
+        with dctx.use_mesh(m):
+            (loss, _), gr = adamw.value_and_grad(
+                lambda p, bb, k: model.loss(p, bb, k), local, b)
+        out[d.type] = [loss.detach().cpu()] + [
+            t.cpu() for t in adamw.leaves(gr)]
+    for a, c in zip(out["cuda"], out["cpu"]):
+        lim = 1e-4 * max(float(c.abs().max()), 1e-12)
+        assert float((a - c).abs().max()) <= lim, (float((a - c).abs(
+            ).max()), lim)
+    dist.destroy_process_group()
+    print(f"OK rank {rank}", flush=True)
+
+if __name__ == "__main__":
+    mp.spawn(run, args=(int(sys.argv[1]),), nprocs=2, join=True)
+"""
+
+
+def test_split_residual_on_card_over_gloo(cuda, tmp_path):
+    """Two ranks on the card over gloo, mesh (1, 2): ``split_sequence``
+    takes the rank's rows of a bf16 CUDA tensor and its backward gathers
+    every rank's rows of the gradient; ``gather_replicated`` gathers the
+    ranks' rows and its backward keeps the rank's, exactly; a reduced
+    starcoder2-3b's loss and gradients with the residual split (f32, TF32
+    off, the same weights) within 1e-4 of each leaf's largest of the same
+    ranks on the CPU (the card-against-CPU tolerance of the serve
+    tests)."""
+    import os
+    import pathlib
+    import socket
+    import subprocess
+    import sys
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    script = tmp_path / "sp_card.py"
+    script.write_text(_SP_CARD)
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, str(script), str(port)],
+                         env=dict(os.environ, PYTHONPATH=str(root / "src")),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert sorted(out.stdout.split()) == sorted(
+        "OK rank 0 OK rank 1".split())

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch`` (nor
-``chip_smoke.py``) imports JAX or the reference package ``repro``.
+``chip_smoke.py``, nor the port's examples ``examples/torch_*.py``)
+imports JAX or the reference package ``repro``.
 
 Checked twice: statically, by walking every import statement, and
 dynamically, by importing every module in a fresh interpreter where
@@ -19,8 +20,12 @@ PKG = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
+def _examples():
+    return sorted((ROOT / "examples").glob("torch_*.py"))
+
+
 def _sources():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + _examples()
 
 
 def _modules():
@@ -44,7 +49,7 @@ def _imported_roots(path):
 
 
 def test_port_sources_never_import_jax_or_reference():
-    assert len(_sources()) > 20
+    assert len(_sources()) > 20 and len(_examples()) == 4
     bad = {str(p.relative_to(ROOT)): sorted(set(_imported_roots(p))
                                             & set(FORBIDDEN))
            for p in _sources()}
@@ -55,8 +60,10 @@ def test_every_port_module_imports_without_jax():
     code = "\n".join([
         "import importlib, sys",
         "for name in %r: sys.modules[name] = None" % (FORBIDDEN,),
-        "sys.path[:0] = [%r, %r]" % (str(ROOT / "src"), str(ROOT)),
-        "for m in %r: importlib.import_module(m)" % (_modules(),),
+        "sys.path[:0] = [%r, %r, %r]" % (str(ROOT / "src"), str(ROOT),
+                                         str(ROOT / "examples")),
+        "for m in %r: importlib.import_module(m)" % (
+            _modules() + [p.stem for p in _examples()],),
         "import chip_smoke",
         "assert callable(chip_smoke.main)",
         "live = [k for k, v in sys.modules.items() if v is not None",
