@@ -289,12 +289,27 @@ Phases, each of which must pass:
              routing's count (two chunks of 1,024 tokens a rank), no
              fallback, hidden states finite; 4 layers in f32 (TF32 and
              MCA off): each rank's hidden states within 1e-4 of max |h|
-             of a world of one; then in this process (c) (a)'s train step
+             of a world of one; in this process (c) (a)'s train step
              with MCA off on one rank: ``FlopCounterMode``'s count on the
              card equal to ``launch.dryrun``'s on meta tensors, the step
              time printed beside the roofline's t_compute; (d)
              ``examples/torch_quickstart.py`` and
-             ``examples/torch_serve_mca.py`` each exit 0 within 60 s.
+             ``examples/torch_serve_mca.py`` each exit 0 within 60 s;
+             (e) the two ranks of (a) and (b), after (b), with
+             starcoder2-3b cut to 8 layers, bf16: a train step (FSDP,
+             MCA off) of 4 x 1,024, a prefill of 4 x 512 with MCA on
+             v_proj and o_proj through the kernel, one decode step (the
+             layer write), each counted by ``launch.hlo_analysis`` on
+             the card; from the end of (b), beside it and (d), a
+             process for each rank counts it on ``meta`` tensors in a
+             counting world (``launch.mesh.counting_world``), and (c)
+             runs after them: the collective census
+             (count and bytes per kind and per mesh axes) and the op
+             census (ATen ops, dots, sorts, custom calls) equal, the
+             card's custom calls its ``kernel_calls`` (no fallback), the
+             train step's FLOPs equal; the meta peak
+             (``temp_size_in_bytes``) printed beside the card's
+             ``max_memory_allocated`` over the step.
 
 Phase 10 runs between phases 5b and 7; phases 14, 15, 16 and 17 last.
 Builds four sources (one ``nvcc`` each, in parallel).  Ends with a
@@ -310,6 +325,7 @@ import math
 import pathlib
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -4905,7 +4921,7 @@ def _sp_part(out):
     """Phase 17, two ranks on the card over gloo, mesh (1, 2): (a) the
     memory the split saves, (b) the split path through the MCA kernel;
     rank 0 then holds every mca_matmul_fixed shape (b) gave against the
-    plain version."""
+    plain version; (e) the census of the rank's steps."""
     rank, mesh, dev = _tp_setup(1, 2)
     res = {"rank": rank}
     t0 = time.perf_counter()
@@ -4917,6 +4933,11 @@ def _sp_part(out):
     if rank == 0:
         res["path_shapes_err"] = phase_path_shapes(
             set(map(tuple, res["b"]["shapes"])))
+    # the timed parts are done: the main process starts (e) on meta
+    (out / f"ab_done{rank}").touch()
+    t0 = time.perf_counter()
+    res["e"] = _census_rank(mesh, dev)
+    res["e_s"] = time.perf_counter() - t0
     return res
 
 
@@ -5074,30 +5095,269 @@ def _sp_examples():
     return {"d_s": nums}
 
 
+CENSUS_PREFILL = (4, 512)        # (e): the prefill's rows x tokens
+CENSUS_MAX_LEN = 528             # (e): the decode's cache slots
+
+
+def _census_cases(dev):
+    """(e)'s steps on ``dev`` (the card, or ``meta``): starcoder2-3b at
+    full width cut to SP_LAYERS layers, bf16; (kind, model, global
+    inputs, mca): a train step with MCA off on (a)'s 4 x 1,024 tokens, a
+    prefill of 4 x 512 with MCA on v_proj and o_proj through the kernel,
+    one decode step from position 512."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import MCAConfig
+    from repro_torch.launch import specs
+    from repro_torch.models import build_model
+    out = []
+    for kind in ("train", "prefill", "decode"):
+        mca = MCAConfig(enabled=kind == "prefill", alpha=0.2, block=128,
+                        use_kernel=True, sites=("v_proj", "o_proj"))
+        cfg = get_config("starcoder2-3b", n_layers=SP_LAYERS, mca=mca)
+        model = build_model(cfg, device=dev)
+        b, s = SP_TRAIN if kind == "train" else CENSUS_PREFILL
+        if kind == "train":
+            inputs = (specs.train_specs(cfg, s, b) if dev == "meta"
+                      else _sp_batch(cfg, b, s, 19, dev))
+        elif kind == "prefill":
+            inputs = (specs.prefill_specs(cfg, s, b) if dev == "meta"
+                      else {"tokens": _sp_batch(cfg, b, s, 20,
+                                                dev)["tokens"]})
+        else:
+            toks = np.random.default_rng(21).integers(1, cfg.vocab_size,
+                                                      (b, 1))
+            tok = torch.as_tensor(toks.astype(np.int32), device=dev)
+            inputs = (tok, None, torch.tensor(s, dtype=torch.int32,
+                                              device=dev))
+        out.append((kind, model, inputs, kind == "prefill"))
+    return out
+
+
+def _census_rank(mesh, dev):
+    """(e), a rank on the card: each of ``_census_cases``' steps through
+    ``launch.dryrun.rank_step`` under ``launch.hlo_analysis``'s census
+    and ``FlopCounterMode``, its kernel counters, launches and the card's
+    peak over the step."""
+    import gc
+    import torch
+    from repro_torch import obs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, hlo_analysis
+    res = {}
+    for kind, model, inputs, mca in _census_cases(dev):
+        run, args = dryrun.rank_step(model, kind, inputs, mesh, mca,
+                                     max_len=CENSUS_MAX_LEN)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with obs.scoped() as reg, _MCAShapes() as shapes:
+            _, counts = hlo_analysis.count_step(run, mesh=mesh,
+                                                arguments=args, names=True)
+            torch.cuda.synchronize()
+            counters = _kernel_counters(reg.snapshot())
+        counts.update({
+            "shapes": sorted(shapes.seen),
+            "s": time.perf_counter() - t0,
+            "card_peak": torch.cuda.max_memory_allocated() - before,
+            "launches": ops.launch_counts(),
+            "kernel_calls": sum(v for k, v in counters.items()
+                                if k.endswith(".kernel_calls")),
+            "fallback_calls": sum(v for k, v in counters.items()
+                                  if k.endswith(".fallback_calls"))})
+        res[kind] = counts
+        del run, args, model, inputs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def _census_meta(rank):
+    """(e) on ``meta`` tensors: ``rank`` of (1, 2) counted in a counting
+    world (this process has no world of its own), ``_census_cases``'
+    steps as the ranks run them on the card."""
+    from repro_torch.dist.context import Mesh
+    from repro_torch.launch import dryrun, hlo_analysis
+    from repro_torch.launch.mesh import counting_world
+    out = {}
+    with counting_world(Mesh((1, 2), ("data", "model")), rank) as mesh:
+        for kind, model, inputs, mca in _census_cases("meta"):
+            run, args = dryrun.rank_step(model, kind, inputs, mesh, mca,
+                                         max_len=CENSUS_MAX_LEN)
+            out[kind] = hlo_analysis.count_step(
+                run, mesh=mesh, arguments=args, names=True)[1]
+    return out
+
+
+def census_meta_main() -> int:
+    """(e) on ``meta`` for one rank (``--census-meta RANK --out DIR``),
+    started by ``phase_sp``; writes ``meta{RANK}.json``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    rank = int(sys.argv[sys.argv.index("--census-meta") + 1])
+    out = pathlib.Path(sys.argv[sys.argv.index("--out") + 1])
+    (out / f"meta{rank}.json").write_text(json.dumps(_census_meta(rank)))
+    return 0
+
+
+def _census_check(ranks, metas):
+    """(e): each rank's counts on the card against the counting world's
+    (``_census_meta``): the collective census (count and bytes per kind
+    and per axes) and the op census equal, the card's custom calls its
+    kernel calls (no fallback), the train step's FLOPs equal (with MCA
+    on, the card's kernel replaces products the plain version runs, so
+    the prefill's are not compared); the meta peak printed beside the
+    card's."""
+    fail, nums = [], {}
+    for r in ranks:
+        for kind in ("train", "prefill", "decode"):
+            meta, card = metas[r["rank"]][kind], r["e"][kind]
+            ok = {"collectives": meta["collectives"] == card["collectives"],
+                  "op_census": meta["op_census"] == card["op_census"],
+                  "custom-call": card["op_census"]["custom-call"]
+                  == card["kernel_calls"] and card["fallback_calls"] == 0,
+                  "flops": kind != "train" or meta["flops"] == card["flops"]}
+            launched = {k: v for k, v in card["launches"].items() if v}
+            if kind == "prefill":
+                ok["launches"] = launched == {
+                    "mca_matmul_fixed": card["kernel_calls"]} \
+                    and card["kernel_calls"] > 0
+            if kind == "decode":
+                ok["launches"] = launched.get("kv_slot_update") == SP_LAYERS
+            coll = card["collectives"]
+            ratio = meta["temp_size_in_bytes"] / max(card["card_peak"], 1)
+            log(f"[sp] (e) rank {r['rank']} {kind} on (1, 2), "
+                f"starcoder2-3b {SP_LAYERS} layers bf16 in "
+                f"{card['s']:.3f} s: collectives {coll['total_bytes']} B "
+                f"in {coll['all-reduce']['count']} all-reduces "
+                f"(by axes {json.dumps(coll['by_axes'])}), meta "
+                f"{meta['collectives']['total_bytes']} B; op census "
+                f"card {card['op_census']} meta {meta['op_census']}; "
+                f"kernel calls {card['kernel_calls']} (fallbacks "
+                f"{card['fallback_calls']}), launches {launched}; "
+                f"FLOPs card {card['flops']} meta {meta['flops']}; "
+                f"peak: meta temp_size_in_bytes "
+                f"{meta['temp_size_in_bytes'] / 1e6:.1f} MB, card "
+                f"census {card['temp_size_in_bytes'] / 1e6:.1f} MB, "
+                f"max_memory_allocated over the step "
+                f"{card['card_peak'] / 1e6:.1f} MB, meta / card "
+                f"{ratio:.3f}; equal: {ok}")
+            if not all(ok.values()):
+                diff = {k: (card["aten_names"].get(k, 0),
+                            meta["aten_names"].get(k, 0))
+                        for k in set(card["aten_names"])
+                        | set(meta["aten_names"])
+                        if card["aten_names"].get(k, 0)
+                        != meta["aten_names"].get(k, 0)}
+                log(f"[sp] (e) rank {r['rank']} {kind}: ATen ops that "
+                    f"differ (card, meta): {diff}")
+                fail.append(f"(e) rank {r['rank']} {kind}: "
+                            f"{[k for k, v in ok.items() if not v]}")
+            nums[f"e_rank{r['rank']}_{kind}"] = {
+                "collective_bytes": coll["total_bytes"],
+                "aten_ops": card["op_census"]["aten_ops"],
+                "flops": card["flops"], "s": card["s"],
+                "meta_temp_mb": meta["temp_size_in_bytes"] / 1e6,
+                "card_census_temp_mb": card["temp_size_in_bytes"] / 1e6,
+                "card_peak_mb": card["card_peak"] / 1e6,
+                "meta_over_card": ratio}
+    if fail:
+        raise AssertionError("phase 17 (e) failed: " + "; ".join(fail))
+    return nums
+
+
 def phase_sp():
     """Phase 17: the sequence-parallel residual, two ranks on the card
-    over gloo ((a) memory, (b) the MCA kernel on the split path), then in
-    this process (c) the dry-run's count against the card's and (d) the
-    examples.  Returns (main-path launches, the max error of the shapes
-    held, numbers)."""
+    over gloo ((a) memory, (b) the MCA kernel on the split path, (e) the
+    census of their steps); once (a) and (b) are done, each rank's
+    census counted again on meta in a process of its own and (d) the
+    examples in this process; then (c) the dry-run's count against the
+    card's, and (e)'s check of card against meta.  Returns (main-path launches, the max error of the
+    shapes held, numbers)."""
     import gc
+    import os
     import shutil
     import torch
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = _torchrun(2, "sp", 600)
-    nums = _sp_check(ranks)
+    # the ranks run (a), (b) and then (e) on the card; once their timed
+    # (a) and (b) are done, a process for each rank counts (e) on meta
+    # and this process runs (d), beside (e) on the card; (c) runs after
+    # them all, alone
+    box = {}
+    marks = DIST_DIR / "sp"
+    shutil.rmtree(marks, ignore_errors=True)
+
+    def ranks_on_card():
+        try:
+            box["ranks"] = _torchrun(2, "sp", 600)
+        except BaseException as exc:                      # noqa: BLE001
+            box["error"] = exc
+
+    card = threading.Thread(target=ranks_on_card)
+    card.start()
+    while card.is_alive() and not all(
+            (marks / f"ab_done{r}").exists() for r in (0, 1)):
+        time.sleep(0.2)
+    meta_dir = DIST_DIR / "sp_meta"
+    shutil.rmtree(meta_dir, ignore_errors=True)
+    meta_dir.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    t_meta = time.perf_counter()
+    procs = [] if "error" in box else [
+        subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                          "--census-meta", str(r), "--out", str(meta_dir)],
+                         env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True)
+        for r in (0, 1)]
+    try:
+        nums = _sp_examples() if procs else {}
+        card.join()
+        if "error" in box:
+            raise box["error"]
+        ranks = box["ranks"]
+        nums.update(_sp_check(ranks))
+        for r, proc in enumerate(procs):
+            _, err = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 17 (e) on meta, rank {r}, "
+                                     f"failed:\n{err[-6000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    meta_s = time.perf_counter() - t_meta
+    metas = {r: json.loads((meta_dir / f"meta{r}.json").read_text())
+             for r in (0, 1)}
     nums.update(_sp_count())
-    nums.update(_sp_examples())
+    nums.update(_census_check(ranks, metas))
+    # (e)'s prefill gives the kernel (b)'s shapes; any other is held here
+    e_shapes = {tuple(sh) for r in ranks
+                for sh in r["e"]["prefill"]["shapes"]}
+    new = e_shapes - {tuple(sh) for r in ranks for sh in r["b"]["shapes"]}
+    err = phase_path_shapes(new) if new else 0.0
+    nums["e_s"] = [r["e_s"] for r in ranks]
+    nums["e_meta_s"] = meta_s
+    log(f"[sp] (e) the census on the card {nums['e_s']} s a rank, beside "
+        f"(d) and the count on meta in a process a rank; from the end of "
+        f"(b) to the end of (d), (e) and the meta count {meta_s:.1f} s")
+    e_launches = [r["e"][k]["launches"] for r in ranks
+                  for k in ("prefill", "decode")]
     launches = {"mca_matmul_fixed": sum(r["b"]["mca_launches"]
-                                        for r in ranks),
-                "kv_slot_update": 0}
+                                        for r in ranks)
+                + sum(n["mca_matmul_fixed"] for n in e_launches),
+                "kv_slot_update": sum(n["kv_slot_update"]
+                                      for n in e_launches)}
     nums["phase_s"] = time.perf_counter() - t0
     log(f"[sp] phase 17 in {nums['phase_s']:.1f}s; main-path launches "
         f"{launches}")
     shutil.rmtree(DIST_DIR, ignore_errors=True)
-    return launches, ranks[0]["path_shapes_err"], nums
+    return launches, max(ranks[0]["path_shapes_err"], err), nums
 
 
 def main() -> int:
@@ -5155,12 +5415,16 @@ def main() -> int:
                                 "16, two chunks a rank: the routing's, "
                                 "printed on its (a) lines; phase 17 (b), "
                                 "two chunks of 4 x 256 a rank: the "
-                                "routing's, printed on its (b) lines)")
+                                "routing's, printed on its (b) lines; "
+                                "(e), 8 layers, the same a layer, printed "
+                                "on its (e) lines)")
     per["kv_slot_update"] += (" (per decode step: olmoe 16, minicpm3 62, "
                               "recurrentgemma-9b 12, mamba2-2.7b 0, "
                               "whisper-small 12, internvl2-1b 24; phase "
                               "15: 30 a rank, one KV head each; phase 16: "
-                              "as phases 9, 11 and 12, a rank)")
+                              "as phases 9, 11 and 12, a rank; phase 17 "
+                              "(e): 8 a rank, one decode step of 8 "
+                              "layers)")
     meta = {
         "mca_matmul_fixed": ("src/repro_torch/csrc/mca_matmul.cu",
                              "src/repro/kernels/mca_matmul.py:84"),
@@ -5206,4 +5470,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(dist_part_main() if "--dist-part" in sys.argv else main())
+    sys.exit(dist_part_main() if "--dist-part" in sys.argv
+             else census_meta_main() if "--census-meta" in sys.argv
+             else main())

@@ -1,8 +1,9 @@
 """Example: one multi-pod dry-run cell through the PyTorch port.
 
-Counts qwen3-32b train_4k on ``meta`` tensors (no card, no storage) and
-places it on the 2x16x16 (512-device) production mesh, then prints each
-device's share of the operations and of the step's arguments, and the
+Counts rank 0's own step of qwen3-32b train_4k on the 2x16x16
+(512-device) production mesh, on ``meta`` tensors in a counting world
+(no card, no storage), then prints its operations, the bytes its
+collectives send by mesh axes, its peak and argument bytes, and the
 roofline terms against the H100 figures of ``launch.mesh.HW``.
 
 The counterpart of ``examples/multipod_dryrun.py`` through
@@ -28,8 +29,12 @@ def main(argv=None):
           f"{result['devices']} devices")
     print(f"count time        : {result['count_s']:.1f}s")
     print(f"flops (global)    : {result['flops_global']:.3e}")
-    print(f"flops / device    : {result['flops']:.3e}")
+    print(f"flops (rank 0)    : {result['flops']:.3e}")
     print(f"useful fraction   : {result['useful_fraction']:.3f}")
+    print("collective bytes (rank 0) by mesh axes:")
+    for axes, row in result["collectives"]["by_axes"].items():
+        print(f"  {axes:16s} {row['total_bytes'] / 1e9:.3f} GB")
+    print(f"peak beyond args  : {result['temp_size_in_bytes'] / 1e9:.3f} GB")
     print("argument bytes / device:")
     for name, n in result["argument_bytes"].items():
         print(f"  {name:16s} {n / 1e9:.3f} GB")

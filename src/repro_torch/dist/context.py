@@ -336,9 +336,9 @@ _MODEL = ("model",)
 
 def _sum_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Sum over ``"model"`` in f32, cast back to ``x``'s dtype."""
-    out = x.detach().float()
-    if out.data_ptr() == x.data_ptr():
-        out = out.clone()
+    # always a copy, so the ops do not depend on the dtype or the device
+    # (a ``meta`` tensor's data pointer is 0)
+    out = x.detach().to(torch.float32, copy=True)
     import torch.distributed as dist
     dist.all_reduce(out, group=mesh.group_for(_MODEL))
     return out.to(x.dtype)

@@ -75,6 +75,32 @@ def _plain(x: torch.Tensor) -> bool:
     return x.device.type in ("cpu", "meta")
 
 
+class _CustomCall:
+    """The body of one wrapper call: a profiler span (``obs.trace``) and,
+    for ``launch.hlo_analysis``, a depth count (:func:`inside_call`), so
+    a census counts the call as one ``custom-call`` and not the plain
+    version's ops, which the card's kernel does not dispatch."""
+
+    __slots__ = ("span",)
+    depth = 0
+
+    def __init__(self, name: str):
+        self.span = obs.trace(name)
+
+    def __enter__(self):
+        _CustomCall.depth += 1
+        self.span.__enter__()
+
+    def __exit__(self, *exc):
+        _CustomCall.depth -= 1
+        return self.span.__exit__(*exc)
+
+
+def inside_call() -> bool:
+    """Whether a wrapper's kernel (or its plain version) is running."""
+    return _CustomCall.depth > 0
+
+
 def _count(op: str, used_kernel: bool, n: int = 1) -> None:
     obs.get_registry().counter(_COUNTERS[op][used_kernel]).inc(n)
 
@@ -109,7 +135,7 @@ def mca_matmul(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
     _count("mca_matmul", not plain)
     impl = _ref.ref_mca_matmul_fixed if plain else _mca_mod.mca_matmul_fixed
     tel_on = devtel.enabled()
-    with obs.trace("mca_matmul"):
+    with _CustomCall("mca_matmul"):
         out = impl(x, w, idx, inv_rp, block=block, telemetry=tel_on,
                    block_m=block_m, block_f=block_f)
     if tel_on:
@@ -139,7 +165,7 @@ def mca_matmul_ragged(x: torch.Tensor, w: torch.Tensor, r_tile: torch.Tensor,
     impl = _ref.ref_mca_matmul_ragged if plain else \
         _mca_mod.mca_matmul_ragged
     tel_on = devtel.enabled()
-    with obs.trace("mca_matmul_ragged"):
+    with _CustomCall("mca_matmul_ragged"):
         out = impl(x, w, r_tile, idx, inv_rp, block=block, telemetry=tel_on,
                    block_m=block_m, block_f=block_f)
     if tel_on:
@@ -161,7 +187,7 @@ def kv_slot_update(cache: torch.Tensor, new: torch.Tensor,
     _count("kv_slot_update", not plain)
     impl = _ref.ref_kv_slot_update if plain else _cache_mod.kv_slot_update
     tel_on = devtel.enabled()
-    with obs.trace("kv_slot_update"):
+    with _CustomCall("kv_slot_update"):
         out = impl(cache, new, pos, telemetry=tel_on)
     if tel_on:
         out, tel = out
@@ -197,7 +223,7 @@ def kv_slot_update_layer(k_cache: torch.Tensor, k_new: torch.Tensor,
     impl = _ref.ref_kv_slot_update_layer if plain else \
         _cache_mod.kv_slot_update_layer
     tel_on = devtel.enabled()
-    with obs.trace("kv_slot_update"):
+    with _CustomCall("kv_slot_update"):
         tel = impl(k_cache, k_new, v_cache, v_new, slot_pos, t,
                    window=window, telemetry=tel_on)
     if tel_on:
@@ -218,7 +244,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _count("flash_attention", not plain)
     impl = _ref.ref_attention if plain else _flash_mod.flash_attention
     tel_on = devtel.enabled()
-    with obs.trace("flash_attention"):
+    with _CustomCall("flash_attention"):
         out = impl(q, k, v, scale=scale, causal=causal, telemetry=tel_on,
                    block_q=block_q, block_k=block_k)
     if not tel_on:
@@ -239,7 +265,7 @@ def attn_colmax(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor, *,
     _count("attn_colmax", not plain)
     impl = _ref.ref_colmax if plain else _colmax_mod.attn_colmax
     tel_on = devtel.enabled()
-    with obs.trace("attn_colmax"):
+    with _CustomCall("attn_colmax"):
         cm = impl(q, k, lse, scale=scale, causal=causal, telemetry=tel_on,
                   block_q=block_q, block_k=block_k)
     if tel_on:

@@ -1,36 +1,57 @@
-"""Dry run of every (arch x shape) cell: the step's operations counted on
-``meta`` tensors, and each device's share of them and of the step's
-arguments on the production mesh.  No card and no storage is needed.
+"""Dry run of every (arch x shape) cell: one device's own step of the
+production mesh counted on ``meta`` tensors, with no card and no
+storage.
 
 Port of ``repro/launch/dryrun.py``.  The reference lowers and compiles
-each cell for 256 (or 512) placeholder devices and reads XLA's analyses;
-here the step runs once on ``meta`` tensors (shapes and dtypes, no data)
-under ``torch.utils.flop_counter.FlopCounterMode``: loss and backward
-for ``train``, ``Model.prefill`` and the last position's logits for
-``prefill``, one ``Model.decode`` for ``decode``.  The eager layer loop
-counts every layer, so the count is at the real depth, where the
-reference extrapolates from unrolled 1- and 2-unit stacks because XLA
-costs a scan body once.  The per-device figures divide the global count
-by the mesh's devices; the per-device argument bytes come from the
-port's own placements (``dist.sharding``) on the shape-only production
-mesh, the counterpart of ``memory_analysis().argument_size_in_bytes``.
+each cell for 256 (or 512) placeholder devices and reads XLA's analyses
+of one device's partitioned program.  Here rank 0 of the production
+mesh runs its own sharded step in a counting world
+(``launch.mesh.counting_world``: a ``"fake"`` process group of 256 or
+512 ranks, whose collectives return at once) on ``meta`` tensors at the
+real depth, as the launchers run it (:func:`rank_step`): the
+launcher's ``jit_train_step`` with FSDP, the gradients' reduction and
+the AdamW update for ``train``; ``make_prefill_step`` under the mesh for
+``prefill``; one ``Model.decode`` of the rank's rows on its cache shard
+for ``decode``.  ``launch.hlo_analysis`` and ``FlopCounterMode`` watch
+it: ``flops`` is that rank's count, replicated work included (the MLA
+latents every rank computes whole, norms, a ``wo`` left whole where
+its rows do not divide); ``collectives`` the bytes it sends per kind
+and per mesh axes; ``op_census``; ``temp_size_in_bytes`` the peak of
+the bytes the step allocates beyond its arguments.  ``flops_global``
+is the unsharded step's count; the per-device argument bytes come from
+the port's placements (``dist.sharding``), the counterpart of
+``memory_analysis().argument_size_in_bytes``.  The eager layer loop
+counts every layer, where the reference extrapolates from unrolled 1-
+and 2-unit stacks because XLA costs a scan body once.  The ranks of a
+mesh run one program up to the placements (a block split between
+ranks, ``first_model_share``'s zeroed value off the first model rank):
+the JSON names the rank counted (``rank``: 0).
+
+The roofline has the reference's three terms at the H100's figures
+(``launch.mesh.HW``): ``t_compute`` (the rank's FLOPs at the bf16
+peak), ``t_memory`` (its arguments read once at HBM bandwidth: a floor)
+and ``t_collective`` (its collective bytes at NVLink bandwidth).
+NVLink's rate is a floor for ``t_collective`` where an axis of 16
+spans two 8-GPU nodes and its traffic crosses the slower network
+between them.  Every collective of the port is an ``all_reduce``; its
+all-gather reduces a buffer n times the gathered block
+(``dist.context.all_gather``), and the census counts those bytes.
 
 What has no counterpart here, and is not imitated: the AOT compile
-(``lower_cell``) and its ``compile_s``; XLA's temporary bytes and
-``bytes_accessed``; ``hlo_analysis.collective_stats`` and ``op_census``
-over the partitioned HLO, and so the roofline's collective term.
-``FlopCounterMode`` counts matrix products and attention only, where
-XLA's ``cost_analysis`` counts every op (elementwise work, reductions,
-the optimizer's update), so ``useful_fraction`` here is the model's
-FLOPs over the counted products.  ``t_memory`` is the step's arguments
-read once over HBM bandwidth: a floor, not XLA's estimate.
+(``lower_cell``) and its ``compile_s``; XLA's ``bytes_accessed``;
+``models/common.maybe_scan``.  ``FlopCounterMode`` counts matrix
+products and attention only, where XLA's ``cost_analysis`` counts every
+op, so ``useful_fraction`` here is the model's FLOPs over the counted
+products.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-32b \\
-        --shape train_4k [--multi-pod] [--mca] [--out dryrun_results]
+        --shape train_4k [--multi-pod] [--mca] [--out dir]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod]
 
-Results are JSON-cached per cell; re-runs skip completed cells.
+Results are JSON-cached per cell; re-runs skip completed cells.  Several
+cells are counted four at a time, each in a process of its own (the
+counting world is process-wide).
 """
 from __future__ import annotations
 
@@ -40,18 +61,24 @@ import math
 import os
 import time
 import traceback
+from typing import Optional
 
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import SHAPES, cells
 from repro_torch.core.policy import MCAConfig
+from repro_torch.dist import context as dctx
 from repro_torch.dist import sharding as shd
-from repro_torch.launch.mesh import HW, make_production_mesh
+from repro_torch.launch import hlo_analysis
+from repro_torch.launch.mesh import HW, counting_world, make_production_mesh
+from repro_torch.launch import specs as specs_mod
 from repro_torch.launch.specs import input_specs
 from repro_torch.models import build_model
 from repro_torch.optim import adamw
-from repro_torch.train.step import (abstract_state, make_prefill_step,
+from repro_torch.train.step import (_local_rows, _rows_scope,
+                                    abstract_state,
+                                    jit_train_step, make_prefill_step,
                                     serve_step_shardings,
                                     train_step_shardings)
 
@@ -121,15 +148,77 @@ def argument_bytes(model, kind: str, specs, mesh) -> dict:
             "cache": _local_bytes(cache, c_sh)}
 
 
+def rank_step(model, kind: str, inputs, mesh, mca: bool = False,
+              max_len: int = 0):
+    """One rank's sharded step of ``kind`` on ``mesh`` (a mesh over the
+    initialised world: ``launch.mesh.counting_world``'s on ``meta``
+    tensors, or ``make_local_mesh``'s on a rank's device), as the
+    launchers run it: returns (``run``, its arguments).  The rank's
+    blocks of ``model.init(0)`` are taken with ``shard_params`` under the
+    step's placements.  ``inputs`` are the global batch, or (tokens,
+    cache, t) for ``decode`` (the cache is not read: the rank builds its
+    own).
+
+    ``train``: ``jit_train_step`` with FSDP, the gradients' reduction and
+    the AdamW update in place; ``prefill``: ``make_prefill_step`` under
+    ``use_mesh`` (the MCA key 0 when ``mca``); ``decode``: one
+    ``Model.decode`` of the rank's rows on the cache its prefill would
+    leave (``init_cache`` of its rows and ``max_len`` slots under the
+    mesh: its KV heads, its SSM heads)."""
+    full = model.init(0)
+    if kind == "train":
+        step = jit_train_step(mesh, model, adamw.AdamWConfig(), inputs)
+        p = shd.shard_params(full, step.in_shardings[0])
+        opt = adamw.init_state(p, step.in_shardings[1]["m"],
+                               step.in_shardings[0])
+        return (lambda: step(p, opt, inputs)), (p, opt, inputs)
+    if kind == "prefill":
+        p = shd.shard_params(full, shd.param_shardings(mesh, full,
+                                                       model.cfg))
+        prefill = make_prefill_step(model, inputs["tokens"].shape[1],
+                                    with_mca=mca)
+
+        def run_prefill():
+            with torch.no_grad(), dctx.use_mesh(mesh):
+                return prefill(p, inputs)
+        return run_prefill, (p, inputs)
+    tok, _, t = inputs
+    p = shd.shard_params(full, shd.param_shardings(mesh, full, model.cfg))
+    rows, replicated = _local_rows({"tokens": tok}, 1, mesh)
+    lt = rows["tokens"]
+    with _rows_scope(mesh, replicated):
+        lc = model.init_cache(lt.shape[0], max_len)
+
+    def run_decode():
+        with torch.no_grad(), _rows_scope(mesh, replicated):
+            return model.decode(p, lt, lc, t)
+    return run_decode, (p, lt, lc, t)
+
+
+def count_rank(model, kind: str, inputs, mesh, mca: bool = False,
+               max_len: int = 0) -> dict:
+    """:func:`rank_step` run once under ``launch.hlo_analysis``'s census
+    and ``FlopCounterMode``: the rank's ``flops``, ``collectives``,
+    ``op_census``, ``temp_size_in_bytes`` and the bytes of its
+    arguments' storages."""
+    run, args = rank_step(model, kind, inputs, mesh, mca, max_len)
+    _, counts = hlo_analysis.count_step(run, mesh=mesh, arguments=args)
+    return counts
+
+
 def roofline_terms(result: dict) -> dict:
-    """Two roofline terms (seconds) of one device from a cell's counts:
-    its operations at the card's bf16 peak and its bytes at HBM
-    bandwidth (``launch.mesh.HW``)."""
+    """Three roofline terms (seconds) of one device from a cell's counts:
+    its operations at the card's bf16 peak, its bytes at HBM bandwidth
+    and the bytes its collectives send at NVLink bandwidth
+    (``launch.mesh.HW``); ``bottleneck`` names the largest."""
+    coll = result.get("collectives", {}).get("total_bytes", 0)
     terms = {
         "t_compute": result.get("flops", 0.0) / HW["peak_bf16_flops"],
         "t_memory": result.get("bytes_accessed", 0.0) / HW["hbm_bw"],
+        "t_collective": coll / HW["nvlink_bw"],
     }
-    terms["bottleneck"] = max(terms, key=lambda k: terms[k])
+    terms["bottleneck"] = max(terms, key=lambda k: terms[k]
+                              if k.startswith("t_") else -1)
     return terms
 
 
@@ -181,24 +270,42 @@ def model_flops(cfg, kind: str, seq: int, batch: int) -> float:
 
 
 def analyze_cell(arch: str, shape: str, *, mca: bool = False,
-                 multi_pod: bool = False) -> dict:
-    """One cell's counts: the step's operations on ``meta`` tensors at the
-    real depth, globally and per device of the production mesh, the
-    model's FLOPs, and each device's argument bytes."""
+                 multi_pod: bool = False,
+                 seq: Optional[int] = None) -> dict:
+    """One cell's counts: rank 0's own sharded step of the
+    production mesh on ``meta`` tensors in a counting world at the real
+    depth (its FLOPs, collectives, op census and peak), the unsharded
+    step's FLOPs, the model's FLOPs, and the rank's argument bytes.
+    ``seq`` replaces the shape's sequence length (the reference's
+    ``_seq_override``)."""
     cfg, kind, specs = input_specs(arch, shape, mca=_mca_cfg(mca))
-    seq, batch, _ = SHAPES[shape]
+    seq0, batch, _ = SHAPES[shape]
+    if seq is None:
+        seq = seq0
+    else:
+        specs = {"train": specs_mod.train_specs,
+                 "prefill": specs_mod.prefill_specs,
+                 "decode": specs_mod.decode_specs}[kind](cfg, seq, batch)
     mesh = make_production_mesh(multi_pod=multi_pod)
     model = build_model(cfg, device="meta")
     t0 = time.time()
-    flops = count_flops(model, kind, specs, mca)
+    flops_global = count_flops(model, kind, specs, mca)
+    with counting_world(mesh, 0) as world:
+        counts = count_rank(model, kind, specs, world, mca, max_len=seq)
     args = argument_bytes(model, kind, specs, mesh)
     mf = model_flops(cfg, kind, seq, batch)
-    out = {"devices": mesh.size, "kind": kind, "seq": seq, "batch": batch,
-           "method": "FlopCounterMode on meta tensors at the real depth "
-                     f"({_real_units(cfg)} units)",
+    out = {"devices": mesh.size, "rank": 0, "kind": kind, "seq": seq,
+           "batch": batch,
+           "method": "rank's sharded step on meta tensors in a fake "
+                     f"world of {mesh.size} at the real depth "
+                     f"({_real_units(cfg)} units): FlopCounterMode, "
+                     "launch.hlo_analysis",
            "count_s": time.time() - t0,
-           "flops_global": flops,
-           "flops": flops / mesh.size,
+           "flops_global": flops_global,
+           "flops": counts["flops"],
+           "collectives": counts["collectives"],
+           "op_census": counts["op_census"],
+           "temp_size_in_bytes": counts["temp_size_in_bytes"],
            "argument_bytes": args,
            "argument_size_in_bytes": sum(args.values()),
            "bytes_accessed": sum(args.values()),
@@ -228,18 +335,25 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool, mca: bool,
         result = analyze_cell(arch, shape, mca=mca, multi_pod=multi_pod)
         result["cell"] = {"arch": arch, "shape": shape,
                           "multi_pod": multi_pod, "mca": mca}
-        print(f"  ok in {time.time() - t0:.1f}s  "
-              f"flops={result['flops']:.3e}/dev  "
-              f"args={result['argument_size_in_bytes']:.3e}B/dev")
+        print(f"  ok {tag} in {time.time() - t0:.1f}s  "
+              f"flops={result['flops']:.3e}  "
+              f"coll={result['collectives']['total_bytes']:.3e}B  "
+              f"temp={result['temp_size_in_bytes']:.3e}B  "
+              f"args={result['argument_size_in_bytes']:.3e}B/dev",
+              flush=True)
     except Exception:                                        # noqa: BLE001
         result = {"cell": {"arch": arch, "shape": shape,
                            "multi_pod": multi_pod, "mca": mca},
                   "error": traceback.format_exc()}
-        print(f"  FAILED in {time.time() - t0:.1f}s")
-        print(result["error"].splitlines()[-1])
+        print(f"  FAILED {tag} in {time.time() - t0:.1f}s: "
+              + result["error"].splitlines()[-1], flush=True)
     with open(path, "w") as f:
         json.dump(result, f, indent=1)
     return result
+
+
+def _run_cell_kw(kw: dict) -> dict:
+    return run_cell(**kw)
 
 
 def main(argv=None):
@@ -256,12 +370,17 @@ def main(argv=None):
 
     todo = cells() if args.all else [(args.arch, args.shape)]
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
-    failures = 0
-    for arch, shape in todo:
-        for mp in meshes:
-            res = run_cell(arch, shape, multi_pod=mp, mca=args.mca,
-                           out_dir=args.out, force=args.force)
-            failures += 1 if "error" in res else 0
+    jobs = [dict(arch=arch, shape=shape, multi_pod=mp, mca=args.mca,
+                 out_dir=args.out, force=args.force)
+            for arch, shape in todo for mp in meshes]
+    if len(jobs) > 1:
+        import multiprocessing
+        n_proc = min(4, os.cpu_count() or 1, len(jobs))
+        with multiprocessing.get_context("spawn").Pool(n_proc) as pool:
+            results = pool.map(_run_cell_kw, jobs, chunksize=1)
+    else:
+        results = [run_cell(**kw) for kw in jobs]
+    failures = sum("error" in res for res in results)
     print(f"done; {failures} failures")
     raise SystemExit(1 if failures else 0)
 

@@ -172,7 +172,10 @@ def _moe_local(p, cfg, x, mca_key: Optional[int] = None):
 
     # load-balance aux loss (Switch): E * sum_e f_e * p_e
     me = torch.mean(probs, dim=0)
-    ce = torch.mean(torch.sum(F.one_hot(eid, e).float(), dim=1), dim=0)
+    # one-hot as a comparison (jax.nn.one_hot's form): ``F.one_hot``
+    # dispatches other ops on each device, and a host read on the CPU
+    onehot = (eid[..., None] == torch.arange(e, device=dev)).float()
+    ce = torch.mean(torch.sum(onehot, dim=1), dim=0)
     aux = cfg.router_aux_coef * e * torch.sum(me * ce / k)
 
     cap = moe_capacity(cfg, n)

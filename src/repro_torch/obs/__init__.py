@@ -5,8 +5,9 @@ annotations), with the reference's metric names.
   histograms); ``obs.snapshot()`` snapshots the active registry and with
   ``aggregate="psum"`` sums the additive leaves over the ranks of a
   ``torch.distributed`` process group;
-- spans: ``obs.record_span`` / ``obs.mark`` / ``obs.export_chrome_trace``
-  when enabled with ``obs.enable_tracing()`` / ``obs.tracing()``;
+- spans: ``with obs.span(...)``, ``obs.record_span`` / ``obs.mark`` /
+  ``obs.export_chrome_trace`` when enabled with ``obs.enable_tracing()``
+  / ``obs.tracing()``;
 - profiler hooks: ``obs.trace("name")`` / ``@obs.annotate("name")`` over
   ``torch.profiler.record_function``;
 - device telemetry: ``obs.devtel`` accumulates the kernels' launch and
@@ -23,11 +24,11 @@ from .registry import (Counter, Gauge, Histogram, Registry, get_registry,
 from .sink import JsonlSink, read_jsonl
 from .trace import annotate, trace
 from .tracing import (enable_tracing, export_chrome_trace, mark, record_span,
-                      tracing, tracing_enabled)
+                      span, tracing, tracing_enabled)
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "Registry", "get_registry", "scoped",
     "snapshot", "devtel", "JsonlSink", "read_jsonl", "annotate", "trace",
-    "enable_tracing", "tracing", "tracing_enabled", "record_span", "mark",
-    "export_chrome_trace",
+    "enable_tracing", "tracing", "tracing_enabled", "span", "record_span",
+    "mark", "export_chrome_trace",
 ]

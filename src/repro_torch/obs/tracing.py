@@ -8,10 +8,11 @@ stamps) with a category, a *track* (one timeline row — e.g.
 :func:`export_chrome_trace` as Chrome trace-event JSON that loads in
 ``chrome://tracing`` or https://ui.perfetto.dev.
 
-Tracing is **off by default** and :func:`record_span` / :func:`mark` are
-no-ops while disabled: no registry writes, no allocation beyond the flag
-check.  Enable with :func:`enable_tracing`
-(process-wide) or the :func:`tracing` context manager.
+Tracing is **off by default** and :func:`span` / :func:`record_span` /
+:func:`mark` are no-ops while disabled: no registry writes, no allocation
+beyond the flag check (:func:`span` hands back one shared null context).
+Enable with :func:`enable_tracing` (process-wide) or the :func:`tracing`
+context manager.
 
 All spans share the ``perf_counter`` clock; a request chain looks like::
 
@@ -30,6 +31,7 @@ from typing import Any, Dict, Iterator, Mapping, Optional
 from .registry import Registry, get_registry
 
 _enabled = False
+_NULL = contextlib.nullcontext()
 
 
 def enable_tracing(flag: bool = True) -> None:
@@ -93,6 +95,45 @@ def mark(
     """Record an instant (zero-duration) span at the current time."""
     t = time.perf_counter()
     record_span(name, t, t, cat=cat, track=track, args=args, registry=registry)
+
+
+class _Span:
+    """Context manager recording its body as one span on exit."""
+
+    __slots__ = ("name", "cat", "track", "args", "registry", "t0", "t1")
+
+    def __init__(self, name, cat, track, args, registry):
+        self.name = name
+        self.cat = cat
+        self.track = track
+        self.args = args
+        self.registry = registry
+        self.t0 = 0.0
+        self.t1 = 0.0
+
+    def __enter__(self) -> "_Span":
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.t1 = time.perf_counter()
+        if exc_type is not None:
+            self.args = dict(self.args)
+            self.args["error"] = exc_type.__name__
+        record_span(self.name, self.t0, self.t1, cat=self.cat,
+                    track=self.track, args=self.args,
+                    registry=self.registry)
+
+
+def span(name: str, cat: str = "", track: str = "",
+         registry: Optional[Registry] = None, **args: Any):
+    """``with obs.span("prefill", cat="serve"): ...`` records the body's
+    wall interval as a span (with ``error`` in its args when the body
+    raises).  Returns a shared null context while tracing is disabled
+    (no allocation, no registry access)."""
+    if not _enabled:
+        return _NULL
+    return _Span(name, cat, track, args, registry)
 
 
 def export_chrome_trace(path: Optional[str],

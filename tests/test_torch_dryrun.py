@@ -17,11 +17,15 @@ bytes of the step's arguments from its placements' ``shard_shape``.
 * ``FlopCounterMode`` counts the same operations on ``meta`` tensors as
   on the CPU's for a reduced train, prefill and decode step, with MCA
   off and on.
-* The CLI: a decode cell's JSON, ``[skip] ... (cached)`` on a re-run,
-  exit 1 when a cell fails.
+* The roofline's three terms; the collectives of starcoder2-3b
+  ``decode_32k`` on the production mesh, lowered by the reference and
+  counted by the port, in one schema, and where they part: the
+  reference's bytes are its partitioner's gathers of the cache, which
+  the port does not move.
+* The CLI: a decode cell's JSON (rank 0's own counts), ``[skip] ...
+  (cached)`` on a re-run, exit 1 when a cell fails.
 """
 import json
-import math
 import os
 import pathlib
 import subprocess
@@ -108,6 +112,23 @@ _REF = textwrap.dedent("""
                         "cache": local(cache, shd.cache_shardings(mesh,
                                                                   cache))}
         res["cell"][f"{arch}/{shape}"] = out
+    # one cell lowered and compiled on the production mesh: the
+    # collectives of its partitioned program.  The mesh's axes are Auto:
+    # with Explicit ones this JAX refuses the reference's sharding
+    # constraints (as tests/test_torch_tp.py's reference meshes do)
+    from jax.sharding import AxisType
+    dryrun.make_production_mesh = lambda multi_pod=False: jax.make_mesh(
+        (16, 16), ("data", "model"), devices=jax.devices()[:256],
+        axis_types=(AxisType.Auto,) * 2)
+    _, compiled, meta = dryrun.lower_cell("starcoder2-3b", "decode_32k")
+    res["collectives"] = dryrun.analyze(compiled, meta, 256)["collectives"]
+    # the entry computation's share (the rest sits in loop bodies, which
+    # the HLO text holds once however often they run)
+    from repro.launch import hlo_analysis
+    text = compiled.as_text()
+    entry = text[text.index("\\nENTRY "):]
+    res["collectives_entry"] = hlo_analysis.collective_stats(
+        entry[:entry.index("\\n}")])
     json.dump(res, open(sys.argv[1], "w"))
     print("OK")
 """)
@@ -219,13 +240,70 @@ def test_meta_count_equals_cpu_count(kind, mca):
 
 
 def test_roofline_terms():
-    """The compute and memory terms at the card's figures, and the larger
-    one named."""
+    """The compute, memory and collective terms at the card's figures
+    (bf16 peak, HBM and NVLink bandwidth), and the largest one named."""
     from repro_torch.launch.mesh import HW
     t = dryrun.roofline_terms({"flops": 2 * HW["peak_bf16_flops"],
-                               "bytes_accessed": HW["hbm_bw"]})
-    assert t == {"t_compute": 2.0, "t_memory": 1.0,
-                 "bottleneck": "t_compute"}
+                               "bytes_accessed": HW["hbm_bw"],
+                               "collectives": {"total_bytes":
+                                               3 * HW["nvlink_bw"]}})
+    assert t == {"t_compute": 2.0, "t_memory": 1.0, "t_collective": 3.0,
+                 "bottleneck": "t_collective"}
+
+
+@pytest.fixture(scope="module")
+def decode_census():
+    """The port's collectives of starcoder2-3b ``decode_32k``: rank 0 of
+    the (16, 16) production mesh in a counting world."""
+    return dryrun.analyze_cell("starcoder2-3b", "decode_32k")["collectives"]
+
+
+def test_collectives_schema_against_reference(ref, decode_census):
+    """starcoder2-3b ``decode_32k`` on the (16, 16) production mesh: the
+    reference's collectives (its partitioned HLO) and the port's (rank
+    0's step in a counting world) share the schema, every kind of
+    ``COLLECTIVES`` with a count and bytes, and both send bytes; the
+    port's also split them by mesh axes."""
+    from repro_torch.launch import hlo_analysis
+    theirs = ref["collectives"]
+    mine = decode_census
+    kinds = set(hlo_analysis.COLLECTIVES)
+    assert set(theirs) == kinds | {"total_bytes"}
+    assert set(mine) == kinds | {"total_bytes", "by_axes"}
+    for k in kinds:
+        assert set(mine[k]) == set(theirs[k]) == {"count", "bytes"}
+    assert theirs["total_bytes"] > 0 and mine["total_bytes"] > 0
+    assert sum(a["total_bytes"] for a in mine["by_axes"].values()) == \
+        mine["total_bytes"]
+
+
+def test_collectives_gap_is_the_cache_resharding(ref, decode_census):
+    """Where the reference's census of starcoder2-3b ``decode_32k`` and
+    the port's part.  Both declare the same cache placement (batch over
+    "data"; the 2 KV heads do not divide 16, so K and V stay whole over
+    "model"; ``slot_pos`` replicated).  XLA's partitioner carries the
+    layer loop's K and V split over "model" all the same (a KV head and
+    16 of 128 lanes a rank) and ``slot_pos`` split over "data", and at
+    the step's end gathers them back to the declared placement outside
+    the loop: per cache tensor two all-gathers in f32 (lanes to one
+    head, heads to both: 1/2 and 1 of the rank's block) and
+    ``slot_pos`` whole.  Those gathers are all but 0.1% of the
+    reference's bytes.  The port keeps every layer's cache where it is
+    declared and moves none of it: its bytes are a layer's activations
+    (the model axis's all-reduces), less than one layer's cache block."""
+    cfg = configs.get_config("starcoder2-3b")
+    seq, batch, _ = configs.SHAPES["decode_32k"]
+    block = cfg.n_layers * (batch // 16) * seq * cfg.n_kv_heads * cfg.d_head
+    f32 = 4
+    gathers = 2 * (block // 2 + block) * f32 \
+        + cfg.n_layers * batch * seq * 4
+    entry = ref["collectives_entry"]
+    assert entry["all-gather"] == {"count": 5, "bytes": gathers}
+    assert ref["collectives"]["total_bytes"] - gathers \
+        < 1e-3 * ref["collectives"]["total_bytes"]
+    mine = decode_census
+    assert mine["all-gather"]["count"] == 0
+    assert 0 < mine["total_bytes"] < block // cfg.n_layers * 2
 
 
 def test_cli_decode_cell(tmp_path):
@@ -244,10 +322,18 @@ def test_cli_decode_cell(tmp_path):
     assert res["cell"] == {"arch": "mamba2-2.7b", "shape": "decode_32k",
                            "multi_pod": False, "mca": False}
     assert res["devices"] == 256 and res["flops_global"] > 0
-    assert math.isclose(res["flops"] * 256, res["flops_global"])
+    # rank 0's own count: at least its share of the unsharded step (the
+    # work every rank repeats comes on top), not the share itself
+    assert res["rank"] == 0 and res["flops"] >= res["flops_global"] / 256
+    assert res["collectives"]["total_bytes"] > 0
+    assert res["collectives"]["by_axes"]
+    assert res["temp_size_in_bytes"] > 0 and res["op_census"]["dot"] > 0
     assert res["argument_size_in_bytes"] == sum(
         res["argument_bytes"].values())
-    assert res["roofline"]["bottleneck"] in ("t_compute", "t_memory")
+    assert set(res["roofline"]) == {"t_compute", "t_memory",
+                                    "t_collective", "bottleneck"}
+    assert res["roofline"]["bottleneck"] in ("t_compute", "t_memory",
+                                             "t_collective")
     again = subprocess.run(cmd, env=env, capture_output=True, text=True,
                            timeout=300)
     assert again.returncode == 0
@@ -257,3 +343,22 @@ def test_cli_decode_cell(tmp_path):
     assert bad.returncode == 1
     assert "error" in json.loads(
         (tmp_path / "no-such-arch__decode_32k__sp__base.json").read_text())
+
+
+def test_cli_cells_in_parallel(tmp_path):
+    """``--both-meshes`` counts a cell on both production meshes at once,
+    each in a process of its own (the counting world is process-wide):
+    two JSONs, rank 0 of 256 and of 512 devices, exit 0."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           "whisper-small", "--shape", "decode_32k", "--both-meshes",
+           "--out", str(tmp_path)]
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "done; 0 failures" in proc.stdout
+    for mesh, devices in (("sp", 256), ("mp", 512)):
+        res = json.loads((tmp_path / f"whisper-small__decode_32k__{mesh}"
+                          f"__base.json").read_text())
+        assert res["devices"] == devices and res["rank"] == 0
+        assert res["seq"] == 32768 and res["collectives"]["total_bytes"] > 0

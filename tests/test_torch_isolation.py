@@ -75,3 +75,10 @@ def test_every_port_module_imports_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("imported")
+
+
+def test_census_modules_are_checked():
+    """The dry run's counting modules are among those imported above
+    with ``jax`` and ``repro`` blocked."""
+    assert {"repro_torch.launch.hlo_analysis", "repro_torch.launch.mesh",
+            "repro_torch.launch.dryrun"} <= set(_modules())
