@@ -252,8 +252,10 @@ Phases, each of which must pass:
              ranks on the card over gloo in one launch
              (``--dist-part tp-families``), family by family: (a)
              minicpm3-4b, mamba2-2.7b, recurrentgemma-9b, whisper-small
-             and internvl2-1b at full width (bf16, seed-0 weights, depth
-             not cut) on (1, 2), MCA on v_proj and o_proj (use_kernel):
+             and internvl2-1b at full width (bf16, seed-0 weights, cut to
+             8 layers, whisper's encoder too, so that the script stays
+             within its time) on (1, 2), MCA on v_proj and o_proj
+             (use_kernel):
              ``make_prefill_step`` of 4 x 256 tokens (whisper's frames [4,
              1500, 768], internvl's patches [4, 256, 896]) then 8 greedy
              decode steps: mca_matmul_fixed at each rank's routing (two
@@ -310,8 +312,35 @@ Phases, each of which must pass:
              train step's FLOPs equal; the meta peak
              (``temp_size_in_bytes``) printed beside the card's
              ``max_memory_allocated`` over the step.
+18. mesh-2d — the (2, 2) mesh over ("data", "model"), four ranks on the
+             card over gloo (``--dist-part mesh-2d``): (a) starcoder2-3b
+             at full width (bf16, seed-0 weights), MCA on v_proj and
+             o_proj (use_kernel): ``make_prefill_step`` of 2 x 63 tokens,
+             one row a data shard, whose 63 tokens the model axis does not
+             divide, so the MCA routing is global (the 126 tokens'
+             capacities 126, 63, 47, 32): mca_matmul_fixed 180 launches a
+             rank, no fallback, the four ranks' tier_hist equal and equal
+             to ``apply_capacity`` rerun on the CPU over the gathered
+             tiers and importances; 8 greedy decode steps: kv_slot_update
+             240 launches a rank, logits finite, the two model ranks of
+             each data shard decode the same tokens; prefill time, decode
+             step p50, peak a rank; (b) 4 x 256 tokens (two chunks of 256
+             a rank: the chunked routing): 360 launches a rank, no
+             fallback, the summed tier_hist equal on the four ranks; (c)
+             starcoder2-3b cut to 4 layers, f32, TF32 off, MCA on v_proj
+             (the plain sampled product): a prefill of 2 x 63 on (2, 2)
+             against a world of one with the same key, every layer's
+             tier_hist equal and each rank's logits within 1e-4 of max
+             |logit| (a routing whose importances lie within 1e-3 of a
+             ladder rung, or nearly tie, is printed, and only the layers
+             before it are held); 2 AdamW steps of ``jit_train_step``
+             (FSDP) on 2 x 63 against a world of one, losses and grad
+             norms within 1e-5 relative.  Rank 0 holds every
+             mca_matmul_fixed shape of (a) and (b) against the plain
+             version, as phase 13; phases 3 and 7 hold and time
+             ``MESH2D_MCA_CASES``.
 
-Phase 10 runs between phases 5b and 7; phases 14, 15, 16 and 17 last.
+Phase 10 runs between phases 5b and 7; phases 14 to 18 last.
 Builds four sources (one ``nvcc`` each, in parallel).  Ends with a
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
 line and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero (and
@@ -387,6 +416,13 @@ TP16_MCA_TIMED = [(128, 256, 1280, 1), (128, 1280, 2560, 4),
                   (128, 768, 384, 4), (128, 384, 768, 4), (128, 896, 64, 4),
                   (128, 512, 896, 4), (128, 4096, 128, 4),
                   (128, 2048, 4096, 4)]
+# phase 18's shapes: starcoder2-3b on (2, 2), v_proj on a rank's 128
+# columns and o_proj on its 1,536 input columns, at the caps of the
+# global routing of 2 x 63 tokens (126, 63, 47) and of a chunk of 256
+# tokens (256, 128, 96; TP_MCA_CASES holds 128)
+MESH2D_MCA_CASES = [(m, d, f, r) for d, f in ((3072, 128), (1536, 3072))
+                    for m, r in ((126, 1), (63, 2), (47, 4), (256, 1),
+                                 (96, 4))]
 # phase 16's layer writes: a rank's self K/V heads (whisper 6 of 12,
 # internvl 1 of 2); minicpm3-4b's latent rows and recurrentgemma-9b's one
 # KV head are phase 9's and phase 11's, whole on every rank
@@ -577,7 +613,7 @@ def phase_kernels():
     errs = {"mca_matmul_fixed": 0.0, "kv_slot_update": 0.0}
     cases = [(c, "sampled") for c in MCA_CASES + FAMILY_MCA_CASES
              + HYBRID_MCA_CASES + ENCDEC_VLM_MCA_CASES + TP_MCA_CASES
-             + TP16_MCA_CASES] + [
+             + TP16_MCA_CASES + MESH2D_MCA_CASES] + [
         ((128, 3072, 3072, 24), "exact")] + [
         (c, "telemetry") for c in TEL_MCA_CASES]
     for (m, d, f, r), mode in cases:
@@ -1949,6 +1985,9 @@ def phase_numbers():
     for i, (what, slots, tail) in enumerate(TP16_KV):
         out["families"][f"kv_slot_update_layer {what}"] = _numbers_gqa_write(
             what, slots, tail, window=0, seed=40 + i)
+    for case in MESH2D_MCA_CASES:
+        out["families"][f"mca_matmul_fixed {case}"] = _numbers_fixed(
+            case, plain_too=True)
     shapes = list(MCA_CASES)
     for m, r in SERVE_MR:
         for f in (256, 3072):
@@ -3795,7 +3834,8 @@ def dist_part_main() -> int:
     rank = int(os.environ["RANK"])
     res = {"a": _dist_part_a, "b": _dist_part_b, "c": _dist_part_c,
            "tp-serve": _tp_part_serve, "tp-train": _tp_part_train,
-           "tp-families": _tp16_part, "sp": _sp_part}[part](out)
+           "tp-families": _tp16_part, "sp": _sp_part,
+           "mesh-2d": _mesh2d_part}[part](out)
     (out / f"rank{rank}.json").write_text(json.dumps(res))
     import torch.distributed as dist
     if dist.is_initialized():
@@ -3955,8 +3995,9 @@ PHASE14 = {}                     # phase 14's (2, 1) results, for phase 15
 
 
 def _tp_setup(n_data, n_model):
-    """Two ranks on the one card over gloo, the ("data", "model") mesh of
-    (n_data, n_model); each rank's number and device."""
+    """The ranks on the one card over gloo (two, or four for phase 18),
+    the ("data", "model") mesh of (n_data, n_model); each rank's number
+    and device."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_local_mesh
@@ -4375,6 +4416,7 @@ TP16_PROMPTS = (4, 256)          # (a): 4 prompts of 256 tokens
 TP16_DECODE = 8
 TP16_MAX_LEN = {"whisper-small": 320, "internvl2-1b": 576}   # else 272
 TP16_LAYERS = 4                  # (b), (c): depth cut, full width, f32
+TP16_SERVE_LAYERS = 8            # (a): depth cut, full width, bf16
 TP16_PARITY = (4, 128)           # (b), (c): rows x tokens
 
 
@@ -4430,15 +4472,15 @@ def _cache_shapes(cache):
 
 
 def _tp16_serve(rank, mesh, dev, arch):
-    """(a) ``arch`` at full width (bf16, seed-0 weights, depth not cut) on
-    (1, 2), MCA on v_proj and o_proj through the kernel: ``make_prefill_
-    step`` of 4 x 256 tokens (whisper's frames, internvl's patches), then
-    8 greedy decode steps, each synchronised and timed."""
+    """(a) ``arch`` at full width (bf16, seed-0 weights, cut to
+    TP16_SERVE_LAYERS layers) on (1, 2), MCA on v_proj and o_proj through
+    the kernel: ``make_prefill_step`` of 4 x 256 tokens (whisper's
+    frames, internvl's patches), then 8 greedy decode steps, each
+    synchronised and timed."""
     import gc
     import numpy as np
     import torch
     from repro_torch import obs
-    from repro_torch.configs import get_config
     from repro_torch.core.policy import MCAConfig
     from repro_torch.dist import context as dctx
     from repro_torch.kernels import ops
@@ -4449,7 +4491,7 @@ def _tp16_serve(rank, mesh, dev, arch):
     t_start = time.perf_counter()
     mca = MCAConfig(enabled=True, alpha=0.2, block=128, use_kernel=True,
                     sites=("v_proj", "o_proj"))
-    cfg = get_config(arch, mca=mca)
+    cfg = _tp16_cfg(arch, TP16_SERVE_LAYERS, "bfloat16", mca=mca)
     model = build_model(cfg, device=dev)
     b, s = TP16_PROMPTS
     batch, t0 = _tp16_batch(cfg, b, s, 16, dev)
@@ -4481,7 +4523,8 @@ def _tp16_serve(rank, mesh, dev, arch):
         dec = ops.launch_counts()
         counters = _kernel_counters(reg.snapshot())
     want_mca, kv_step = _tp16_expected(cfg, b, s)
-    res = {"arch": arch, "rank": rank, "share": share, "init_s": init_s,
+    res = {"arch": arch, "rank": rank, "layers": cfg.n_layers,
+           "share": share, "init_s": init_s,
            "prefill_s": prefill_s,
            "decode_p50_s": float(np.median(step_s)),
            "decode_s": float(np.sum(step_s)),
@@ -4501,13 +4544,13 @@ def _tp16_serve(rank, mesh, dev, arch):
     return res
 
 
-def _tp16_cfg(arch, **kw):
-    """``arch`` cut to TP16_LAYERS layers (and as many encoder layers), in
-    f32: (b) and (c)'s models."""
+def _tp16_cfg(arch, n_layers=TP16_LAYERS, dtype="float32", **kw):
+    """``arch`` cut to ``n_layers`` layers (and as many encoder layers):
+    in f32, (b) and (c)'s models; (a)'s at TP16_SERVE_LAYERS in bf16."""
     from repro_torch.configs import get_config
-    cfg = get_config(arch, dtype="float32", n_layers=TP16_LAYERS, **kw)
+    cfg = get_config(arch, dtype=dtype, n_layers=n_layers, **kw)
     if cfg.is_encoder_decoder:
-        cfg = cfg.replace(n_encoder_layers=TP16_LAYERS)
+        cfg = cfg.replace(n_encoder_layers=n_layers)
     return cfg
 
 
@@ -4656,7 +4699,8 @@ def _tp16_check(ranks):
             unlisted = [sh for sh in map(tuple, a["shapes"])
                         if sh[4:] == ("bfloat16", 128)
                         and sh[:4] not in TP16_MCA_CASES]
-            log(f"[tp-families] (a) {arch} (1, 2) rank {a['rank']}: holds "
+            log(f"[tp-families] (a) {arch} ({a['layers']} layers) (1, 2) "
+                f"rank {a['rank']}: holds "
                 f"{a['share']:.4f} of the elements; made in "
                 f"{a['init_s']:.1f} s; prefill of 4 x 256 in "
                 f"{a['prefill_s']:.3f} s, mca_matmul_fixed "
@@ -5360,6 +5404,396 @@ def phase_sp():
     return launches, max(ranks[0]["path_shapes_err"], err), nums
 
 
+# ------------------------------------------------------------ phase 18
+MESH2D_GLOBAL = (2, 63)          # (a), (c): one row of 63 tokens a data shard
+MESH2D_CHUNKED = (4, 256)        # (b): 2 rows, 512 tokens a data shard
+MESH2D_DECODE = 8
+MESH2D_LAYERS = 4                # (c): starcoder2-3b cut, full width, f32
+BOUNDARY_MARGIN = 1e-3           # (c): r_cols / block's distance to a rung
+TIE_MARGIN = 1e-5                # (c): relative gap of distinct importances
+
+
+def _mesh2d_prefill(model, params, mesh, batch, clock):
+    """``make_prefill_step`` of ``batch`` under ``mesh`` with the MCA
+    kernel's counts reset before and read after: (cache, logits, the
+    time, launches, the kernels' registry counters, the routings as
+    ``_spy`` records them, the kernel shapes)."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import policy
+    from repro_torch.dist import context as dctx
+    from repro_torch.kernels import ops
+    from repro_torch.train.step import make_prefill_step
+    calls = []
+    undo = _spy(policy, "_tiered_maybe_sharded", calls)
+    try:
+        with torch.no_grad(), obs.scoped() as reg, _MCAShapes() as shapes, \
+                dctx.use_mesh(mesh):
+            ops.reset_launch_counts()
+            t1 = clock()
+            cache, logits = make_prefill_step(model, DIST_MAX_LEN)(params,
+                                                                   batch)
+            prefill_s = clock() - t1
+            launches = ops.launch_counts()
+            counters = _kernel_counters(reg.snapshot())
+    finally:
+        undo()
+    return cache, logits, prefill_s, launches, counters, calls, shapes.seen
+
+
+def _mesh2d_serve(rank, mesh, dev):
+    """(a) starcoder2-3b at full width on (2, 2), MCA on v_proj and o_proj
+    through the kernel: a prefill of 2 x 63 (the global routing), then 8
+    greedy decode steps; (b) a prefill of 4 x 256 (the chunked one)."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import MCAConfig
+    from repro_torch.dist import context as dctx
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    mca = MCAConfig(enabled=True, alpha=0.2, block=128, use_kernel=True,
+                    sites=("v_proj", "o_proj"))
+    cfg = get_config("starcoder2-3b", mca=mca)
+    model = build_model(cfg, device=dev)
+    full = model.init(0)
+    params, share = _tp16_shard(model, mesh, full)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()        # the serving peak
+
+    def clock():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    res = {"rank": rank, "share": share}
+    for part, (b, s) in (("a", MESH2D_GLOBAL), ("b", MESH2D_CHUNKED)):
+        prompts = np.random.default_rng(18).integers(
+            1, cfg.vocab_size, (b, s)).astype(np.int32)
+        cache, logits, prefill_s, launches, counters, calls, seen = \
+            _mesh2d_prefill(model, params, mesh,
+                            {"tokens": torch.as_tensor(prompts, device=dev)},
+                            clock)
+        r = res[part] = {
+            "prefill_s": prefill_s, "calls": len(calls),
+            "mca_launches": launches["mca_matmul_fixed"],
+            "entry_launches": sum(launches[k] for k in ENTRY_KERNELS),
+            "fallbacks": {k: v for k, v in counters.items()
+                          if k.endswith("fallback_calls") and v},
+            "hists": [out[1].tolist() for _, _, out in calls],
+            "local_hists": [out[2].tolist() for _, _, out in calls],
+            "shapes": sorted(seen)}
+        if part == "a":
+            # the routing's inputs, for the check's rerun on the CPU
+            r["tiers"] = [a[3].tolist() for a, _, _ in calls]
+            r["imps"] = [a[4].float().tolist() for a, _, _ in calls]
+            tok = torch.argmax(logits[..., :cfg.vocab_size],
+                               -1).to(torch.int32)
+            ops.reset_launch_counts()
+            with torch.no_grad(), dctx.use_mesh(mesh):
+                toks, _, bad, step_s = _decode_greedy(
+                    model, params, tok, cache, s, MESH2D_DECODE, clock)
+            r["kv_launches"] = ops.launch_counts()["kv_slot_update"]
+            r["decode_p50_s"] = float(np.median(step_s))
+            r["finite"] = not bool(bad) and bool(
+                torch.isfinite(logits).all())
+            r["tokens"] = torch.cat([tok] + toks, 1).cpu().tolist()
+        del cache, logits, calls
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _mesh2d_parity(out, rank, mesh, dev):
+    """(c) starcoder2-3b cut to 4 layers, f32, TF32 off, MCA on v_proj
+    (the plain sampled product): a prefill of 2 x 63 on (2, 2) and, on
+    rank 0, in a world of one with the same key (every routing's
+    tier_hist and importances, the logits saved); then 2 AdamW steps of
+    ``jit_train_step`` on (2, 2) and, on rank 0, of ``make_train_step``
+    in a world of one."""
+    import gc
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core import policy
+    from repro_torch.core.policy import MCAConfig
+    from repro_torch.dist import context as dctx
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import jit_train_step, make_prefill_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    mca = MCAConfig(enabled=True, alpha=0.2, block=128, sites=("v_proj",))
+    cfg = get_config("starcoder2-3b", dtype="float32",
+                     n_layers=MESH2D_LAYERS, mca=mca)
+    model = build_model(cfg, device=dev)
+    full = model.init(0)
+    params, _ = _tp16_shard(model, mesh, full)
+    b, s = MESH2D_GLOBAL
+    toks = np.random.default_rng(19).integers(1, cfg.vocab_size, (b, s))
+    batch = {"tokens": torch.as_tensor(toks.astype(np.int32), device=dev)}
+    res = {"rank": rank}
+    for tag, m, p in (("mesh", mesh, params), ("world1", None, full)):
+        if tag == "world1" and rank != 0:
+            continue
+        calls = []
+        undo = _spy(policy, "_tiered_maybe_sharded", calls)
+        try:
+            with torch.no_grad():
+                if m is None:
+                    _, lg = make_prefill_step(model, s + 1)(p, batch)
+                else:
+                    with dctx.use_mesh(m):
+                        _, lg = make_prefill_step(model, s + 1)(p, batch)
+        finally:
+            undo()
+        np.save(out / f"c_{tag}_{rank}.npy",
+                lg[..., :cfg.vocab_size].cpu().numpy())
+        res["hists_" + tag] = [o[1].tolist() for _, _, o in calls]
+        if tag == "world1":
+            res["imps"] = [a[4].tolist() for a, _, _ in calls]
+        del lg, calls
+    res["prefill_s"] = time.perf_counter() - t_start
+    t_c = time.perf_counter()
+    opt = adamw.AdamWConfig(lr=3e-4, schedule=adamw.cosine_schedule(1, 2))
+    batches = []
+    for i in range(2):
+        t_i = torch.as_tensor(np.random.default_rng(20 + i).integers(
+            1, cfg.vocab_size, (b, s)).astype(np.int32), device=dev)
+        labels = torch.roll(t_i, -1, 1)
+        labels[:, -1] = -1
+        batches.append({"tokens": t_i, "labels": labels})
+    step = jit_train_step(mesh, model, opt, batches[0], donate=False)
+    p_sh = step.in_shardings[0]
+    params = shd.shard_params(full, p_sh)
+    if rank != 0:
+        del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = adamw.init_state(params, step.in_shardings[1]["m"], p_sh)
+    losses, gnorms = [], []
+    with dctx.use_mesh(mesh):
+        for bi in batches:
+            params, state, mt = step(params, state, bi)
+            losses.append(float(mt["total_loss"]))
+            gnorms.append(float(mt["grad_norm"]))
+    res["train"] = {"losses": losses, "gnorms": gnorms,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()                    # the others' state freed first
+    if rank == 0:
+        flat = make_train_step(model, opt)
+        state = adamw.init_state(full)
+        losses, gnorms = [], []
+        for bi in batches:
+            full, state, mt = flat(full, state, bi)
+            losses.append(float(mt["total_loss"]))
+            gnorms.append(float(mt["grad_norm"]))
+        res["train"]["world1"] = {"losses": losses, "gnorms": gnorms}
+        del full, state
+    dist.barrier()
+    res["train_s"] = time.perf_counter() - t_c
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _mesh2d_part(out):
+    """Phase 18, four ranks on the card: (a) and (b), then (c); rank 0
+    then holds every mca_matmul_fixed shape of (a) and (b) against the
+    plain version."""
+    rank, mesh, dev = _tp_setup(2, 2)      # rank r at (r // 2, r % 2)
+    res = {"rank": rank, "serve": _mesh2d_serve(rank, mesh, dev)}
+    res["c"] = _mesh2d_parity(out, rank, mesh, dev)
+    if rank == 0:
+        seen = {tuple(sh) for p in ("a", "b")
+                for sh in res["serve"][p]["shapes"]}
+        res["path_shapes_err"] = phase_path_shapes(seen)
+    return res
+
+
+def _margin_cut(imps, seq_len, d, mca):
+    """The first routing whose importances leave no room to agree across
+    two placements (a budget r_cols / block within BOUNDARY_MARGIN of a
+    sampled rung, or two distinct importances within TIE_MARGIN of each
+    other, relative), or None; the check of ``tests/_torch_parity.py``."""
+    import numpy as np
+    from repro_torch.core import schedule
+    block = mca.block_for(d)
+    ladder = schedule.tier_ladder(d, block, mca.n_tiers, mca.r_min_blocks)
+    for i, imp in enumerate(imps):
+        imp = np.asarray(imp, dtype=np.float64)
+        r = np.clip((seq_len * imp / mca.alpha) ** 2, 1.0, float(d)) / block
+        if any(float(np.min(np.abs(r - rung))) / rung <= BOUNDARY_MARGIN
+               for rung in ladder[:-1]):
+            return i
+        u = np.unique(imp[imp > 0])
+        if len(u) > 1 and float(np.min(np.diff(u) / u[1:])) <= TIE_MARGIN:
+            return i
+    return None
+
+
+def _mesh2d_check(ranks):
+    """Phase 18's checks and lines; returns (launches, numbers)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import dispatch
+    from repro_torch.core.policy import MCAConfig, _caps_for
+    mca = MCAConfig(enabled=True, alpha=0.2, block=128, use_kernel=True,
+                    sites=("v_proj", "o_proj"))
+    cfg = get_config("starcoder2-3b", mca=mca)
+    fail = []
+    ga, gs = MESH2D_GLOBAL
+    ca, cs = MESH2D_CHUNKED
+    want = {"a": _expected_mca(cfg, [ga * gs])[0],
+            "b": 2 * _expected_mca(cfg, [ca * cs // 2 // 2])[0]}
+    caps = _caps_for(ga * gs, mca.n_tiers, mca.capacity_fracs)
+    listed = set(MESH2D_MCA_CASES) | set(TP_MCA_CASES)
+    # the global routing rerun on the CPU: the data ranks' (0 and 2)
+    # tiers and importances in rank order, the capacities of 126 tokens
+    s0, s2 = ranks[0]["serve"]["a"], ranks[2]["serve"]["a"]
+    rerun = []
+    for i in range(len(s0["tiers"])):
+        tier = torch.tensor(s0["tiers"][i] + s2["tiers"][i],
+                            dtype=torch.int32)
+        imp = torch.tensor(s0["imps"][i] + s2["imps"][i],
+                           dtype=torch.float32)
+        n_t = len(s0["hists"][i])           # the routing's ladder
+        caps_i = _caps_for(ga * gs, n_t, mca.capacity_fracs)
+        rerun.append(dispatch.tier_histogram(dispatch.apply_capacity(
+            tier, imp, caps_i), n_t).tolist())
+    launches = {"mca_matmul_fixed": 0, "kv_slot_update": 0}
+    for r in ranks:
+        sv = r["serve"]
+        for part in ("a", "b"):
+            p = sv[part]
+            launches["mca_matmul_fixed"] += p["mca_launches"]
+            unlisted = [sh for sh in map(tuple, p["shapes"])
+                        if sh[4:] != ("bfloat16", 128)
+                        or sh[:4] not in listed]
+            same = p["hists"] == ranks[0]["serve"][part]["hists"]
+            ok = (p["mca_launches"] == want[part] and not p["fallbacks"]
+                  and not p["entry_launches"] and not unlisted and same
+                  and p["calls"] == 2 * cfg.n_layers)
+            if part == "a":
+                launches["kv_slot_update"] += p["kv_launches"]
+                ok &= (p["hists"] == rerun and p["finite"]
+                       and p["kv_launches"] == cfg.n_layers * MESH2D_DECODE
+                       and sum(p["hists"][0]) == ga * gs)
+                log(f"[mesh-2d] (a) rank {r['rank']} starcoder2-3b (2, 2), "
+                    f"holds {sv['share']:.4f} of the elements: prefill of "
+                    f"{ga} x {gs} (one row of {gs} tokens a data shard, "
+                    f"routed globally, caps {list(caps)}) in "
+                    f"{p['prefill_s']:.3f} s, {p['calls']} routings, "
+                    f"mca_matmul_fixed {p['mca_launches']} launches "
+                    f"(predicted {want['a']}), fallbacks "
+                    f"{p['fallbacks'] or 0}; tier_hist equal on the four "
+                    f"ranks {same}, equal to apply_capacity rerun on the "
+                    f"CPU over the {ga * gs} gathered importances "
+                    f"{p['hists'] == rerun} (layer 0: {p['hists'][:2]}, "
+                    f"this rank's rows {p['local_hists'][:2]}); "
+                    f"{MESH2D_DECODE} decode steps p50 "
+                    f"{1e3 * p['decode_p50_s']:.2f} ms, kv_slot_update "
+                    f"{p['kv_launches']} launches (predicted "
+                    f"{cfg.n_layers * MESH2D_DECODE}), logits finite "
+                    f"{p['finite']}; peak {sv['peak_mem_gb']:.2f} GB")
+            else:
+                log(f"[mesh-2d] (b) rank {r['rank']}: prefill of {ca} x "
+                    f"{cs} ({ca // 2} rows a data shard, two chunks of "
+                    f"{ca * cs // 4} tokens a rank) in {p['prefill_s']:.3f} "
+                    f"s, mca_matmul_fixed {p['mca_launches']} launches "
+                    f"(predicted {want['b']}), fallbacks "
+                    f"{p['fallbacks'] or 0}; the summed tier_hist equal on "
+                    f"the four ranks {same} (layer 0: {p['hists'][:2]})")
+            if not ok:
+                fail.append(f"({part}) rank {r['rank']} (unlisted shapes "
+                            f"{unlisted})")
+    for d0 in (0, 2):
+        if ranks[d0]["serve"]["a"]["tokens"] != \
+                ranks[d0 + 1]["serve"]["a"]["tokens"]:
+            fail.append(f"(a) ranks {d0} and {d0 + 1} (one data shard) "
+                        f"decode different tokens")
+    # (c) against a world of one
+    out = DIST_DIR / "mesh-2d"
+    c0 = ranks[0]["c"]
+    cut = _margin_cut(c0["imps"], gs, cfg.d_model, mca)
+    held = len(c0["hists_world1"]) if cut is None else cut
+    hist_ok = all(r["c"]["hists_mesh"][:held] == c0["hists_world1"][:held]
+                  and len(r["c"]["hists_mesh"]) == len(c0["hists_world1"])
+                  for r in ranks)
+    world1 = np.load(out / "c_world1_0.npy")
+    errs = []
+    for r in ranks:
+        row = r["rank"] // 2
+        want_lg = world1[row:row + 1]
+        errs.append(float(np.abs(np.load(out / f"c_mesh_{r['rank']}.npy")
+                                 - want_lg).max() / np.abs(world1).max()))
+    tr = c0["train"]
+    rel = max(_rel(tr["losses"], tr["world1"]["losses"]),
+              _rel(tr["gnorms"], tr["world1"]["gnorms"]))
+    cut_s = ("every layer's routing has its margins" if cut is None else
+             f"layer {cut}'s routing lies within the margins (a budget "
+             f"within {BOUNDARY_MARGIN} of a rung or a near-tie): layers "
+             f"before it held")
+    log(f"[mesh-2d] (c) starcoder2-3b {MESH2D_LAYERS} layers f32, TF32 "
+        f"off, MCA on v_proj (plain), {ga} x {gs} on (2, 2) against a "
+        f"world of one: {cut_s}; tier_hist equal {hist_ok} "
+        f"({c0['hists_world1']}); logits max|diff|/max|logit| a rank "
+        f"{[f'{e:.2e}' for e in errs]} (limit 1e-4); 2 AdamW steps of "
+        f"jit_train_step (FSDP): losses {tr['losses']} grad norms "
+        f"{tr['gnorms']} vs a world of one {tr['world1']['losses']} "
+        f"{tr['world1']['gnorms']}: max rel {rel:.2e} (limit 1e-5); peak "
+        f"{tr['peak_mem_gb']:.2f} GB a rank; prefill part "
+        f"{c0['prefill_s']:.1f} s, train part {c0['train_s']:.1f} s")
+    if not (hist_ok and rel <= 1e-5 and held > 0
+            and (cut is not None or max(errs) <= 1e-4)):
+        fail.append("(c)")
+    if fail:
+        raise AssertionError("phase 18 failed: " + "; ".join(fail))
+    a = [r["serve"]["a"] for r in ranks]
+    return launches, {
+        "a_prefill_s": [p["prefill_s"] for p in a],
+        "a_decode_p50_ms": [1e3 * p["decode_p50_s"] for p in a],
+        "b_prefill_s": [r["serve"]["b"]["prefill_s"] for r in ranks],
+        "peak_gb": [r["serve"]["peak_mem_gb"] for r in ranks],
+        "a_mca_launches": a[0]["mca_launches"],
+        "b_mca_launches": ranks[0]["serve"]["b"]["mca_launches"],
+        "c_logits_err": max(errs), "c_margin_cut": cut, "c_train_rel": rel}
+
+
+def phase_mesh2d():
+    """Phase 18: the (2, 2) mesh, four ranks on the card over gloo: (a)
+    the global MCA routing at full width through prefill and decode, (b)
+    the chunked routing, (c) 4 layers in f32 against a world of one,
+    prefill and train step.  Returns (main-path launches, the max error
+    of the shapes held, numbers)."""
+    import gc
+    import shutil
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = _torchrun(4, "mesh-2d", 300)
+    launches, nums = _mesh2d_check(ranks)
+    nums["phase_s"] = time.perf_counter() - t0
+    log(f"[mesh-2d] phase 18 in {nums['phase_s']:.1f}s; main-path launches "
+        f"{launches} | {nvidia_smi_line()}")
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    return launches, ranks[0]["path_shapes_err"], nums
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5392,17 +5826,20 @@ def main() -> int:
     tp_launches, tp_err, tp_nums = phase_tp()
     tp16_launches, tp16_err, tp16_nums = phase_tp_families()
     sp_launches, sp_err, sp_nums = phase_sp()
+    m2_launches, m2_err, m2_nums = phase_mesh2d()
     errs["mca_matmul_fixed"] = max(errs["mca_matmul_fixed"], dist_err,
-                                   tp_err, tp16_err, sp_err)
+                                   tp_err, tp16_err, sp_err, m2_err)
     for k in SERVE_KERNELS:
         launches[k] += (fam_launches[k] + ssm_launches[k] + ev_launches[k]
                         + dist_launches[k] + tp_launches[k]
-                        + tp16_launches[k] + sp_launches[k])
+                        + tp16_launches[k] + sp_launches[k]
+                        + m2_launches[k])
         per[k] += (f"; phase 9: {fam_launches[k]}; phase 11: "
                    f"{ssm_launches[k]}; phase 12: {ev_launches[k]}; "
                    f"phase 14: {dist_launches[k]}; phase 15: "
                    f"{tp_launches[k]}; phase 16: {tp16_launches[k]}; "
-                   f"phase 17: {sp_launches[k]}")
+                   f"phase 17: {sp_launches[k]}; phase 18: "
+                   f"{m2_launches[k]}")
     per["mca_matmul_fixed"] += (" (per prefill of <= 256 tokens: olmoe "
                                 "16 x 2 x 3 = 96, minicpm3 62 x (1 + 3) "
                                 "= 248; recurrentgemma-9b: 12 attention "
@@ -5417,14 +5854,17 @@ def main() -> int:
                                 "two chunks of 4 x 256 a rank: the "
                                 "routing's, printed on its (b) lines; "
                                 "(e), 8 layers, the same a layer, printed "
-                                "on its (e) lines)")
+                                "on its (e) lines; phase 18, four ranks: "
+                                "(a) the global routing, 180 a rank, (b) "
+                                "two chunks, 360 a rank)")
     per["kv_slot_update"] += (" (per decode step: olmoe 16, minicpm3 62, "
                               "recurrentgemma-9b 12, mamba2-2.7b 0, "
                               "whisper-small 12, internvl2-1b 24; phase "
                               "15: 30 a rank, one KV head each; phase 16: "
-                              "as phases 9, 11 and 12, a rank; phase 17 "
-                              "(e): 8 a rank, one decode step of 8 "
-                              "layers)")
+                              "one an attention layer of its 8-layer "
+                              "cut, a rank; phase 17 (e): 8 a rank, one "
+                              "decode step of 8 layers; phase 18 (a): 30 "
+                              "a rank)")
     meta = {
         "mca_matmul_fixed": ("src/repro_torch/csrc/mca_matmul.cu",
                              "src/repro/kernels/mca_matmul.py:84"),
@@ -5454,12 +5894,14 @@ def main() -> int:
         f"phase 14: {dist_nums['phase_s']:.1f}s, phase 15: "
         f"{tp_nums['phase_s']:.1f}s, phase 16: "
         f"{tp16_nums['phase_s']:.1f}s, phase 17: "
-        f"{sp_nums['phase_s']:.1f}s)")
+        f"{sp_nums['phase_s']:.1f}s, phase 18: "
+        f"{m2_nums['phase_s']:.1f}s)")
     log(json.dumps({"serve": serve_nums, "train": train_nums,
                     "families": fam_nums, "devtel": devtel_nums,
                     "ssm_hybrid": ssm_nums, "encdec_vlm": ev_nums,
                     "dist": dist_nums, "tp": tp_nums,
                     "tp_families": tp16_nums, "sp": sp_nums,
+                    "mesh_2d": m2_nums,
                     "family_kernels": nums["families"], "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -23,6 +23,16 @@ of the batch holds exactly chunk ``shard_index``; a rank that holds the
 whole (replicated) batch routes all the chunks itself.  FLOPs and token
 counts are the global batch's.
 
+Where the global flat tokens do not divide the mesh the routing is
+global, as the reference's fallback: one routing of all of them with the
+capacities of their count and the unfolded key.  A rank that holds the
+whole batch runs it alone; a rank that holds its data shard's rows (its
+shard's tokens do not divide the ``"model"`` axis) gathers the data
+ranks' tiers and importances (8 bytes a token, in rank order: the
+global flat order), routes them, and runs its own rows with the global
+capacities, so each tier draws the unsharded call's samples.  The tier
+histogram is then the global one on every rank.
+
 On a ``"model"`` axis larger than 1 (tensor parallelism) the routing is
 the same: a rank routes every chunk its data shard holds (the chunks of
 its ``"model"`` row: ``n_model`` of them, chunk i drawn from
@@ -216,7 +226,9 @@ def _tiered_maybe_sharded(key, x2, w, tier, imp, ladder, cfg, block,
     of its own token count and drawn from ``fold_in(key, i)``; a rank
     holding its data shard's rows routes that shard's chunks (one, or
     ``n_model`` on a model axis) and sums the histogram over the data
-    ranks, a rank holding the whole batch routes every chunk itself."""
+    ranks, a rank holding the whole batch routes every chunk itself.
+    Tokens that do not divide the mesh are routed globally
+    (:func:`_tiered_global` for a rank holding its rows)."""
     n_tiers = len(ladder)
     flat_n = x2.shape[0]
     mesh = dctx.get_mesh()
@@ -227,10 +239,9 @@ def _tiered_maybe_sharded(key, x2, w, tier, imp, ladder, cfg, block,
     if mesh is not None and mesh.size > 1:
         if shards > 1:
             if flat_n % nm:
-                raise NotImplementedError(
-                    f"MCA routing of {flat_n} tokens a data shard over a "
-                    f"model axis of {nm}: the reference routes them "
-                    "globally, which the port does not (ROADMAP.md)")
+                return _tiered_global(key, x2, w, tier, imp, ladder, cfg,
+                                      block, probs, local_blocks, mesh,
+                                      shards)
             n_local = flat_n // nm
             first = dctx.axis_index(mesh, dctx.dp_axes(mesh)) * nm
             chunks = [(first + j, j * n_local) for j in range(nm)]
@@ -238,14 +249,8 @@ def _tiered_maybe_sharded(key, x2, w, tier, imp, ladder, cfg, block,
             n_local = flat_n // mesh.size
             chunks = [(i, i * n_local) for i in range(mesh.size)]
     if chunks is None:
-        caps = _caps_for(flat_n, n_tiers, cfg.capacity_fracs)
-        tier_routed = dispatch.apply_capacity(tier, imp, caps)
-        y2 = dispatch.tiered_mca_matmul(key, x2, w, tier_routed, imp, ladder,
-                                        caps, block, probs=probs,
-                                        use_kernel=cfg.use_kernel,
-                                        local_blocks=local_blocks)
-        hist = dispatch.tier_histogram(tier_routed, n_tiers)
-        return y2, hist, hist
+        return _tiered_global(key, x2, w, tier, imp, ladder, cfg, block,
+                              probs, local_blocks, mesh, 1)
 
     caps = _caps_for(n_local, n_tiers, cfg.capacity_fracs)
     ys, hist = [], 0
@@ -261,6 +266,38 @@ def _tiered_maybe_sharded(key, x2, w, tier, imp, ladder, cfg, block,
     if shards > 1:
         return y2, dctx.psum(hist, mesh, dctx.dp_axes(mesh)), hist
     return y2, hist, hist
+
+
+def _tiered_global(key, x2, w, tier, imp, ladder, cfg, block, probs,
+                   local_blocks, mesh, shards):
+    """One routing of all the mesh's tokens, with the capacities of their
+    count and the unfolded key (the reference's fallback).  A rank that
+    holds its data shard's rows (``shards > 1``) gathers the data ranks'
+    tiers and importances in rank order, the global flat order, routes
+    them, and runs its own rows with the global capacities, so each tier
+    draws the samples of the unsharded call.  Returns (y2 of this rank's
+    rows, the global tier_hist, this rank's rows' tier_hist)."""
+    n_tiers = len(ladder)
+    flat_n = x2.shape[0]
+    caps = _caps_for(flat_n * shards, n_tiers, cfg.capacity_fracs)
+    tier_all, imp_all = tier, imp
+    if shards > 1:
+        dp = dctx.dp_axes(mesh)
+        tier_all = dctx.all_gather(tier, mesh, dp, 0)
+        imp_all = dctx.all_gather(imp.detach(), mesh, dp, 0)
+    routed = dispatch.apply_capacity(tier_all, imp_all, caps)
+    hist = dispatch.tier_histogram(routed, n_tiers)
+    mine, local = routed, hist
+    if shards > 1:
+        start = dctx.axis_index(mesh, dp) * flat_n
+        mine = routed[start:start + flat_n]
+        local = dispatch.tier_histogram(mine, n_tiers)
+    # the rank's rows fit every global capacity: nothing is demoted again
+    y2 = dispatch.tiered_mca_matmul(key, x2, w, mine, imp, ladder, caps,
+                                    block, probs=probs,
+                                    use_kernel=cfg.use_kernel,
+                                    local_blocks=local_blocks)
+    return y2, hist, local
 
 
 def merge_stats(stats_list) -> Stats:

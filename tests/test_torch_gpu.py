@@ -1522,3 +1522,98 @@ def test_split_residual_on_card_over_gloo(cuda, tmp_path):
     assert out.returncode == 0, out.stderr[-4000:]
     assert sorted(out.stdout.split()) == sorted(
         "OK rank 0 OK rank 1".split())
+
+
+# ----------------------------------------- global MCA routing on (2, 2)
+_MESH2D_CARD = """
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+def run(rank, port, out):
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=4, rank=rank)
+    from repro_torch import obs
+    from repro_torch.core.policy import MCAConfig, mca_project
+    from repro_torch.dist import context as dctx
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    dev = torch.device("cuda", 0)
+    mesh = make_local_mesh(2, 2, device=dev)
+    row, m_i = divmod(rank, 2)
+    g = torch.Generator(dev).manual_seed(0)
+    x = torch.randn(2, 63, 3072, generator=g, device=dev).bfloat16()
+    w = (torch.randn(3072, 256, generator=g, device=dev)
+         / 3072 ** 0.5).bfloat16()
+    imp = torch.rand(2, 63, generator=g, device=dev) * 0.2
+    res = {}
+    # a rank's column shard is a tensor of its own, as shard_params
+    # makes it
+    cols = w[:, 128 * m_i:128 * (m_i + 1)].contiguous()
+    for tp, ws in ((None, w), ("col", cols)):
+        tag = tp or "none"
+        for use_kernel in (True, False):
+            cfg = MCAConfig(enabled=True, alpha=0.2, block=128,
+                            use_kernel=use_kernel, sites=("v_proj",))
+            ops.reset_launch_counts()
+            with torch.no_grad(), obs.scoped() as reg, \\
+                    dctx.use_mesh(mesh):
+                y, st = mca_project(3, x[row:row + 1], ws,
+                                    imp[row:row + 1], 63, cfg, "v_proj",
+                                    tp=tp)
+                torch.cuda.synchronize()
+                c = reg.snapshot()["counters"]
+            k = "kernel" if use_kernel else "plain"
+            res[f"{tag}_{k}_y"] = y.float().cpu().numpy()
+            res[f"{tag}_{k}_hist"] = st["tier_hist"].cpu().numpy()
+            res[f"{tag}_{k}_calls"] = np.array([
+                c.get("kernels.mca_matmul.kernel_calls", 0),
+                c.get("kernels.mca_matmul.fallback_calls", 0),
+                ops.launch_counts()["mca_matmul_fixed"]])
+    np.savez(f"{out}/rank{rank}.npz", **res)
+    dist.destroy_process_group()
+
+if __name__ == "__main__":
+    mp.spawn(run, args=(int(sys.argv[1]), sys.argv[2]), nprocs=4, join=True)
+"""
+
+
+def test_global_mca_routing_on_card_over_gloo(cuda, tmp_path):
+    """Four ranks on the card over gloo, mesh (2, 2): a data shard's 63
+    tokens do not divide the model axis, so ``mca_project`` routes the 126
+    tokens of the mesh at once (capacities 126, 63, 47, 32).  With
+    ``use_kernel`` each of the three sampled tiers launches
+    ``mca_matmul_fixed`` once a call (``kernel_calls`` = the launch count
+    = 3, no fallback), for ``tp`` None and ``"col"``; every rank holds
+    the same global tier_hist, summing to 126; the kernel's ``y`` is the
+    plain sampled product's within 1e-2 of max |y| (bf16)."""
+    import os
+    import pathlib
+    import socket
+    import subprocess
+    import sys
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    script = tmp_path / "mesh2d_card.py"
+    script.write_text(_MESH2D_CARD)
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, str(script), str(port),
+                          str(tmp_path)],
+                         env=dict(os.environ, PYTHONPATH=str(root / "src")),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    ranks = [np.load(tmp_path / f"rank{r}.npz") for r in range(4)]
+    for tag in ("none", "col"):
+        hist = ranks[0][f"{tag}_kernel_hist"]
+        assert int(hist.sum()) == 126
+        for r in ranks:
+            assert list(r[f"{tag}_kernel_calls"]) == [3, 0, 3]
+            assert list(r[f"{tag}_plain_calls"]) == [0, 0, 0]
+            np.testing.assert_array_equal(r[f"{tag}_kernel_hist"], hist)
+            np.testing.assert_array_equal(r[f"{tag}_plain_hist"], hist)
+            want = r[f"{tag}_plain_y"]
+            err = np.abs(r[f"{tag}_kernel_y"] - want).max()
+            assert err <= 1e-2 * np.abs(want).max(), (tag, err)
