@@ -14,6 +14,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch import obs
+
 from .amm import (DEFAULT_BLOCK, block_probs, draw_block_samples, fold_in,
                   generator, num_blocks, sampled_matmul)
 
@@ -82,29 +84,31 @@ def tiered_mca_matmul(key: int, x: torch.Tensor, w: torch.Tensor,
 
     y = torch.zeros((n, f), dtype=x.dtype, device=x.device)
     for t, r_t in enumerate(ladder):
-        cap = int(caps[t])
-        fit = (tier == t) & (rank < cap)
-        slot = torch.where(fit, rank, cap).long()               # trash = cap
-        buf = torch.zeros((cap + 1, d), dtype=x.dtype, device=x.device)
-        buf.index_add_(0, slot, torch.where(fit[:, None], x,
-                                            torch.zeros_like(x)))
-        if r_t >= k:                                            # exact tier
-            out = torch.matmul(buf[:cap], w)
-        else:
-            idx, inv_rp = draw_block_samples(
-                generator(fold_in(key, t), x.device), probs, int(r_t))
-            if local_blocks is not None:
-                first, count = local_blocks
-                mine = (idx >= first) & (idx < first + count)
-                idx = torch.where(mine, idx - first, 0).to(torch.int32)
-                inv_rp = torch.where(mine, inv_rp, 0.0)
-            if use_kernel and cap % min(128, cap) == 0 and block >= 128:
-                from repro_torch.kernels import mca_matmul as kernel_mm
-                out = kernel_mm(buf[:cap], w, idx, inv_rp, block=block)
+        # one boundary a tier: slot buffer, draws, matmul, gather back
+        with obs.timed("mca.tier", cat="model"):
+            cap = int(caps[t])
+            fit = (tier == t) & (rank < cap)
+            slot = torch.where(fit, rank, cap).long()           # trash = cap
+            buf = torch.zeros((cap + 1, d), dtype=x.dtype, device=x.device)
+            buf.index_add_(0, slot, torch.where(fit[:, None], x,
+                                                torch.zeros_like(x)))
+            if r_t >= k:                                        # exact tier
+                out = torch.matmul(buf[:cap], w)
             else:
-                out = sampled_matmul(buf[:cap], w, idx, inv_rp, block)
-        gathered = out[torch.clamp(rank, 0, cap - 1).long()]
-        y = torch.where(fit[:, None], gathered, y)
+                idx, inv_rp = draw_block_samples(
+                    generator(fold_in(key, t), x.device), probs, int(r_t))
+                if local_blocks is not None:
+                    first, count = local_blocks
+                    mine = (idx >= first) & (idx < first + count)
+                    idx = torch.where(mine, idx - first, 0).to(torch.int32)
+                    inv_rp = torch.where(mine, inv_rp, 0.0)
+                if use_kernel and cap % min(128, cap) == 0 and block >= 128:
+                    from repro_torch.kernels import mca_matmul as kernel_mm
+                    out = kernel_mm(buf[:cap], w, idx, inv_rp, block=block)
+                else:
+                    out = sampled_matmul(buf[:cap], w, idx, inv_rp, block)
+            gathered = out[torch.clamp(rank, 0, cap - 1).long()]
+            y = torch.where(fit[:, None], gathered, y)
     return y
 
 

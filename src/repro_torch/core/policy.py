@@ -62,6 +62,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.dist import context as dctx
 from repro_torch.obs import devtel
 
@@ -146,45 +147,50 @@ def mca_project(key: Optional[int], x: torch.Tensor, w: torch.Tensor,
 
     x2 = x.reshape(flat_n, d)
     imp = importance.reshape(flat_n)
-    r_cols = schedule.r_cols_from_attention(imp, seq_len, cfg.alpha, d_full)
-    r_blocks = schedule.r_blocks_from_cols(r_cols, block)
-    tier = schedule.assign_tiers(r_blocks, ladder)
-    mesh = dctx.get_mesh()
+    # one boundary: its host seconds less those of its tiers (inside
+    # tiered_mca_matmul) are the routing's
+    with obs.timed("mca.project", cat="model"):
+        r_cols = schedule.r_cols_from_attention(imp, seq_len, cfg.alpha,
+                                                d_full)
+        r_blocks = schedule.r_blocks_from_cols(r_cols, block)
+        tier = schedule.assign_tiers(r_blocks, ladder)
+        mesh = dctx.get_mesh()
 
-    if cfg.mode == "per_token":
-        if shards > 1:          # the data shard's rows draw their own
-            key = amm.fold_in(key, dctx.axis_index(mesh, dctx.dp_axes(mesh)))
-        x2, w, probs, local_blocks = _tp_operands(x2, w, block, tp, mesh)
-        y2 = dispatch.per_token_mca_matmul(key, x2, w, r_blocks, block,
-                                           probs=probs,
-                                           local_blocks=local_blocks)
-        mca_fl = amm.sampled_flops(r_blocks, f_full, block)
-        hist = local_hist = dispatch.tier_histogram(tier, len(ladder))
+        if cfg.mode == "per_token":
+            if shards > 1:      # the data shard's rows draw their own
+                key = amm.fold_in(key, dctx.axis_index(mesh,
+                                                       dctx.dp_axes(mesh)))
+            x2, w, probs, local_blocks = _tp_operands(x2, w, block, tp, mesh)
+            y2 = dispatch.per_token_mca_matmul(key, x2, w, r_blocks, block,
+                                               probs=probs,
+                                               local_blocks=local_blocks)
+            mca_fl = amm.sampled_flops(r_blocks, f_full, block)
+            hist = local_hist = dispatch.tier_histogram(tier, len(ladder))
+            if shards > 1:
+                dp = dctx.dp_axes(mesh)
+                mca_fl = dctx.psum(torch.as_tensor(mca_fl), mesh, dp)
+                hist = dctx.psum(hist, mesh, dp)
+        else:
+            y2, hist, local_hist = _tiered_maybe_sharded(
+                key, x2, w, tier, imp, ladder, cfg, block, tp)
+            # int64 on the device: the sum reaches ~2e9 at d=f=3072 and a
+            # few hundred tokens, where int32 would overflow
+            hist64 = hist.to(torch.int64)
+            mca_fl = sum(hist64[t] * (2 * r_t * block * f_full)
+                         for t, r_t in enumerate(ladder))
+
+        y = y2.reshape(*lead, n, f)
+        # device-side tier occupancy, per call (the stats are read once
+        # per step); a no-op unless devtel is enabled
+        devtel.emit_vec(
+            tuple(f"mca.device_tier_hist.t{i}" for i in range(len(ladder))),
+            local_hist)
+        mean_r = torch.mean(r_blocks.float())
         if shards > 1:
-            dp = dctx.dp_axes(mesh)
-            mca_fl = dctx.psum(torch.as_tensor(mca_fl), mesh, dp)
-            hist = dctx.psum(hist, mesh, dp)
-    else:
-        y2, hist, local_hist = _tiered_maybe_sharded(
-            key, x2, w, tier, imp, ladder, cfg, block, tp)
-        # int64 on the device: the sum reaches ~2e9 at d=f=3072 and a few
-        # hundred tokens, where int32 would overflow
-        hist64 = hist.to(torch.int64)
-        mca_fl = sum(hist64[t] * (2 * r_t * block * f_full)
-                     for t, r_t in enumerate(ladder))
-
-    y = y2.reshape(*lead, n, f)
-    # device-side tier occupancy, per call (the stats are read once per
-    # step); a no-op unless devtel is enabled
-    devtel.emit_vec(
-        tuple(f"mca.device_tier_hist.t{i}" for i in range(len(ladder))),
-        local_hist)
-    mean_r = torch.mean(r_blocks.float())
-    if shards > 1:
-        mean_r = dctx.psum(mean_r, mesh, dctx.dp_axes(mesh)) / shards
-    stats = {"site": site, "exact_flops": exact_fl, "mca_flops": mca_fl,
-             "tokens": flat_n * shards, "tier_hist": hist,
-             "mean_r_blocks": mean_r, "ladder": ladder}
+            mean_r = dctx.psum(mean_r, mesh, dctx.dp_axes(mesh)) / shards
+        stats = {"site": site, "exact_flops": exact_fl, "mca_flops": mca_fl,
+                 "tokens": flat_n * shards, "tier_hist": hist,
+                 "mean_r_blocks": mean_r, "ladder": ladder}
     return y, stats
 
 

@@ -41,6 +41,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.amm import fold_in
 from repro_torch.core.policy import mca_project
 from repro_torch.dist import context as dctx
@@ -506,32 +507,38 @@ def gqa_attention(p, cfg, x, *, pos, mca_key: Optional[int] = None,
     # batches take the chunked passes
     banded = (_use_banded(cfg, window, skv, causal, kv_x)
               and kv_valid is None and not split_rows)
+    # each call of the scoring passes is one "attn.passes" boundary; no
+    # projection runs inside one
     if cfg.mca.active("v_proj") and mca_key is not None:
-        if banded:
-            m, lse, colmax = banded_lse_colmax(qg, kq, **bands)
-        elif cfg.mca.fast_colmax:
-            m, lse, colmax = chunked_lse_colmax_fused(
-                qg, kq, kv_valid=kv_valid, q_valid=q_valid, **passes)
-        else:
-            m, lse = chunked_lse(qg, kq, kv_valid=kv_valid, **passes)
-            colmax = chunked_colmax(qg, kq, lse, kv_valid=kv_valid,
-                                    q_valid=q_valid, **passes)
+        with obs.timed("attn.passes", cat="model"):
+            if banded:
+                m, lse, colmax = banded_lse_colmax(qg, kq, **bands)
+            elif cfg.mca.fast_colmax:
+                m, lse, colmax = chunked_lse_colmax_fused(
+                    qg, kq, kv_valid=kv_valid, q_valid=q_valid, **passes)
+            else:
+                m, lse = chunked_lse(qg, kq, kv_valid=kv_valid, **passes)
+                colmax = chunked_colmax(qg, kq, lse, kv_valid=kv_valid,
+                                        q_valid=q_valid, **passes)
         # a max over heads (and queries): over "model" before routing
         v, s_v = v_heads(dctx.max_over_model(colmax))
         stats = _acc_stats(stats, s_v)
         vq = v if pick is None else v[:, :, pick]
-        if banded:
-            out = banded_av(qg, kq, vq, lse, **bands)
-        else:
-            out = chunked_av(qg, kq, vq, lse, kv_valid=kv_valid, **passes)
+        with obs.timed("attn.passes", cat="model"):
+            if banded:
+                out = banded_av(qg, kq, vq, lse, **bands)
+            else:
+                out = chunked_av(qg, kq, vq, lse, kv_valid=kv_valid,
+                                 **passes)
     else:
         v, _ = v_heads(None)
         vq = v if pick is None else v[:, :, pick]
-        if banded:
-            out, m, lse = banded_onepass(qg, kq, vq, **bands)
-        else:
-            out, m, lse = onepass_attention(qg, kq, vq, kv_valid=kv_valid,
-                                            **passes)
+        with obs.timed("attn.passes", cat="model"):
+            if banded:
+                out, m, lse = banded_onepass(qg, kq, vq, **bands)
+            else:
+                out, m, lse = onepass_attention(qg, kq, vq,
+                                                kv_valid=kv_valid, **passes)
     rowmax = torch.exp(torch.amax(m - lse, dim=(1, 2)))        # [B, Sq]
     out = out.reshape(b, rows.stop - rows.start, hl * dh)
     if layout != "seq":                       # a max over heads
@@ -814,9 +821,10 @@ def mla_attention(p, cfg, x, *, pos, mca_key: Optional[int] = None,
     chunk = pick_chunk(s, cfg.attn_chunk)
     passes = dict(scale=scale, causal=cfg.causal, window=0, chunk=chunk)
     if cfg.mca.active("v_proj") and mca_key is not None:
-        m, lse = chunked_lse(qg, k, kv_valid=kv_valid, **passes)
-        colmax = chunked_colmax(qg, k, lse, kv_valid=kv_valid,
-                                q_valid=kv_valid, **passes)
+        with obs.timed("attn.passes", cat="model"):
+            m, lse = chunked_lse(qg, k, kv_valid=kv_valid, **passes)
+            colmax = chunked_colmax(qg, k, lse, kv_valid=kv_valid,
+                                    q_valid=kv_valid, **passes)
         if split:                      # a max over heads: over "model"
             hv, s_v = _project(fold_in(mca_key, 1), ckv, p["w_uv"],
                                dctx.max_over_model(colmax), s, cfg,
@@ -826,12 +834,14 @@ def mla_attention(p, cfg, x, *, pos, mca_key: Optional[int] = None,
                               h * dv)
         stats = _acc_stats(stats, s_v)
         v = _split_heads(hv, hl, dv)
-        out = chunked_av(qg, k, v, lse, kv_valid=kv_valid, **passes)
+        with obs.timed("attn.passes", cat="model"):
+            out = chunked_av(qg, k, v, lse, kv_valid=kv_valid, **passes)
     else:
         v = _split_heads(_mla_up(ckv, p["w_uv"], split, h * dv), hl,
                          dv)
-        out, m, lse = onepass_attention(qg, k, v, kv_valid=kv_valid,
-                                        **passes)
+        with obs.timed("attn.passes", cat="model"):
+            out, m, lse = onepass_attention(qg, k, v, kv_valid=kv_valid,
+                                            **passes)
     rowmax = torch.exp(torch.amax(m - lse, dim=(1, 2)))        # [B, S]
     if split:
         rowmax = dctx.max_over_model(rowmax)

@@ -20,15 +20,23 @@ All spans share the ``perf_counter`` clock; a request chain looks like::
 
 on the track ``<cat>/req<uid>`` where ``<cat>`` is ``serve.wave``
 (``ContinuousBatcher``) or ``serve.per_slot`` (``SlotBatcher``).
+
+:func:`timed` marks a boundary of the model step (``mca.project``,
+``mca.tier``, ``attn.passes``) with the three sinks at once: always-on
+registry counters, a span while tracing is on, and a ``torch.profiler``
+range while a profiler runs.  :func:`profiler_ns` puts a ``perf_counter``
+stamp on the profiler's clock (nanoseconds since the Unix epoch, what a
+kineto event's ``start_ns()`` reports).
 """
 from __future__ import annotations
 
 import contextlib
 import json
 import time
-from typing import Any, Dict, Iterator, Mapping, Optional
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 from .registry import Registry, get_registry
+from .trace import trace
 
 _enabled = False
 _NULL = contextlib.nullcontext()
@@ -134,6 +142,83 @@ def span(name: str, cat: str = "", track: str = "",
     if not _enabled:
         return _NULL
     return _Span(name, cat, track, args, registry)
+
+
+_TIMED_KEYS: Dict[str, Tuple[str, str]] = {}
+
+
+class _Timed:
+    """Context manager behind :func:`timed`."""
+
+    __slots__ = ("name", "cat", "args", "range", "t0")
+
+    def __init__(self, name, cat, args):
+        self.name = name
+        self.cat = cat
+        self.args = args
+        self.range = trace(name)    # the shared null context, unprofiled
+        self.t0 = 0.0
+
+    # the clock reads enclose the profiler range: its start and end stamps
+    # lie a few us inside them, not behind the range's own exit cost
+    def __enter__(self) -> "_Timed":
+        self.t0 = time.perf_counter()
+        self.range.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.range.__exit__(exc_type, exc, tb)
+        t1 = time.perf_counter()
+        keys = _TIMED_KEYS.get(self.name)
+        if keys is None:
+            keys = _TIMED_KEYS.setdefault(
+                self.name, (f"timed.{self.name}.host_seconds",
+                            f"timed.{self.name}.calls"))
+        reg = get_registry()
+        reg.counter(keys[0]).inc(t1 - self.t0)
+        reg.counter(keys[1]).inc()
+        if _enabled:
+            args = self.args
+            if exc_type is not None:
+                args = dict(args, error=exc_type.__name__)
+            record_span(self.name, self.t0, t1, cat=self.cat, args=args,
+                        registry=reg)
+
+
+def timed(name: str, cat: str = "", **args: Any) -> _Timed:
+    """``with obs.timed("mca.project", cat="model"): ...`` times a
+    boundary of the work.  On exit the body's host seconds
+    (``perf_counter``) go to counter ``timed.<name>.host_seconds`` and 1
+    to ``timed.<name>.calls`` of the active registry, always; while
+    tracing is on the body is also one span (``error`` in its args when
+    it raises), and while a ``torch.profiler`` runs it is a
+    ``record_function(name)`` range on the profiler's own clock.  With
+    tracing off and no profiler it costs two clock reads and two counter
+    increments: no device work, no host-device sync."""
+    return _Timed(name, cat, args)
+
+
+_clock_offset: Optional[int] = None
+
+
+def profiler_ns(t: float) -> int:
+    """A ``perf_counter`` stamp (a span's ``ts``, ``Request.*_pc``,
+    ``Engine.last_*_t``) in nanoseconds since the Unix epoch, the clock
+    of a ``torch.profiler`` (kineto) event's ``start_ns()`` /
+    ``end_ns()``.  One anchor per process: of a few (``perf_counter_ns``,
+    ``time_ns``, ``perf_counter_ns``) reads, the one whose two monotonic
+    reads lie closest together."""
+    global _clock_offset
+    if _clock_offset is None:
+        best = None
+        for _ in range(8):
+            a = time.perf_counter_ns()
+            wall = time.time_ns()
+            b = time.perf_counter_ns()
+            if best is None or b - a < best[0]:
+                best = (b - a, wall - (a + b) // 2)
+        _clock_offset = best[1]
+    return round(t * 1e9) + _clock_offset
 
 
 def export_chrome_trace(path: Optional[str],

@@ -38,6 +38,16 @@ reference's names: ``serve.prefill_seconds``, ``serve.decode_step_seconds``,
 ``serve.wave_seconds``, ``serve.slot_utilization``, ``serve.rejected.*``
 and ``resilience.serve.*``.  Dummy padding slots in a partial wave are
 excluded from token and MCA FLOPs accounting.
+
+``SlotBatcher`` also stamps each request on the ``perf_counter`` clock
+(``submit_pc``, ``admit_pc`` when it leaves the queue, ``first_token_pc``
+when its first token reached the host, ``finish_pc``) and observes three
+port-only histograms: ``serve.queue_wait_seconds`` (submit to admission,
+one per admitted request), ``serve.ttft_seconds`` (submit to first token,
+one per request whose insertion succeeded) and ``serve.tpot_seconds``
+((finish - first token) / (tokens - 1), one per request finished with at
+least two tokens: the gap between tokens as a client sees it, insertion
+stalls included).
 """
 from __future__ import annotations
 
@@ -71,6 +81,9 @@ class Request:
     reason: Optional[str] = None          # set when rejected/failed
     submit_t: float = 0.0
     submit_pc: float = 0.0                # perf_counter stamp (tracing)
+    admit_pc: float = 0.0                 # left the queue (SlotBatcher)
+    first_token_pc: float = 0.0           # first token on the host
+    finish_pc: float = 0.0                # terminal status set
 
 
 @dataclasses.dataclass
@@ -409,6 +422,7 @@ class ContinuousBatcher:
     def _finish(self, req: Request, status: str,
                 tokens: Optional[List[int]] = None) -> None:
         req.status = status
+        req.finish_pc = time.perf_counter()
         self.status[req.uid] = status
         obs.mark("finish", cat=self.trace_cat, track=self._track(req),
                  args={"status": status})
@@ -610,13 +624,18 @@ class SlotBatcher(ContinuousBatcher):
                 state = getattr(e, "slot_state", state)
                 last = e
                 continue
+            req.first_token_pc = time.perf_counter()
+            ttft = req.first_token_pc - req.submit_pc
+            reg.histogram("serve.ttft_seconds").observe(ttft)
             degraded = attempt > 0 and eng.mca_enabled
             if degraded:
                 reg.counter("resilience.serve.degraded_requests").inc()
+            # the request's first token rides on its prefill span (a span
+            # of its own would lengthen the reference's request chain)
             obs.record_span("prefill", *eng.last_insert_t,
                             cat=self.trace_cat, track=self._track(req),
                             args={"slot": slot, "s_pad": s_pad,
-                                  "degraded": degraded})
+                                  "degraded": degraded, "ttft_s": ttft})
             # what a wave batcher would have re-prefilled right now: every
             # OTHER occupied slot's padded prompt
             reg.counter("serve.prefill_tokens_saved").inc(
@@ -634,10 +653,13 @@ class SlotBatcher(ContinuousBatcher):
 
     def _finish_slot(self, meta) -> None:
         req = meta["req"]
-        self._finish(req, DEGRADED if meta["degraded"] else OK,
-                     meta["out"][:req.max_new])
-        obs.get_registry().counter("serve.generated_tokens").inc(
-            len(meta["out"][:req.max_new]))
+        out = meta["out"][:req.max_new]
+        self._finish(req, DEGRADED if meta["degraded"] else OK, out)
+        reg = obs.get_registry()
+        reg.counter("serve.generated_tokens").inc(len(out))
+        if len(out) >= 2:
+            reg.histogram("serve.tpot_seconds").observe(
+                (req.finish_pc - req.first_token_pc) / (len(out) - 1))
 
     def run(self) -> Dict[int, List[int]]:
         reg = obs.get_registry()
@@ -663,7 +685,10 @@ class SlotBatcher(ContinuousBatcher):
                 if slots[slot] is not None or not self.queue:
                     continue
                 req = self.queue.pop(0)
-                obs.record_span("queue", req.submit_pc, time.perf_counter(),
+                req.admit_pc = time.perf_counter()
+                reg.histogram("serve.queue_wait_seconds").observe(
+                    req.admit_pc - req.submit_pc)
+                obs.record_span("queue", req.submit_pc, req.admit_pc,
                                 cat=self.trace_cat, track=self._track(req))
                 pads = [m["s_pad"] for m in slots if m is not None]
                 state, meta = self._insert(state, slot, req, pads)

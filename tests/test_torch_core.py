@@ -231,7 +231,12 @@ def test_tiered_use_kernel_routes_sampled_tiers_to_ops():
                                      ladder, caps, 128)
     ok = [cap % min(128, cap) == 0 for cap, r in zip(caps, ladder)
           if r < ladder[-1]]
+    # beside the kernel counters, each tier is one ``mca.tier`` boundary
+    timed = {k: c.pop(k) for k in list(c) if k.startswith("timed.")}
     assert c == {"kernels.mca_matmul.fallback_calls": float(sum(ok))}
+    assert timed["timed.mca.tier.calls"] == len(ladder)
+    assert set(timed) == {"timed.mca.tier.calls",
+                          "timed.mca.tier.host_seconds"}
     np.testing.assert_allclose(y_k.numpy(), y_p.numpy(), rtol=1e-5,
                                atol=1e-5)
 

@@ -785,6 +785,116 @@ def test_full_width_decode_launches_once_per_layer(cuda):
     assert c.get("kernels.kv_slot_update.fallback_calls", 0) == 0
 
 
+#: the model step's ``obs.timed`` boundaries, innermost first where nested
+TIMED = ("mca.tier", "mca.project", "attn.passes")
+
+
+def _split_by_range(events):
+    """One profiled insertion's device items by the innermost
+    ``obs.timed`` range their launch lies in ("none" outside them): busy
+    seconds and launches per range, and each idle gap charged to the
+    range that launched the item ending it; with the ``engine.insert``
+    ranges and every timed range's host interval (ns)."""
+    import bisect
+    ranges, runtime, dev, host_names = [], {}, [], set()
+    for e in events:
+        if str(e.device_type()).endswith("CUDA"):
+            dev.append(e)
+        elif e.name().startswith("cu"):
+            runtime[e.correlation_id()] = e.start_ns()
+        else:
+            host_names.add(e.name())
+            if e.name() in TIMED + ("engine.insert",):
+                ranges.append((e.start_ns(), e.end_ns(), e.name()))
+    # the profiler mirrors host ranges onto the device timeline: not work
+    items = sorted((e.start_ns(), e.end_ns(), runtime.get(e.correlation_id()))
+                   for e in dev if e.name() not in host_names)
+    timed = sorted(r for r in ranges if r[2] in TIMED)
+    starts = [r[0] for r in timed]
+
+    def innermost(t):
+        if t is None:
+            return "none"
+        best = None
+        for s, e, n in timed[:bisect.bisect_right(starts, t)][-64:]:
+            if s <= t <= e and (best is None or s >= best[0]):
+                best = (s, n)
+        return best[1] if best else "none"
+
+    split = {n: {"busy_s": 0.0, "launches": 0, "idle_s": 0.0}
+             for n in TIMED + ("none",)}
+    end = None
+    for s, e, lt in items:
+        row = split[innermost(lt)]
+        row["busy_s"] += (e - s) / 1e9
+        row["launches"] += 1
+        if end is not None and s > end:
+            row["idle_s"] += (s - end) / 1e9
+        end = e if end is None else max(end, e)
+    return split, [r for r in ranges if r[2] == "engine.insert"], timed
+
+
+def test_full_width_insertion_split_by_program_range(cuda):
+    """starcoder2-3b at full width (30 layers, the benchmark's MCA) and
+    one 2,048-token insertion under the profiler: the registry's
+    ``insert`` span, put on the profiler's clock by ``obs.profiler_ns``,
+    lies within 1 ms of the ``engine.insert`` range at both ends; the
+    ``attn.passes``, ``mca.project`` and ``mca.tier`` ranges hold device
+    launches; prints the insertion's device time, launches and idle
+    time by innermost range (``-s``)."""
+    import json
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs, serve
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import MCAConfig
+    from repro_torch.models import build_model
+    mca = MCAConfig(enabled=True, alpha=0.2, block=128, n_tiers=4,
+                    capacity_fracs=(1.0, 0.5, 0.375, 0.25),
+                    sites=("v_proj", "o_proj"), use_kernel=True)
+    cfg = get_config("starcoder2-3b", mca=mca, dtype="bfloat16")
+    model = build_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    eng = serve.Engine(model, params, batch_size=2, max_len=2080,
+                       mca_enabled=True, seed=0)
+    prompt = np.random.default_rng(0).integers(
+        1, cfg.vocab_size, 2048).astype(np.int32)
+    state = eng.init_slot_state()
+    state, _, _ = eng.prefill_into(prompt, state, 0, 16)     # warm-up
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for _ in range(3):      # a short trace now and then has no device item
+        with obs.tracing(), obs.scoped() as reg:
+            with profile(activities=acts) as prof:
+                state, _, s_pad = eng.prefill_into(prompt, state, 1, 16)
+                torch.cuda.synchronize()
+            spans = [s for s in reg.spans() if s["name"] == "insert"]
+            counters = reg.snapshot(include_device=False)["counters"]
+        split, inserts, timed = _split_by_range(
+            prof.profiler.kineto_results.events())
+        if sum(v["launches"] for v in split.values()):
+            break
+    assert s_pad == 2048 and len(spans) == 1 and len(inserts) == 1
+    t0 = obs.profiler_ns(spans[0]["ts"])
+    t1 = obs.profiler_ns(spans[0]["ts"] + spans[0]["dur"])
+    lo, hi, _ = inserts[0]
+    assert abs(t0 - lo) < 1e6 and abs(t1 - hi) < 1e6, (t0 - lo, t1 - hi)
+    layers, tiers = cfg.n_layers, len(mca.capacity_fracs)
+    assert counters["timed.attn.passes.calls"] == 2 * layers
+    assert counters["timed.mca.project.calls"] == 2 * layers
+    assert counters["timed.mca.tier.calls"] == 2 * layers * tiers
+    assert sum(1 for r in timed if r[2] == "mca.tier") == 2 * layers * tiers
+    for name in TIMED:
+        assert split[name]["launches"] > 0, (name, split)
+    print(json.dumps({
+        "card": torch.cuda.get_device_name(), "layers": layers,
+        "s_pad": s_pad, "insert_s": spans[0]["dur"],
+        "span_vs_range_us": [(t0 - lo) / 1e3, (t1 - hi) / 1e3],
+        "host_s": {k: v for k, v in counters.items()
+                   if k.startswith("timed.")},
+        "by_innermost_range": split}))
+
+
 # -------------------------------------------------------------- telemetry
 TEL_MCA_CASES = [
     # (m, d, f, R, dtype, block_m): kernel-fit shapes, a 2-row-tile one, a

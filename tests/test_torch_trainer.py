@@ -504,7 +504,12 @@ def test_lm_trainer_metrics_sink_and_spans(tmp_path):
     assert sum(c[f"train.tier_occupancy.t{i}"] for i in range(4)) == 2 * 32
     assert snap["gauges"]["train.flops_reduction"] > 1.0
     assert snap["histograms"]["train.step_seconds"]["count"] == 2
-    assert [s["name"] for s in spans] == ["train.step"] * 2
+    assert [s["name"] for s in spans if s["cat"] == "train"] == \
+        ["train.step"] * 2
+    # beside them, the model step's obs.timed boundaries record spans
+    model = {s["name"] for s in spans if s["cat"] != "train"}
+    assert model == {"attn.passes", "mca.project", "mca.tier"}
+    assert all(s["cat"] == "model" for s in spans if s["name"] in model)
     recs = obs.read_jsonl(str(tmp_path / "m.jsonl"))
     assert [r["kind"] for r in recs] == ["train_step"] * 2 + ["snapshot"]
     assert recs[0]["flops_reduction"] == out["history"][0]["flops_reduction"]
