@@ -47,6 +47,15 @@ Phases, each of which must pass:
              sampled blocks, rows or score tiles), also at m = 200 (the
              reference's fallback counts R) and ``ATTN_TIMED`` in 64 x 64
              tiles.
+3b. passes — MCA prefill's three scoring passes through their wrappers
+             (``ops.attn_lse``, ``attn_colmax_pass``, ``attn_av``) at
+             starcoder2-3b's prefill shapes (1 x 24/2 x S x 128 causal, S
+             2,048 and 4,096, without left padding and with S / 2 - 1
+             padding keys) against the chunked passes: m and lse within
+             1e-5 of max(|value|, 1), colmax 1e-4 relative, out 1e-2 of
+             max|out|, rows that see no key -1e30 and 0; then timed as
+             phase 7 times a kernel (the chunked pass as the plain
+             version).
 4. parity  — a reduced starcoder2-3b (f32, 2 layers) served on the card
              gives the same tokens as on the CPU (and again in a second
              card run), hidden states and logits within 1e-4.
@@ -54,9 +63,11 @@ Phases, each of which must pass:
              random weights from a seed) with MCA on
              (alpha=0.2, block=128, use_kernel=True) through both batchers;
              kernel launch counts are reset just before each batcher runs
-             and read just after (flash, colmax and the ragged matmul are
-             not on this path: their counts print as 0); ``kv_slot_update``
-             must launch exactly once per layer per decode step.
+             and read just after (flash and the ragged matmul are not on
+             this path: their counts print as 0); ``kv_slot_update`` must
+             launch exactly once per layer per decode step, and each of
+             the three scoring-pass kernels (colmax among them) once per
+             layer per prefill, with no chunked pass.
 5b. entry  — this slice's path, ``repro_torch.kernels`` at full width on
              layer 0 of that model (4 prompts of 512 tokens): q, k, v from
              the port's own layer code; ``flash_attention`` -> (out, lse)
@@ -434,6 +445,7 @@ SERVE_MR = [(6, 4), (8, 2), (12, 4), (16, 1), (16, 2), (24, 4), (32, 1),
             (32, 2), (48, 4), (64, 1), (64, 2), (96, 4), (128, 1), (128, 2),
             (256, 1)]
 MCA_KERNEL = "mca_"               # in the name of the bf16 matmul kernel
+FLASH_KERNEL = "rows_bf16_kernel"  # the bf16 row-owner kernel (flash mode)
 COLD_COPIES = 24                  # 24 x 3.1 MB of sampled w > the 50 MB L2
 # (m, d, f, r_tile, R_max): 128-row tiles of a 512-token bucket
 RAGGED_CASES = [(512, 3072, 3072, (4, 2, 1, 0), 4),      # o_proj
@@ -456,6 +468,20 @@ TEL_CHECKED = []                  # (what, [launches, count]) of phase 3
 MCA_HELD = set()                  # (m, d, f, R) phase 3 held: bf16, block 128
 SERVE_KERNELS = ("mca_matmul_fixed", "kv_slot_update")
 ENTRY_KERNELS = ("flash_attention", "attn_colmax", "mca_matmul_ragged")
+#: MCA prefill's scoring passes on the serve path (bf16 GQA, no window);
+#: attn_colmax's launcher serves both paths
+PASS_KERNELS = ("attn_lse", "attn_colmax", "attn_av")
+#: what only the entry-point path launches
+ENTRY_ONLY = ("flash_attention", "mca_matmul_ragged")
+#: the passes' wrappers (ops), named in the kernels line, and the launcher
+#: each counts under
+PASS_WRAPPERS = {"attn_lse": "attn_lse", "attn_colmax_pass": "attn_colmax",
+                 "attn_av": "attn_av"}
+
+
+def _passes_together(launches) -> bool:
+    """The three scoring-pass kernels launch together, or none does."""
+    return len({launches[k] for k in PASS_KERNELS}) == 1
 KV_SHAPE = (4, 512, 256)          # one layer's K (or V) cache, flattened
 KV_STACK = (30, 4, 512, 2, 128)   # layer-stacked cache of the serve path
 OLMOE_KV_TAIL = (16, 128)         # olmoe-1b-7b: a K or V row of 4 KB
@@ -995,6 +1021,127 @@ def _check_attention_telemetry(shape, q, k, v, out, lse, cm, scale, causal,
               attn_colmax(q, k, lse, telemetry=True, **kw), want)
 
 
+# ------------------------------------------------------------ phase 3b
+#: MCA prefill's scoring passes at starcoder2-3b's prefill shapes, 1 x
+#: 24/2 x S x 128 causal: (S, left padding), without padding and with a
+#: bucket's most (a prompt of S / 2 + 1 tokens)
+PASS_CASES = [(2048, 0), (2048, 1023), (4096, 0), (4096, 2047)]
+PASS_TIMED = (4096, 0)
+
+
+def _pass_work(name, s, pad):
+    """(bytes, FLOPs) a scoring pass needs at (S, pad): the causal part of
+    QK^T (and of P V) over the valid keys, each input byte read and each
+    output byte written once."""
+    n = s - pad
+    qk = 2 * 24 * n * (n + 1) // 2 * 128
+    q_b, kv_b, rows = s * 24 * 128 * 2, s * 2 * 128 * 2, 24 * s * 4
+    if name == "attn_lse":
+        return q_b + kv_b + s + 2 * rows, qk
+    if name == "attn_colmax_pass":
+        return q_b + kv_b + 2 * s + rows + 4 * s, qk
+    return 2 * q_b + 2 * kv_b + s + rows, 2 * qk
+
+
+def phase_passes():
+    """Phase 3b: the three scoring-pass wrappers on the card
+    (``ops.attn_lse``, ``attn_colmax_pass``, ``attn_av``) at
+    ``PASS_CASES``, each against its plain version, the chunked pass of
+    ``models.attention``, at the card test's tolerances (m and lse 1e-5 of
+    max(|value|, 1); colmax 1e-4 relative plus 1e-7; out 1e-2 of max
+    |out|; rows that see no key exactly m = lse = -1e30, out 0, and
+    padding columns 0), then timed at each: per call (CUDA events), device
+    (profiler, every item a call launches), host to issue, the chunked
+    pass per call, the bound.  Returns (max errors, numbers at
+    ``PASS_TIMED`` with every shape's under ``shapes``)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention
+    errs = {"attn_lse": 0.0, "attn_colmax_pass": 0.0, "attn_av": 0.0}
+    nums = {n: {"shapes": []} for n in errs}
+    for s, pad in PASS_CASES:
+        g = torch.Generator(device="cuda").manual_seed(s + pad)
+        q, k, v = (torch.randn(shape, generator=g, device="cuda").bfloat16()
+                   for shape in ((1, s, 2, 12, 128), (1, s, 2, 128),
+                                 (1, s, 2, 128)))
+        kv_valid = torch.arange(s, device="cuda")[None] >= pad
+        kw = dict(scale=128 ** -0.5, causal=True, window=0,
+                  chunk=attention.pick_chunk(s, 512), q_offset=0,
+                  kv_valid=kv_valid)
+        ops.reset_launch_counts()
+        m, lse = ops.attn_lse(q, k, **kw)
+        cm = ops.attn_colmax_pass(q, k, lse, q_valid=kv_valid, **kw)
+        out = ops.attn_av(q, k, v, lse, **kw)
+        torch.cuda.synchronize()
+        launched = {n: c for n, c in ops.launch_counts().items() if c}
+        if launched != {"attn_lse": 1, "attn_colmax": 1, "attn_av": 1}:
+            raise AssertionError(f"scoring passes S {s} pad {pad}: launches "
+                                 f"{launched}, not one kernel each")
+        want_m, want_lse = attention.chunked_lse(q, k, **kw)
+        want_cm = attention.chunked_colmax(q, k, lse, q_valid=kv_valid, **kw)
+        want_out = attention.chunked_av(q, k, v, lse, **kw)
+        shape = f"[1,24/2,{s},128] causal, {pad} padding keys"
+        for got, want, what in ((m, want_m, "m"), (lse, want_lse, "lse")):
+            tol = 1e-5 * want.abs().clamp(min=1)
+            if not bool(((got - want).abs() <= tol).all()):
+                raise AssertionError(f"attn_lse {what} {shape}: beyond "
+                                     "1e-5 of max(|value|, 1)")
+        errs["attn_lse"] = max(errs["attn_lse"],
+                               float((lse - want_lse).abs().max()))
+        if not bool(((cm - want_cm).abs()
+                     <= 1e-4 * want_cm.abs() + 1e-7).all()):
+            raise AssertionError(f"attn_colmax_pass {shape}: beyond 1e-4 "
+                                 "relative")
+        errs["attn_colmax_pass"] = max(errs["attn_colmax_pass"],
+                                       float((cm - want_cm).abs().max()))
+        errs["attn_av"] = max(errs["attn_av"], _held(
+            f"[passes] attn_av {shape}", out, want_out,
+            1e-2 * float(want_out.float().abs().max())))
+        if pad and not (bool((m[..., :pad] == -1e30).all())
+                        and bool((lse[..., :pad] == -1e30).all())
+                        and not bool(out[:, :pad].any())
+                        and not bool(cm[:, :pad].any())):
+            raise AssertionError(f"scoring passes {shape}: the rows that see "
+                                 "no key, or the padding columns, are not "
+                                 "-1e30 and 0")
+        log(f"[passes] {shape}: m and lse within 1e-5, colmax within 1e-4 "
+            f"relative of the chunked passes; max|err| lse "
+            f"{float((lse - want_lse).abs().max()):.3e}, colmax "
+            f"{float((cm - want_cm).abs().max()):.3e}")
+        calls = {
+            "attn_lse": (lambda: ops.attn_lse(q, k, **kw),
+                         lambda: attention.chunked_lse(q, k, **kw)),
+            "attn_colmax_pass": (
+                lambda: ops.attn_colmax_pass(q, k, lse, q_valid=kv_valid,
+                                             **kw),
+                lambda: attention.chunked_colmax(q, k, lse,
+                                                 q_valid=kv_valid, **kw)),
+            "attn_av": (lambda: ops.attn_av(q, k, v, lse, **kw),
+                        lambda: attention.chunked_av(q, k, v, lse, **kw)),
+        }
+        for name, (kern, plain) in calls.items():
+            ms = cuda_time_ms(kern)
+            dev_us, dev_names = _device_all_us(kern)
+            host = host_us(kern)
+            plain_ms = cuda_time_ms(plain, n=10, warmup=2)
+            bound, by = _bound_ms(*_pass_work(name, s, pad))
+            row = dict(s=s, pad=pad, ms=ms, device_us=dev_us, host_us=host,
+                       plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+            nums[name]["shapes"].append(row)
+            if (s, pad) == PASS_TIMED:
+                nums[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                  bound_by=by, library_ms=None,
+                                  device_us=dev_us, host_us=host)
+            log(f"[passes] {name} {shape}: kernel {ms * 1e3:.2f} us per "
+                f"call (device {_us(dev_us)} over {len(dev_names)} "
+                f"kernels, host {host:.2f} us to issue), chunked pass "
+                f"{plain_ms * 1e3:.2f} us, bound {bound * 1e3:.2f} us "
+                f"({by})")
+        del q, k, v, m, lse, cm, out, want_m, want_lse, want_cm, want_out
+        torch.cuda.empty_cache()
+    return errs, nums
+
+
 # ------------------------------------------------------------- phase 4
 def _card_vs_cpu(arch, tag, n_layers=2, ragged=True):
     """A reduced ``arch`` (f32, ``n_layers`` layers, vocab 128, MCA off,
@@ -1085,6 +1232,24 @@ def _check_path(name, snap, launches, decode_steps, n_layers):
                              f"{decode_steps} decode steps = {want}")
 
 
+def _check_passes(name, snap, launches, n_layers):
+    """MCA prefill's three scoring passes ran as kernels on every prefill
+    of a GQA model: one kernel call and one launch each per layer per
+    prefill, and no chunked pass."""
+    c = snap["counters"]
+    prefills = snap["histograms"]["serve.prefill_seconds"]["count"]
+    want = n_layers * prefills
+    passes = {op: (c.get(f"kernels.{op}.kernel_calls", 0), launches[op])
+              for op in PASS_KERNELS}
+    chunked = c.get("attn.chunked_passes", 0)
+    log(f"[serve] {name}: scoring passes (kernel_calls, launches) {passes} "
+        f"over {prefills} prefills, attn.chunked_passes {chunked}")
+    if chunked or any(v != (want, want) for v in passes.values()):
+        raise AssertionError(f"{name}: scoring passes {passes} != "
+                             f"{n_layers} x {prefills} prefills = {want} "
+                             f"each, or {chunked} chunked passes")
+
+
 def _check_requests(name, reqs, vocab, max_new):
     for r in reqs:
         if r.status != "ok" or len(r.out) != max_new \
@@ -1139,6 +1304,7 @@ def phase_serve():
     hists = snap["histograms"]
     steps = hists["serve.decode_step_seconds"]["count"] * 8
     _check_path("SlotBatcher", snap, launches["slot"], steps, cfg.n_layers)
+    _check_passes("SlotBatcher", snap, launches["slot"], cfg.n_layers)
     c = snap["counters"]
     occ = sum(v for k, v in c.items() if k.startswith("serve.tier_occupancy"))
     want_occ = cfg.n_layers * 2 * c["serve.prefill_tokens"]
@@ -1172,6 +1338,7 @@ def phase_serve():
     _check_requests("ContinuousBatcher", wreqs, cfg.vocab_size, max_new)
     _check_path("ContinuousBatcher", wsnap, launches["wave"], max_new - 1,
                 cfg.n_layers)
+    _check_passes("ContinuousBatcher", wsnap, launches["wave"], cfg.n_layers)
     serve_nums["wave_prefill_s"] = \
         wsnap["histograms"]["serve.prefill_seconds"]["p50"]
     serve_nums["wave_decode_step_p50_s"] = \
@@ -1181,11 +1348,13 @@ def phase_serve():
     total = {k: launches["slot"][k] + launches["wave"][k]
              for k in launches["slot"]}
     log(f"[serve] launches of the kernels off the serve path: "
-        f"{ {k: total[k] for k in ENTRY_KERNELS} }")
+        f"{ {k: total[k] for k in ENTRY_ONLY} }")
     per = {"mca_matmul_fixed": "per prefill: 30 layers x 2 sites x 3 "
                                "sampled tiers = 180",
            "kv_slot_update": "per decode step: 30 layers x 1 layer "
                              "write (K, V, slot_pos) = 30"}
+    per.update({k: "per prefill: 30 layers x 1 = 30 (phase 5's two "
+                   "batchers)" for k in PASS_WRAPPERS})
     return total, per, serve_nums, engine
 
 
@@ -1521,7 +1690,7 @@ def _numbers_attention(out):
     lib_dev_us, lib_names = _device_all_us(sdpa)
     dev_us = _device_us(lambda: flash_attention(q, k, v, scale=scale,
                                                 causal=causal),
-                        "flash_fwd_bf16_kernel")
+                        FLASH_KERNEL)
     host = host_us(lambda: flash_attention(q, k, v, scale=scale,
                                            causal=causal))
     log(f"[numbers] flash_attention {shape} causal: kernel {ms * 1e3:.2f} "
@@ -2514,7 +2683,7 @@ SSM_HYBRID = [("mamba2-2.7b", ()), ("recurrentgemma-9b", ("v_proj", "o_proj"))]
 SSM_HYBRID_GEN = (4, 256, 32)      # generate: prompts, prompt tokens, new
 SSM_HYBRID_WAVE = (4, 128, 16)     # ContinuousBatcher: requests, tokens, new
 WINDOW_RUN = (2, 2560, 2624, 16)   # batch, prompt, max_len, decode steps
-ALL_KERNELS = SERVE_KERNELS + ENTRY_KERNELS
+ALL_KERNELS = SERVE_KERNELS + ENTRY_KERNELS + ("attn_lse", "attn_av")
 
 
 def _check_family_counts(what, cfg, snap, launches, steps, routed):
@@ -2539,7 +2708,8 @@ def _check_family_counts(what, cfg, snap, launches, steps, routed):
           and kv_calls == 2 * n_attn * steps
           and launches["mca_matmul_fixed"] == mca_calls == want_mca
           and not any(fallbacks.values())
-          and all(launches[k] == 0 for k in ENTRY_KERNELS))
+          and all(launches[k] == 0 for k in ENTRY_ONLY)
+          and _passes_together(launches))
     if cfg.mca.enabled:
         ok = ok and want_mca > 0 and red > 1.0
     else:
@@ -3098,7 +3268,8 @@ def _serve_encdec_vlm(arch, s, max_len):
             and launches["mca_matmul_fixed"] == mca_calls
             == enc_want + dec_want > 0
             and not any(fallbacks.values())
-            and all(launches[k] == 0 for k in ENTRY_KERNELS)
+            and all(launches[k] == 0 for k in ENTRY_ONLY)
+            and _passes_together(launches) and launches["attn_lse"] > 0
             and red > 1.0):
         raise AssertionError(f"{arch}: non-finite logits, or kernel launches "
                              "or MCA accounting do not add up")
@@ -3338,7 +3509,7 @@ def _tel_kernel_times():
             x, w, idx, inv_rp, block=128, telemetry=tel)),
         "mca_matmul_ragged": (MCA_KERNEL, lambda tel: mca_matmul_ragged(
             rx, rw, rt, ridx, rinv, block=128, telemetry=tel)),
-        "flash_attention": ("flash_fwd_bf16_kernel", lambda tel:
+        "flash_attention": (FLASH_KERNEL, lambda tel:
                             flash_attention(q, k, v, telemetry=tel, **kw)),
         "attn_colmax": ("colmax_bf16_kernel", lambda tel: attn_colmax(
             q, k, lse, telemetry=tel, **kw)),
@@ -4532,7 +4703,7 @@ def _tp16_serve(rank, mesh, dev, arch):
            "mca_launches": pre["mca_matmul_fixed"], "want_mca": want_mca,
            "kv_launches": dec["kv_slot_update"],
            "want_kv": kv_step * TP16_DECODE,
-           "entry_launches": sum(pre[k] + dec[k] for k in ENTRY_KERNELS),
+           "entry_launches": sum(pre[k] + dec[k] for k in ENTRY_ONLY),
            "fallbacks": {k: v for k, v in counters.items()
                          if k.endswith("fallback_calls") and v},
            "finite": not bool(bad), "cache": _cache_shapes(cache),
@@ -5265,10 +5436,11 @@ def _census_check(ranks, metas):
                   == card["kernel_calls"] and card["fallback_calls"] == 0,
                   "flops": kind != "train" or meta["flops"] == card["flops"]}
             launched = {k: v for k, v in card["launches"].items() if v}
-            if kind == "prefill":
-                ok["launches"] = launched == {
-                    "mca_matmul_fixed": card["kernel_calls"]} \
-                    and card["kernel_calls"] > 0
+            if kind == "prefill":     # MCA's matmuls and scoring passes
+                ok["launches"] = set(launched) == {
+                    "mca_matmul_fixed", "attn_lse", "attn_colmax",
+                    "attn_av"} and sum(launched.values()) == \
+                    card["kernel_calls"]
             if kind == "decode":
                 ok["launches"] = launched.get("kv_slot_update") == SP_LAYERS
             coll = card["collectives"]
@@ -5479,7 +5651,7 @@ def _mesh2d_serve(rank, mesh, dev):
         r = res[part] = {
             "prefill_s": prefill_s, "calls": len(calls),
             "mca_launches": launches["mca_matmul_fixed"],
-            "entry_launches": sum(launches[k] for k in ENTRY_KERNELS),
+            "entry_launches": sum(launches[k] for k in ENTRY_ONLY),
             "fallbacks": {k: v for k, v in counters.items()
                           if k.endswith("fallback_calls") and v},
             "hists": [out[1].tolist() for _, _, out in calls],
@@ -5807,9 +5979,13 @@ def main() -> int:
         f"{torch.version.cuda} | {kind} x {torch.cuda.device_count()}")
     phase_build()
     errs = phase_kernels()
+    pass_errs, pass_nums = phase_passes()
+    errs.update(pass_errs)
     with _MCAShapes() as path_shapes:
         phase_parity()
         launches, per, serve_nums, engine = phase_serve()
+        for wrapper, launcher in PASS_WRAPPERS.items():
+            launches[wrapper] = launches[launcher]
         launches.update(phase_entry(engine))
         devtel_nums = phase_devtel(engine)
         prof_off = phase_profile(engine)
@@ -5876,9 +6052,16 @@ def main() -> int:
                             "src/repro/kernels/flash_attention.py:92"),
         "attn_colmax": ("src/repro_torch/csrc/attn_colmax.cu",
                         "src/repro/kernels/attn_colmax.py:74"),
+        "attn_lse": ("src/repro_torch/csrc/flash_attention.cu",
+                     "src/repro/models/attention.py:59"),
+        "attn_colmax_pass": ("src/repro_torch/csrc/attn_colmax.cu",
+                             "src/repro/models/attention.py:96"),
+        "attn_av": ("src/repro_torch/csrc/flash_attention.cu",
+                    "src/repro/models/attention.py:128"),
     }
     per.update({k: "on the entry-point path (phase 5b), once each"
                 for k in ENTRY_KERNELS})
+    nums.update(pass_nums)
     kernels = []
     for name, (source, replaces) in meta.items():
         kernels.append({"name": name, "route": "cuda", "source": source,

@@ -3,7 +3,12 @@
 //   colmax[b,h,j] = max_i exp(s[i,j] - lse[b,h,i]),   s = q.k * scale,
 //
 // masked to 0 where query i does not see key j (causal diagonal offset by
-// skv - sq), per query head, f32.  The wrapper reduces over heads.
+// `off`: query i sees keys j <= i + off; skv - sq for the entry path, the
+// rows' q_offset for MCA prefill's middle scoring pass), per query head,
+// f32, or reduced over query heads into [B, Skv] (`reduce`).  For that pass
+// (models/attention.py chunked_colmax, plain f32 PyTorch before) a [B, Skv]
+// byte mask zeroes padding key columns and a [B, Sq] one leaves padding
+// query rows out.
 //
 // Replaces: src/repro/kernels/attn_colmax.py::attn_colmax (Pallas TPU
 // kernel; grid (b, h, kv tile, q tile) with the q axis sequential, score
@@ -38,6 +43,15 @@
 //   * wgmma does not specify its summation order, so this S^T and flash's
 //     S may differ in the last bits of a product: within the 1e-3
 //     tolerance of a value in [0, 1].
+//   * Masks (attn_tile.cuh valid_bits): a key tile of padding alone
+//     streams no q tile, a q tile of padding rows alone is skipped by every
+//     warp alike, and the rest is a select per element.  With `reduce`
+//     each key's column max over the block's head is folded into the
+//     zeroed [B, Skv] output by one atomicMax on its bits (every value is
+//     >= 0, so the int order is the float order): no [B, Hq, Skv] buffer
+//     and no amax after it.
+//   * q and k are read through 4-D tensor maps with their own strides (the
+//     pass reads them where the model keeps them, [B, S, H, dh]).
 //   * f32 inputs take the FMA path (attn_f32.cuh; 256 threads keep the
 //     tile in registers and reduce their column maxima through shared
 //     memory at the end).
@@ -69,14 +83,24 @@ template <int DH> struct ColmaxCfg {
   }
 };
 
+struct ColArgs {
+  const float* lse;      // [B, Hq, Sq] f32
+  float* out;            // [B, Hq, Skv] f32, or [B, Skv] zeroed (reduce)
+  const unsigned char* kv_valid;   // [B, Skv] key mask, or null: all valid
+  const unsigned char* q_valid;    // [B, Sq] query mask, or null
+  int hq, hkv, sq, skv;
+  int off;               // query i sees keys j <= i + off (causal)
+  int causal;
+  int reduce;            // max over query heads into out [B, Skv]
+  float scale_log2;
+  int* tel_buf;
+  int tel_bq, tel_bk;
+};
+
 template <int DH>
 __global__ void __launch_bounds__(ColmaxCfg<DH>::THREADS)
 colmax_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
-                   const __grid_constant__ CUtensorMap tm_k,
-                   const float* __restrict__ lse, float* __restrict__ out,
-                   int hq, int hkv, int sq, int skv, float scale_log2,
-                   int causal, int* __restrict__ tel_buf, int tel_bq,
-                   int tel_bk) {
+                   const __grid_constant__ CUtensorMap tm_k, const ColArgs a) {
   using C = ColmaxCfg<DH>;
   constexpr int ST = C::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -88,11 +112,16 @@ colmax_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* empty = full + ST;
 
   const int k0 = blockIdx.z * C::BKEY, h = blockIdx.x, b = blockIdx.y;
-  const int qh = b * hq + h, kh = b * hkv + h / (hq / hkv);
-  const int off = skv - sq;
-  // rows i >= k0 - off are the first to see any key of this tile
-  const int first = causal ? max(0, k0 - off) / C::BQ : 0;
-  const int n_qt = (sq + C::BQ - 1) / C::BQ;
+  const int qh = b * a.hq + h, kh = h / (a.hq / a.hkv);
+  const unsigned char* kvv =
+      a.kv_valid == nullptr ? nullptr : a.kv_valid + (long long)b * a.skv;
+  const unsigned char* qv =
+      a.q_valid == nullptr ? nullptr : a.q_valid + (long long)b * a.sq;
+  // rows i >= k0 - off are the first to see any key of this tile; a tile
+  // of padding keys alone streams no q tile and writes 0
+  const uint64_t kbits = valid_bits(kvv, k0, a.skv);
+  const int first = a.causal ? max(0, k0 - a.off) / C::BQ : 0;
+  const int n_qt = kbits ? (a.sq + C::BQ - 1) / C::BQ : first;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -105,29 +134,35 @@ colmax_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   __syncthreads();
 
+  // Every warp walks the same q tiles: those from `first` that hold a
+  // valid query row; n counts the tiles taken, which the ring follows.
   if (warp == 4) {                          // producer warp
     if (lane == 0) {
       mbar_expect_tx(k_full, C::K_BYTES);
-      tma_tile<DH>(ks, &tm_k, k_full, C::BKEY, k0, kh);
+      tma_tile<DH>(ks, &tm_k, k_full, C::BKEY, k0, kh, b);
     }
-    for (int it = first, n = 0; it < n_qt; ++it, ++n) {
-      const int s = n % ST, q0 = it * C::BQ;
+    for (int it = first, n = 0; it < n_qt; ++it) {
+      const int q0 = it * C::BQ;
+      if (valid_bits(qv, q0, a.sq) == 0) continue;
+      const int s = n % ST;
       if (n >= ST) mbar_wait(&empty[s], ((n / ST) - 1) & 1);
       if (lane == 0) {
         mbar_expect_tx(&full[s], C::Q_BYTES);
-        tma_tile<DH>(qs + s * C::Q_BYTES, &tm_q, &full[s], C::BQ, q0, qh);
+        tma_tile<DH>(qs + s * C::Q_BYTES, &tm_q, &full[s], C::BQ, q0, h, b);
       }
       for (int i = lane; i < C::BQ; i += 32)
         lse_s[s * C::BQ + i] =
-            q0 + i < sq ? lse[(long long)qh * sq + q0 + i] * LOG2E : 0.0f;
+            q0 + i < a.sq ? a.lse[(long long)qh * a.sq + q0 + i] * LOG2E
+                          : 0.0f;
       __syncwarp();
       if (lane == 0) mbar_arrive(&full[s]);
+      ++n;
     }
     // telemetry once every load is issued: off the consumers' path
     if (lane == 0)
-      tel::record(tel_buf, k0 == 0 && h == 0 && b == 0, 1,
-                  tel::attn_tiles_of_keys(k0, k0 + C::BKEY, tel_bq, tel_bk,
-                                          sq, skv, causal));
+      tel::record(a.tel_buf, k0 == 0 && h == 0 && b == 0, 1,
+                  tel::attn_tiles_of_keys(k0, k0 + C::BKEY, a.tel_bq,
+                                          a.tel_bk, a.sq, a.skv, a.causal));
     return;
   }
 
@@ -138,15 +173,19 @@ colmax_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   // the first query each of this thread's two keys is seen by
   int lo[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) lo[r] = causal ? k0 + r0 + 8 * r - off : 0;
+  for (int r = 0; r < 2; ++r) lo[r] = a.causal ? k0 + r0 + 8 * r - a.off : 0;
   float acc[32], cm[2] = {0.0f, 0.0f};
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
 
   mbar_wait(k_full, 0);
-  for (int it = first, n = 0; it < n_qt; ++it, ++n) {
-    const int st = n % ST, q0 = it * C::BQ;
+  for (int it = first, n = 0; it < n_qt; ++it) {
+    const int q0 = it * C::BQ;
+    const uint64_t qbits = valid_bits(qv, q0, a.sq);
+    if (qbits == 0) continue;
+    const int st = n % ST;
     mbar_wait(&full[st], (n / ST) & 1);
+    ++n;
     const uint32_t qb = smem_u32(qs + st * C::Q_BYTES);
     wgmma_fence();
 #pragma unroll
@@ -159,12 +198,13 @@ colmax_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     const float* ls = lse_s + st * C::BQ;
     // no branch per element: query q0 + col counts for key row r when
-    // lo[r] <= q0 + col < sq
+    // lo[r] <= q0 + col and its bit is set in qbits (valid, below sq)
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int r = (i >> 1) & 1, col = (i >> 2) * 8 + c0 + (i & 1);
-      const float e = exp_score(acc[i], scale_log2, ls[col]);
-      cm[r] = fmaxf(cm[r], q0 + col >= lo[r] && q0 + col < sq ? e : 0.0f);
+      const float e = exp_score(acc[i], a.scale_log2, ls[col]);
+      cm[r] = fmaxf(cm[r], q0 + col >= lo[r] && ((qbits >> col) & 1) ? e
+                                                                    : 0.0f);
     }
     warp_arrive(&empty[st]);
   }
@@ -174,7 +214,14 @@ colmax_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     cm[r] = fmaxf(cm[r], __shfl_xor_sync(0xffffffffu, cm[r], 1));
     cm[r] = fmaxf(cm[r], __shfl_xor_sync(0xffffffffu, cm[r], 2));
     const int key = k0 + r0 + 8 * r;
-    if (lane % 4 == 0 && key < skv) out[(long long)qh * skv + key] = cm[r];
+    if (lane % 4 || key >= a.skv) continue;
+    // a padding key's column is 0
+    const float v = (kbits >> (r0 + 8 * r)) & 1 ? cm[r] : 0.0f;
+    if (!a.reduce)
+      a.out[(long long)qh * a.skv + key] = v;
+    else if (v > 0.0f)    // every value is >= 0: ordered as its int bits
+      atomicMax(reinterpret_cast<int*>(a.out) + (long long)b * a.skv + key,
+                __float_as_int(v));
   }
 }
 
@@ -244,31 +291,29 @@ colmax_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// qst, kst: the layouts of q and k.
 template <int DH>
-int colmax_bf16(const void* q, const void* k, const void* lse, void* out,
-                int b, int hq, int hkv, int sq, int skv, float scale,
-                int causal, int* tel_buf, int tel_bq, int tel_bk,
-                cudaStream_t stream) {
+int colmax_bf16(const void* q, const void* k, Layout qst, Layout kst,
+                const ColArgs& a, int b, cudaStream_t stream) {
   using C = ColmaxCfg<DH>;
   // sq == 0: no query sees any key, so colmax is 0; no Q tensor map can be
   // encoded over a dimension of 0
-  if (sq == 0) {
+  if (a.sq == 0) {
     const cudaError_t e = cudaMemsetAsync(
-        out, 0, (size_t)b * hq * skv * sizeof(float), stream);
-    return e != cudaSuccess ? (int)e : tel::mark(tel_buf, 1, stream);
+        a.out, 0, (size_t)b * (a.reduce ? 1 : a.hq) * a.skv * sizeof(float),
+        stream);
+    return e != cudaSuccess ? (int)e : tel::mark(a.tel_buf, 1, stream);
   }
   CUtensorMap tq, tk;
-  int e = make_map<DH>(&tq, q, (long long)b * hq, sq, C::BQ);
-  if (!e) e = make_map<DH>(&tk, k, (long long)b * hkv, skv, C::BKEY);
+  int e = make_map<DH>(&tq, q, b, a.hq, a.sq, qst, C::BQ);
+  if (!e) e = make_map<DH>(&tk, k, b, a.hkv, a.skv, kst, C::BKEY);
   if (!e)
     e = (int)cudaFuncSetAttribute(colmax_bf16_kernel<DH>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)C::smem());
   if (e) return e;
-  const dim3 grid(hq, b, (skv + C::BKEY - 1) / C::BKEY);
-  colmax_bf16_kernel<DH><<<grid, C::THREADS, C::smem(), stream>>>(
-      tq, tk, (const float*)lse, (float*)out, hq, hkv, sq, skv,
-      log2_scale(scale), causal, tel_buf, tel_bq, tel_bk);
+  const dim3 grid(a.hq, b, (a.skv + C::BKEY - 1) / C::BKEY);
+  colmax_bf16_kernel<DH><<<grid, C::THREADS, C::smem(), stream>>>(tq, tk, a);
   return (int)cudaGetLastError();
 }
 
@@ -289,27 +334,43 @@ int colmax_f32(const void* q, const void* k, const void* lse, void* out,
 
 }  // namespace
 
-// q: [B, Hq, Sq, dh], k: [B, Hkv, Skv, dh] (both bf16 or both f32), lse:
-// [B, Hq, Sq] f32, out: [B, Hq, Skv] f32; all contiguous on the device,
-// Hq % Hkv == 0, dh in {32, 64, 128}, Skv >= 1 (Sq may be 0: colmax 0),
-// bf16 pointers 16-byte aligned (the wrapper checks).  tel, tel_bq,
-// tel_bk as for flash_attention_bf16.  Launches on `stream`, allocates
-// nothing, returns a cudaError_t.
+// The bf16 kernel.  q: [B, Hq, Sq, dh] and k: [B, Hkv, Skv, dh] bf16, laid
+// out as `strides` says (a row's, a head's and a batch's element strides of
+// q, then of k; dh contiguous, every stride a multiple of 8, pointers
+// 16-byte aligned); lse: [B, Hq, Sq] f32; out: [B, Hq, Skv] f32, or with
+// `reduce` [B, Skv] f32 zeroed by the caller (the max over query heads,
+// by atomics); all contiguous on the device.  kv_valid ([B, Skv]) and
+// q_valid ([B, Sq]): bytes, nonzero where valid, or NULL; a padding key's
+// column is 0 and a padding query row counts for no column.  Causal: query
+// i sees keys j <= i + off.  Hq % Hkv == 0, dh in {32, 64, 128}, Skv >= 1
+// (Sq may be 0: colmax 0).  tel, tel_bq, tel_bk as for attn_rows_bf16.
+// Launches on `stream`, allocates nothing, returns a cudaError_t.
 extern "C" int attn_colmax_bf16(const void* q, const void* k, const void* lse,
-                                void* out, int b, int hq, int hkv, int sq,
-                                int skv, int dh, float scale, int causal,
-                                void* tel, int tel_bq, int tel_bk,
+                                void* out, const void* kv_valid,
+                                const void* q_valid, const long long* strides,
+                                int b, int hq, int hkv, int sq, int skv,
+                                int dh, int off, float scale, int causal,
+                                int reduce, void* tel, int tel_bq, int tel_bk,
                                 void* stream) {
+  const Layout qst = {strides[0], strides[1], strides[2]};
+  const Layout kst = {strides[3], strides[4], strides[5]};
+  const ColArgs a = {(const float*)lse, (float*)out,
+                     (const unsigned char*)kv_valid,
+                     (const unsigned char*)q_valid, hq, hkv, sq, skv, off,
+                     causal, reduce, log2_scale(scale), (int*)tel, tel_bq,
+                     tel_bk};
   cudaStream_t st = (cudaStream_t)stream;
-  int* tb = (int*)tel;
   switch (dh) {
-    case 32: return colmax_bf16<32>(q, k, lse, out, b, hq, hkv, sq, skv, scale, causal, tb, tel_bq, tel_bk, st);
-    case 64: return colmax_bf16<64>(q, k, lse, out, b, hq, hkv, sq, skv, scale, causal, tb, tel_bq, tel_bk, st);
-    case 128: return colmax_bf16<128>(q, k, lse, out, b, hq, hkv, sq, skv, scale, causal, tb, tel_bq, tel_bk, st);
+    case 32: return colmax_bf16<32>(q, k, qst, kst, a, b, st);
+    case 64: return colmax_bf16<64>(q, k, qst, kst, a, b, st);
+    case 128: return colmax_bf16<128>(q, k, qst, kst, a, b, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
+// The f32 kernel: q: [B, Hq, Sq, dh], k: [B, Hkv, Skv, dh], lse: [B, Hq,
+// Sq], out: [B, Hq, Skv]; all contiguous f32 on the device, causal with the
+// diagonal offset skv - sq, no masks, per head; otherwise as above.
 extern "C" int attn_colmax_f32(const void* q, const void* k, const void* lse,
                                void* out, int b, int hq, int hkv, int sq,
                                int skv, int dh, float scale, int causal,

@@ -10,10 +10,11 @@
 //
 // (one f32 multiply by the constant log2_scale(scale), one subtraction,
 // exp2f): flash with shift = the row's running max m2 (log2 units), in two
-// steps since its row max needs the scaled score first; colmax with shift
-// = lse * log2 e, lse = (m2 + log2 l) * ln 2 being what flash wrote.
-// So colmax's exp(s - lse) is taken on the score whose logsumexp flash
-// wrote, scaled by the same f32 constant.  __fmul_rn keeps the compiler
+// steps since its row max needs the scaled score first (the lse pass
+// likewise); colmax and the A V pass with shift = lse * log2 e, lse =
+// (m2 + log2 l) * ln 2 being what flash or the lse pass wrote.  So their
+// exp(s - lse) is taken on the score whose logsumexp was written, scaled by
+// the same f32 constant.  __fmul_rn keeps the compiler
 // from fusing the multiply into a neighbouring add in one kernel and not
 // the other.  wgmma does not specify its summation order, so flash's S and
 // colmax's S^T may differ in the last bits of acc: within the 1e-3
@@ -22,8 +23,14 @@
 // Tiles in shared memory.  A [rows, DH] bf16 tile arrives by TMA as DH/PC
 // panels of PC = min(DH, 64) columns, each panel `rows` rows of 2 PC bytes,
 // swizzled 128 bytes (DH 64, 128) or 64 bytes (DH 32) as the wgmma
-// descriptors name it.  A 3-D tensor map over [B*H, S, DH] zero-fills rows
-// past S inside one head.
+// descriptors name it.  A 4-D tensor map over an operand [B, H, S, DH],
+// addressed with its own element strides (Layout: DH contiguous, the rest
+// in any order, as a head-major or a sequence-major tensor lies),
+// zero-fills rows past S inside one head.
+//
+// Masks.  A key (or query) row may be marked invalid by a [B, S] byte
+// array (left padding); valid_bits gives a warp the bits of a 64-row tile,
+// so every warp of a block skips the same tiles without talking.
 #pragma once
 
 #include "hopper.cuh"
@@ -82,28 +89,58 @@ __device__ __forceinline__ uint64_t desc_nmajor(uint32_t base, int rows,
                    T::LAYOUT);
 }
 
-// All DH/PC panels of `rows` rows starting at row `row` of head `head`.
+// All DH/PC panels of `rows` rows starting at row `row` of head `head` of
+// batch `b`.
 template <int DH>
 __device__ __forceinline__ void tma_tile(unsigned char* dst,
                                          const CUtensorMap* map, uint64_t* bar,
-                                         int rows, int row, int head) {
+                                         int rows, int row, int head, int b) {
   using T = Tile<DH>;
 #pragma unroll
   for (int p = 0; p < T::NP; ++p)
-    tma_load_3d(dst + p * rows * T::ROW, map, bar, p * T::PC, row, head);
+    tma_load_4d(dst + p * rows * T::ROW, map, bar, p * T::PC, row, head, b);
+}
+
+// Bit i: row r0 + i of a 64-row tile lies below n and is valid (`valid`, a
+// row of a [B, S] byte mask, or null: every row is).  Warp-collective: every
+// lane of the warp calls it, and every lane gets the same bits.
+__device__ __forceinline__ uint64_t valid_bits(const unsigned char* valid,
+                                               int r0, int n) {
+  const int lo = r0 + threadIdx.x % 32, hi = lo + 32;
+  const bool a = lo < n && (valid == nullptr || valid[lo]);
+  const bool b = hi < n && (valid == nullptr || valid[hi]);
+  return (uint64_t)__ballot_sync(0xffffffffu, a) |
+         (uint64_t)__ballot_sync(0xffffffffu, b) << 32;
 }
 
 // ----------------------------------------------------------------- host
 // The f32 constant both kernels scale the product by (score_log2).
 inline float log2_scale(float scale) { return scale * LOG2E; }
 
-// Tensor map over a contiguous bf16 [heads, rows, DH] array, boxes of PC
-// columns x `box_rows` rows x 1 head, swizzled as Tile<DH> says; rows past
-// `rows` read as zeros.  Returns a cudaError_t.
+// Where an operand [B, H, S, DH] lies: the element strides of a row, a head
+// and a batch (DH contiguous).
+struct Layout {
+  long long row, head, batch;
+};
+
+// The layout of a contiguous [B, H, S, DH] array.
 template <int DH>
-int make_map(CUtensorMap* map, const void* ptr, long long heads,
-             long long rows, int box_rows) {
-  return make_map_bf16(map, ptr, heads, rows, DH, Tile<DH>::PC, box_rows);
+inline Layout head_major(int heads, int rows) {
+  return {DH, (long long)rows * DH, (long long)heads * rows * DH};
+}
+
+// Tensor map over a bf16 operand [batch, heads, rows, DH] laid out as `st`
+// says, boxes of PC columns x `box_rows` rows x 1 head x 1 batch, swizzled
+// as Tile<DH> says; rows past `rows` read as zeros.  Returns a cudaError_t.
+template <int DH>
+int make_map(CUtensorMap* map, const void* ptr, long long batch,
+             long long heads, long long rows, Layout st, int box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)DH, (cuuint64_t)rows,
+                              (cuuint64_t)heads, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.row * 2,
+                                 (cuuint64_t)st.head * 2,
+                                 (cuuint64_t)st.batch * 2};
+  return encode_bf16(map, ptr, 4, dims, strides, Tile<DH>::PC, box_rows);
 }
 
 }  // namespace attn

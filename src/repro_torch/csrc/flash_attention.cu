@@ -4,8 +4,19 @@
 //   out[b,h,i] = sum_j softmax_j(s[i,j]) v[b,h//G,j],   s = q.k * scale
 //   lse[b,h,i] = log sum_j exp(s[i,j])                 (f32)
 //
+// and, from the same row-owner kernel in two more modes, the first and last
+// of MCA prefill's three scoring passes (models/attention.py gqa_attention;
+// the middle one is attn_colmax.cu):
+//
+//   LSE: m[b,h,i] = max_j s[i,j], lse[b,h,i]    (the online max and sum, no V)
+//   AV:  out[b,h,i] = sum_j bf16(exp(s[i,j] - lse[b,h,i])) v[b,h//G,j]
+//        (lse given, no rescale, no normalisation; f32 sums)
+//
 // GQA maps query head h to KV head h // (Hq/Hkv) and never repeats KV.  The
-// causal diagonal is offset by skv - sq: query i sees keys j <= i + skv - sq.
+// causal diagonal is offset by `off`: query i sees keys j <= i + off (flash:
+// off = skv - sq; the passes: the rows' q_offset).  A key may also be masked
+// by a [B, Skv] byte array (left padding); a row that sees no key writes
+// out = 0 and m = lse = -1e30.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention (Pallas
 // TPU kernel; grid (b, h, q tile, kv tile) with the kv axis sequential,
@@ -25,8 +36,8 @@
 //     dh 128).  128-row blocks of two consumer warpgroups were timed too
 //     and were slower (PERF.md).
 //   * The producer warp loads the Q tile once and streams K and V tiles of
-//     64 keys by TMA (3-D tensor maps over [B*H, S, dh], rows past S zero
-//     inside one head) into two rings of two stages, K and V apart, one
+//     64 keys by TMA (attn_tile.cuh's tensor maps, rows past S zero inside
+//     one head) into two rings of two stages, K and V apart, one
 //     mbarrier pair per stage (full: bytes landed; empty: one arrival per
 //     consumer warp).  K is released as soon as S is done, so the next K
 //     loads during the softmax and P V.  The loop stops at the last tile
@@ -58,6 +69,22 @@
 //     4 rows x 4 keys of S and 4 rows x dh/16 columns of O in registers).
 //   * dh in {32, 64, 128}; 128-byte swizzle in 64-column panels (dh 64,
 //     128), 64-byte swizzle for dh 32's 64-byte rows.
+//   * Operands are read through 4-D tensor maps with their own strides, so
+//     the passes read q, k and v where the model keeps them ([B, S, H, dh])
+//     and write A V's out in the layout the output projection reads.
+//   * The passes replace chunked f32 PyTorch (models/attention.py
+//     chunked_lse, chunked_av; no TPU kernel: the reference runs them as
+//     jnp).  What bounds them on an H100 at starcoder2-3b's 4,096-token
+//     prefill (1 x 24/2 x 4,096 x 128, causal): operations, about 52 GFLOP
+//     of QK^T a pass (53 us at 989 TFLOP/s) against about 29 MB of q, k
+//     and v (8.8 us at 3.35 TB/s).  So they run S and P V on wgmma from bf16
+//     operands with f32 sums, as the chunked passes compute them in f32
+//     from the same bf16 values, and skip what needs no work: every warp
+//     computes a key tile's mask bits (attn_tile.cuh valid_bits) and all of
+//     them pass over a tile of padding alone, as over tiles past the
+//     diagonal.  The AV mode exponentiates against the final lse, so it
+//     has no running max; P is rounded to bf16 before P V, as the chunked
+//     pass rounds A to V's dtype.
 // Tried and not kept, as neither ran faster at the phase-7 shape (PERF.md):
 // issuing the next tile's S before this tile's softmax, so that it
 // overlaps P V (FlashAttention-3's intra-warpgroup pipelining), and a
@@ -91,26 +118,54 @@ template <int DH> struct FlashCfg {
   }
 };
 
+// What a row-owner launch computes.
+enum Mode {
+  FLASH = 0,   // out = softmax(S) V and lse (online max and sum)
+  LSE = 1,     // m and lse alone: the online max and sum, no V
+  AV = 2,      // out = A V, A = exp(S - lse) from a given lse, unnormalised
+};
+
+struct RowArgs {
+  __nv_bfloat16* out;    // FLASH, AV: [B, Hq, Sq, DH] laid out as out_st
+  Layout out_st;
+  float* m;              // LSE: [B, Hq, Sq] f32, the row max (natural units)
+  float* lse;            // [B, Hq, Sq] f32: written by FLASH and LSE, read by AV
+  const unsigned char* kv_valid;   // [B, Skv] key mask, or null: all valid
+  int hq, hkv, sq, skv;
+  int off;               // query i sees keys j <= i + off (causal)
+  int causal;
+  float scale_log2;
+  int* tel_buf;          // FLASH only (null: off)
+  int tel_bq, tel_bk;
+};
+
+// Whether element i of this thread's 64 x 64 score tile (row (i >> 1) & 1,
+// key k0 + 8 (i >> 2) + c0 + (i & 1)) is hidden: its key's bit is clear in
+// `bits` (padding, or past skv) or lies past its row's last visible key lim.
+__device__ __forceinline__ bool hidden(int i, uint64_t bits,
+                                       const int (&lim)[2], int k0, int c0) {
+  const int col = (i >> 2) * 8 + c0 + (i & 1);
+  return !((bits >> col) & 1) || k0 + col > lim[(i >> 1) & 1];
+}
+
 // One online-softmax step on a 64 x 64 score tile in registers (this
-// thread: rows r and r + 8 of its accumulator, keys k0 + 8 j + c0 (+1)):
-// scales it to log2 units, sets keys past each row's last visible key
-// lim[r] to -inf on a tile that crosses an edge (so exp2 gives p = 0
-// exactly), updates m and the thread's partial l, returns each row's
+// thread: rows r and r + 8 of its accumulator): scales it to log2 units,
+// sets hidden elements to -inf on a tile that crosses an edge (so exp2 gives
+// p = 0 exactly), updates m and the thread's partial l, returns each row's
 // correction for O in corr and leaves P (f32) in s.  No branch depends on
 // an element.
 __device__ __forceinline__ void softmax_step(float (&s)[32], float (&m)[2],
                                              float (&l)[2], float (&corr)[2],
+                                             bool edge, uint64_t bits,
                                              const int (&lim)[2], int k0,
-                                             int c0, bool edge,
-                                             float scale_log2) {
+                                             int c0, float scale_log2) {
   float mx[2] = {-INFINITY, -INFINITY}, m_use[2];
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = score_log2(s[i], scale_log2);
   if (edge) {
 #pragma unroll
     for (int i = 0; i < 32; ++i)
-      if (k0 + (i >> 2) * 8 + c0 + (i & 1) > lim[(i >> 1) & 1])
-        s[i] = -INFINITY;
+      if (hidden(i, bits, lim, k0, c0)) s[i] = -INFINITY;
   }
 #pragma unroll
   for (int i = 0; i < 32; ++i)
@@ -143,17 +198,14 @@ __device__ __forceinline__ void pack_p(const float (&s)[32],
       pa[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
 }
 
-template <int DH>
+template <int DH, int MODE>
 __global__ void __launch_bounds__(FlashCfg<DH>::THREADS, 2)
-flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
-                      const __grid_constant__ CUtensorMap tm_k,
-                      const __grid_constant__ CUtensorMap tm_v,
-                      __nv_bfloat16* __restrict__ out,
-                      float* __restrict__ lse, int hq, int hkv, int sq,
-                      int skv, float scale_log2, int causal,
-                      int* __restrict__ tel_buf, int tel_bq, int tel_bk) {
+rows_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const RowArgs a) {
   using C = FlashCfg<DH>;
-  constexpr int ST = C::STAGES, NO = DH / 2;
+  constexpr int ST = C::STAGES, NO = MODE == LSE ? 1 : DH / 2;
+  constexpr bool HAS_V = MODE != LSE;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = align_1024(smem_raw);
   unsigned char* ks = qs + C::Q_BYTES;      // K ring, then V ring
@@ -165,13 +217,13 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* v_empty = v_full + ST;
 
   const int q0 = (gridDim.z - 1 - blockIdx.z) * C::BQ;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int qh = b * hq + h, kh = b * hkv + h / (hq / hkv);
-  const int off = skv - sq;
-  const int q_valid = min(C::BQ, sq - q0);
+  const int h = blockIdx.x, b = blockIdx.y, kh = h / (a.hq / a.hkv);
+  const int q_valid = min(C::BQ, a.sq - q0);
   // the block's last real row, q0 + q_valid - 1, sees keys up to it + off
-  const int kv_end = causal ? min(skv, q0 + q_valid + off) : skv;
+  const int kv_end = a.causal ? min(a.skv, q0 + q_valid + a.off) : a.skv;
   const int n_kt = kv_end > 0 ? (kv_end + C::BKV - 1) / C::BKV : 0;
+  const unsigned char* kvv =
+      a.kv_valid == nullptr ? nullptr : a.kv_valid + (long long)b * a.skv;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -186,25 +238,38 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   __syncthreads();
 
+  // Every warp walks the same key tiles: those up to the causal end that
+  // hold a valid key (a tile of padding alone is skipped by all of them);
+  // n counts the tiles taken, which the rings follow.
   if (warp == 4) {                          // producer warp
     if (lane == 0) {
       mbar_expect_tx(q_full, C::Q_BYTES);
-      tma_tile<DH>(qs, &tm_q, q_full, C::BQ, q0, qh);
-      for (int jt = 0; jt < n_kt; ++jt) {
-        const int s = jt % ST, k0 = jt * C::BKV;
-        if (jt >= ST) mbar_wait(&k_empty[s], ((jt / ST) - 1) & 1);
-        mbar_expect_tx(&k_full[s], C::KV_BYTES);
-        tma_tile<DH>(ks + s * C::KV_BYTES, &tm_k, &k_full[s], C::BKV, k0, kh);
-        if (jt >= ST) mbar_wait(&v_empty[s], ((jt / ST) - 1) & 1);
-        mbar_expect_tx(&v_full[s], C::KV_BYTES);
-        tma_tile<DH>(vs + s * C::KV_BYTES, &tm_v, &v_full[s], C::BKV, k0, kh);
-      }
-      // telemetry once every load is issued: off the consumers' path
-      tel::record(tel_buf, blockIdx.x == 0 && blockIdx.y == 0 &&
-                               blockIdx.z == 0, 1,
-                  tel::attn_tiles_of_rows(q0, q0 + C::BQ, tel_bq, tel_bk, sq,
-                                          skv, causal));
+      tma_tile<DH>(qs, &tm_q, q_full, C::BQ, q0, h, b);
     }
+    for (int jt = 0, n = 0; jt < n_kt; ++jt) {
+      const int k0 = jt * C::BKV;
+      if (valid_bits(kvv, k0, a.skv) == 0) continue;
+      if (lane == 0) {
+        const int s = n % ST;
+        if (n >= ST) mbar_wait(&k_empty[s], ((n / ST) - 1) & 1);
+        mbar_expect_tx(&k_full[s], C::KV_BYTES);
+        tma_tile<DH>(ks + s * C::KV_BYTES, &tm_k, &k_full[s], C::BKV, k0, kh,
+                     b);
+        if constexpr (HAS_V) {
+          if (n >= ST) mbar_wait(&v_empty[s], ((n / ST) - 1) & 1);
+          mbar_expect_tx(&v_full[s], C::KV_BYTES);
+          tma_tile<DH>(vs + s * C::KV_BYTES, &tm_v, &v_full[s], C::BKV, k0,
+                       kh, b);
+        }
+      }
+      ++n;
+    }
+    // telemetry once every load is issued: off the consumers' path
+    if (lane == 0)
+      tel::record(a.tel_buf, blockIdx.x == 0 && blockIdx.y == 0 &&
+                                 blockIdx.z == 0, 1,
+                  tel::attn_tiles_of_rows(q0, q0 + C::BQ, a.tel_bq, a.tel_bk,
+                                          a.sq, a.skv, a.causal));
     return;
   }
 
@@ -213,23 +278,34 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int r0 = 16 * warp + lane / 4, c0 = 2 * (lane % 4);
   const uint32_t q_base = smem_u32(qs);
   float o[NO], s[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
-  float corr[2];
+  float corr[2], shift[2];
   uint32_t pa[4][4];
 #pragma unroll
   for (int i = 0; i < NO; ++i) o[i] = 0.0f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = 0.0f;
 
-  // the last key each of this thread's two rows sees
+  // the last key each of this thread's two rows sees (keys past skv are
+  // cleared from the tile's bits), and for AV its lse in log2 units
   int lim[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r)
-    lim[r] = causal ? min(skv - 1, q0 + r0 + 8 * r + off) : skv - 1;
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + 8 * r;
+    lim[r] = a.causal ? row + a.off : a.skv;
+    shift[r] = MODE == AV && row < a.sq
+                   ? a.lse[((long long)b * a.hq + h) * a.sq + row] * LOG2E
+                   : 0.0f;
+  }
 
   mbar_wait(q_full, 0);
-  for (int jt = 0; jt < n_kt; ++jt) {
-    const int st = jt % ST, k0 = jt * C::BKV;
-    mbar_wait(&k_full[st], (jt / ST) & 1);
+  for (int jt = 0, n = 0; jt < n_kt; ++jt) {
+    const int k0 = jt * C::BKV;
+    const uint64_t bits = valid_bits(kvv, k0, a.skv);
+    if (bits == 0) continue;
+    const int st = n % ST;
+    const uint32_t phase = (n / ST) & 1;
+    ++n;
+    mbar_wait(&k_full[st], phase);
     const uint32_t kb = smem_u32(ks + st * C::KV_BYTES);
     wgmma_fence();                          // S = Q K^T
 #pragma unroll
@@ -240,22 +316,36 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_wait_all();
     reg_fence(s);
     warp_arrive(&k_empty[st]);              // the next K loads meanwhile
-    softmax_step(s, m, l, corr, lim, k0, c0,
-                 k0 + C::BKV > skv || (causal && k0 + C::BKV - 1 > q0 + off),
-                 scale_log2);
+    const bool edge = bits != ~0ull ||
+                      (a.causal && k0 + C::BKV - 1 > q0 + a.off);
+    if constexpr (MODE == AV) {
+      // A = exp(s - lse) from the final lse: no running max, no rescale;
+      // a hidden element is 0 by a select (exp may be inf there)
 #pragma unroll
-    for (int i = 0; i < NO; ++i) o[i] *= corr[(i >> 1) & 1];
-    pack_p(s, pa);
-    mbar_wait(&v_full[st], (jt / ST) & 1);
-    const uint32_t vb = smem_u32(vs + st * C::KV_BYTES);
-    wgmma_fence();                          // O += P V
+      for (int i = 0; i < 32; ++i) {
+        const float p = exp_score(s[i], a.scale_log2, shift[(i >> 1) & 1]);
+        s[i] = edge && hidden(i, bits, lim, k0, c0) ? 0.0f : p;
+      }
+    } else {
+      softmax_step(s, m, l, corr, edge, bits, lim, k0, c0, a.scale_log2);
+    }
+    if constexpr (HAS_V) {
+      if constexpr (MODE == FLASH) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      RsN<DH>::run(o, pa[kk], desc_nmajor<DH>(vb, C::BKV, kk), 1);
-    wgmma_commit();
-    wgmma_wait_all();
-    reg_fence(o);
-    warp_arrive(&v_empty[st]);
+        for (int i = 0; i < NO; ++i) o[i] *= corr[(i >> 1) & 1];
+      }
+      pack_p(s, pa);
+      mbar_wait(&v_full[st], phase);
+      const uint32_t vb = smem_u32(vs + st * C::KV_BYTES);
+      wgmma_fence();                        // O += P V
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        RsN<DH>::run(o, pa[kk], desc_nmajor<DH>(vb, C::BKV, kk), 1);
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(o);
+      warp_arrive(&v_empty[st]);
+    }
   }
 
 #pragma unroll
@@ -263,16 +353,21 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int row = q0 + r0 + 8 * r;
-    if (row >= sq) continue;
-    const float inv = l[r] > 0.0f ? 1.0f / l[r] : 0.0f;
-    __nv_bfloat16* dst = out + ((long long)qh * sq + row) * DH + c0;
+    if (row >= a.sq) continue;
+    const long long at = ((long long)b * a.hq + h) * a.sq + row;
+    if constexpr (HAS_V) {
+      const float inv = MODE == AV ? 1.0f : l[r] > 0.0f ? 1.0f / l[r] : 0.0f;
+      __nv_bfloat16* dst = a.out + b * a.out_st.batch + h * a.out_st.head +
+                           row * a.out_st.row + c0;
 #pragma unroll
-    for (int j = 0; j < DH / 8; ++j)
-      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
-          pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
-    if (lane % 4 == 0)
-      lse[(long long)qh * sq + row] =
-          l[r] > 0.0f ? (m[r] + log2f(l[r])) * LN2 : NEG_INF;
+      for (int j = 0; j < DH / 8; ++j)
+        *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+            pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    }
+    if (MODE == AV || lane % 4) continue;
+    // a row that saw no key: m = lse = -1e30, as the chunked passes give
+    if constexpr (MODE == LSE) a.m[at] = l[r] > 0.0f ? m[r] * LN2 : NEG_INF;
+    a.lse[at] = l[r] > 0.0f ? (m[r] + log2f(l[r])) * LN2 : NEG_INF;
   }
 }
 
@@ -412,29 +507,41 @@ int flash_no_keys(void* out, void* lse, long long rows, int dh,
   return (int)cudaGetLastError();
 }
 
-template <int DH>
-int flash_bf16(const void* q, const void* k, const void* v, void* out,
-               void* lse, int b, int hq, int hkv, int sq, int skv,
-               float scale, int causal, int* tel_buf, int tel_bq, int tel_bk,
-               cudaStream_t stream) {
+// st: the layouts of q, k, v and out (Layout each, in that order).
+template <int DH, int MODE>
+int rows_bf16(const void* q, const void* k, const void* v, const Layout* st,
+              RowArgs a, int b, cudaStream_t stream) {
   using C = FlashCfg<DH>;
-  if (skv == 0)
-    return flash_no_keys(out, lse, (long long)b * hq * sq, DH, tel_buf,
-                         stream);
+  if (a.skv == 0)
+    return MODE == FLASH ? flash_no_keys(a.out, a.lse,
+                                         (long long)b * a.hq * a.sq, DH,
+                                         a.tel_buf, stream)
+                         : (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
-  int e = make_map<DH>(&tq, q, (long long)b * hq, sq, C::BQ);
-  if (!e) e = make_map<DH>(&tk, k, (long long)b * hkv, skv, C::BKV);
-  if (!e) e = make_map<DH>(&tv, v, (long long)b * hkv, skv, C::BKV);
+  int e = make_map<DH>(&tq, q, b, a.hq, a.sq, st[0], C::BQ);
+  if (!e) e = make_map<DH>(&tk, k, b, a.hkv, a.skv, st[1], C::BKV);
+  if (!e) e = make_map<DH>(&tv, v, b, a.hkv, a.skv, st[2], C::BKV);
   if (!e)
-    e = (int)cudaFuncSetAttribute(flash_fwd_bf16_kernel<DH>,
+    e = (int)cudaFuncSetAttribute(rows_bf16_kernel<DH, MODE>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)C::smem());
   if (e) return e;
-  const dim3 grid(hq, b, (sq + C::BQ - 1) / C::BQ);
-  flash_fwd_bf16_kernel<DH><<<grid, C::THREADS, C::smem(), stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)out, (float*)lse, hq, hkv, sq, skv,
-      log2_scale(scale), causal, tel_buf, tel_bq, tel_bk);
+  const dim3 grid(a.hq, b, (a.sq + C::BQ - 1) / C::BQ);
+  rows_bf16_kernel<DH, MODE><<<grid, C::THREADS, C::smem(), stream>>>(
+      tq, tk, tv, a);
   return (int)cudaGetLastError();
+}
+
+template <int DH>
+int rows_mode(int mode, const void* q, const void* k, const void* v,
+              const Layout* st, const RowArgs& a, int b,
+              cudaStream_t stream) {
+  switch (mode) {
+    case FLASH: return rows_bf16<DH, FLASH>(q, k, v, st, a, b, stream);
+    case LSE: return rows_bf16<DH, LSE>(q, k, v, st, a, b, stream);
+    case AV: return rows_bf16<DH, AV>(q, k, v, st, a, b, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int DH>
@@ -454,29 +561,47 @@ int flash_f32(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// q: [B, Hq, Sq, dh], k/v: [B, Hkv, Skv, dh], out: [B, Hq, Sq, dh] (q's
-// dtype), lse: [B, Hq, Sq] f32; all contiguous on the device, Hq % Hkv == 0,
-// dh in {32, 64, 128}, Sq >= 1 (Skv may be 0: every row then sees no key),
-// bf16 pointers 16-byte aligned (the wrapper checks).  tel: a zeroed
-// [1, 8] int32 telemetry buffer or NULL; (tel_bq, tel_bk): the caller's
-// tile, (0, 0) where the reference falls back.  Launches on `stream`,
-// allocates nothing, returns a cudaError_t.
-extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* out, void* lse,
-                                    int b, int hq, int hkv, int sq, int skv,
-                                    int dh, float scale, int causal,
-                                    void* tel, int tel_bq, int tel_bk,
-                                    void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  int* tb = (int*)tel;
+// The bf16 row-owner kernel in `mode`: 0 flash attention (writes out and
+// lse), 1 the lse pass (writes m and lse), 2 A V from a given lse (reads
+// lse, writes out).  q: [B, Hq, Sq, dh], k, v: [B, Hkv, Skv, dh] and out:
+// [B, Hq, Sq, dh] bf16, laid out as `strides` says (a row's, a head's and a
+// batch's element strides of q, k, v and out, 12 in all; dh contiguous,
+// every stride a multiple of 8, pointers 16-byte aligned); m, lse: [B, Hq,
+// Sq] f32 contiguous; kv_valid: [B, Skv] bytes (nonzero: a valid key) or
+// NULL.  Causal: query i sees keys j <= i + off.  Hq % Hkv == 0, dh in
+// {32, 64, 128}, Sq >= 1; Skv may be 0 for flash only (every row then sees
+// no key).  Pointers a mode does not read or write may be NULL (v for the
+// lse pass: pass k).  tel: a zeroed [1, 8] int32 telemetry buffer or NULL;
+// (tel_bq, tel_bk): the caller's tile, (0, 0) where the reference falls
+// back.  Launches on `stream`, allocates nothing, returns a cudaError_t.
+extern "C" int attn_rows_bf16(const void* q, const void* k, const void* v,
+                              void* out, void* m, void* lse,
+                              const void* kv_valid, const long long* strides,
+                              int b, int hq, int hkv, int sq, int skv, int dh,
+                              int off, float scale, int causal, int mode,
+                              void* tel, int tel_bq, int tel_bk,
+                              void* stream) {
+  const Layout st[4] = {{strides[0], strides[1], strides[2]},
+                        {strides[3], strides[4], strides[5]},
+                        {strides[6], strides[7], strides[8]},
+                        {strides[9], strides[10], strides[11]}};
+  const RowArgs a = {(__nv_bfloat16*)out, st[3], (float*)m, (float*)lse,
+                     (const unsigned char*)kv_valid, hq, hkv, sq, skv, off,
+                     causal, log2_scale(scale), (int*)tel, tel_bq, tel_bk};
+  cudaStream_t s = (cudaStream_t)stream;
   switch (dh) {
-    case 32: return flash_bf16<32>(q, k, v, out, lse, b, hq, hkv, sq, skv, scale, causal, tb, tel_bq, tel_bk, st);
-    case 64: return flash_bf16<64>(q, k, v, out, lse, b, hq, hkv, sq, skv, scale, causal, tb, tel_bq, tel_bk, st);
-    case 128: return flash_bf16<128>(q, k, v, out, lse, b, hq, hkv, sq, skv, scale, causal, tb, tel_bq, tel_bk, st);
+    case 32: return rows_mode<32>(mode, q, k, v, st, a, b, s);
+    case 64: return rows_mode<64>(mode, q, k, v, st, a, b, s);
+    case 128: return rows_mode<128>(mode, q, k, v, st, a, b, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
+// The f32 flash kernel: q: [B, Hq, Sq, dh], k/v: [B, Hkv, Skv, dh], out:
+// [B, Hq, Sq, dh], lse: [B, Hq, Sq]; all contiguous f32 on the device,
+// Hq % Hkv == 0, dh in {32, 64, 128}, Sq >= 1, causal with the diagonal
+// offset skv - sq; tel as above.  Launches on `stream`, returns a
+// cudaError_t.
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* out, void* lse,
                                    int b, int hq, int hkv, int sq, int skv,

@@ -85,6 +85,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The same for a 4-D map, at (c0 column, c1 row, c2 head, c3 batch).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // Fetch a tensor map into the TMA unit's cache ahead of its first use.
 __device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n"
@@ -344,26 +356,37 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Tensor map over a contiguous bf16 [depth, rows, cols] array, boxes of
-// box_cols x box_rows x 1, swizzled to box_cols * 2 bytes (64 or 128);
-// what lies past an edge reads as zeros.  Returns a cudaError_t.
+// Tensor map over a bf16 array of `rank` dimensions (3 or 4), dims[0] the
+// contiguous columns, strides[i] the byte stride of dims[i + 1] (any order,
+// each a multiple of 16), boxes of box_cols x box_rows x 1 (x 1), swizzled
+// to box_cols * 2 bytes (64 or 128); what lies past an edge reads as zeros.
+// Returns a cudaError_t.
+inline int encode_bf16(CUtensorMap* map, const void* ptr, int rank,
+                       const cuuint64_t* dims, const cuuint64_t* strides,
+                       int box_cols, int box_rows) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1,
+                             1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = enc(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr),
+      dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Tensor map over a contiguous bf16 [depth, rows, cols] array (see
+// encode_bf16).
 inline int make_map_bf16(CUtensorMap* map, const void* ptr, long long depth,
                          long long rows, long long cols, int box_cols,
                          int box_rows) {
-  EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
                               (cuuint64_t)depth};
   const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
                                  (cuuint64_t)rows * cols * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
-  const cuuint32_t estr[3] = {1, 1, 1};
-  const CUresult r = enc(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-      strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return encode_bf16(map, ptr, 3, dims, strides, box_cols, box_rows);
 }
 
 }  // namespace hopper

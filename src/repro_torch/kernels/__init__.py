@@ -9,6 +9,12 @@ Pallas TPU kernels, with their plain PyTorch versions for CPU tensors:
                      layer form, ops.kv_slot_update_layer, writes a decode
                      layer's K, V and slot_pos in one launch)
 
+and, with no TPU kernel behind them, MCA prefill's three scoring passes
+(ops.attn_lse, ops.attn_colmax_pass, ops.attn_av: the flash and colmax
+kernels in further modes, with a causal offset, left-padding masks and,
+for colmax, the max over heads), whose plain versions are the chunked
+passes of models/attention.py.
+
 With ``telemetry=True`` each launcher (and plain version) also returns
 the ``[1, 8]`` int32 buffer its kernel fills in the reference's units
 (``kernels/telemetry.py``); the wrappers fold it into ``obs.devtel``

@@ -31,6 +31,11 @@ the caller's ``block_*`` units (``kernels/telemetry.py``).  The KV layer
 write keeps the reference's meaning of one launch per cache: it adds 2
 launches and 2B rows, while ``launch_counts()`` counts its one launch.
 
+MCA prefill's scoring passes (``attn_lse``, ``attn_colmax_pass``,
+``attn_av``) take the chunked passes' signatures, and the chunked passes
+of ``models.attention`` are their plain versions; they emit no device
+telemetry.
+
 No kernel has a backward yet (the reference's Pallas kernels have none
 either).  A CUDA launch writes into a fresh tensor that autograd would
 see as a constant, so every wrapper refuses, on either device, to run
@@ -59,13 +64,16 @@ _LAUNCHERS = {"mca_matmul_fixed": _mca_mod.mca_matmul_fixed,
               "mca_matmul_ragged": _mca_mod.mca_matmul_ragged,
               "kv_slot_update": _cache_mod.kv_slot_update,
               "flash_attention": _flash_mod.flash_attention,
-              "attn_colmax": _colmax_mod.attn_colmax}
+              "attn_colmax": _colmax_mod.attn_colmax,
+              "attn_lse": _flash_mod.attn_lse,
+              "attn_av": _flash_mod.attn_av}
 
 
 #: each op's (fallback_calls, kernel_calls) counter names, indexed by bool
 _COUNTERS = {op: (f"kernels.{op}.fallback_calls", f"kernels.{op}.kernel_calls")
              for op in ("mca_matmul", "mca_matmul_ragged", "kv_slot_update",
-                        "flash_attention", "attn_colmax")}
+                        "flash_attention", "attn_colmax", "attn_lse",
+                        "attn_av")}
 
 
 def _plain(x: torch.Tensor) -> bool:
@@ -259,21 +267,99 @@ def attn_colmax(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor, *,
                 block_k: int = 128, reduce_heads: bool = True
                 ) -> torch.Tensor:
     """Column max of A from (q, k, lse): [B, Hq, Skv] f32, or [B, Skv]
-    reduced over heads (``reduce_heads``, the reference's default)."""
+    reduced over heads (``reduce_heads``, the reference's default; the
+    bf16 kernel reduces in place, the others after)."""
     _refuse_grad("attn_colmax", q, k, lse)
     plain = _plain(q)
     _count("attn_colmax", not plain)
     impl = _ref.ref_colmax if plain else _colmax_mod.attn_colmax
+    fused = reduce_heads and not plain and q.dtype == torch.bfloat16
     tel_on = devtel.enabled()
     with _CustomCall("attn_colmax"):
         cm = impl(q, k, lse, scale=scale, causal=causal, telemetry=tel_on,
-                  block_q=block_q, block_k=block_k)
+                  block_q=block_q, block_k=block_k,
+                  **({"reduce_heads": True} if fused else {}))
     if tel_on:
         cm, tel = cm
         _emit_tel("attn_colmax", "device_tiles", tel)
-    if reduce_heads:
+    if reduce_heads and not fused:
         cm = torch.amax(cm, dim=1)        # [B, Skv]
     return cm
+
+
+# ------------------------------------------------ MCA prefill's scoring passes
+# The three take the chunked passes' signatures and results
+# (``models.attention.chunked_lse``, ``chunked_colmax``, ``chunked_av``:
+# q [B, Sq, Hkv, G, dh], k and v [B, Skv, Hkv, dh]), and those passes are
+# their plain versions (on the CPU and on ``meta``).  On the card they run
+# the bf16 kernels, which take no sliding window; ``chunk`` shapes only
+# the plain version.  No telemetry.
+
+def _scoring_pass(op: str, plain_name: str, kernel, tensors, kw):
+    """One call of a scoring pass: the chunked pass ``plain_name`` of
+    ``models.attention`` on the CPU or ``meta``, else ``kernel(**kw)``
+    without ``window`` and ``chunk``."""
+    _refuse_grad(op, *tensors)
+    plain = _plain(tensors[0])
+    _count(op, not plain)
+    with _CustomCall(op):
+        if plain:
+            from repro_torch.models import attention
+            return getattr(attention, plain_name)(*tensors, **kw)
+        if kw.pop("window"):
+            raise ValueError(f"kernels.{op}: the kernel takes no sliding "
+                             "window")
+        del kw["chunk"]
+        return kernel(**kw)
+
+
+def _heads(q: torch.Tensor) -> torch.Tensor:
+    """q [B, Sq, Hkv, G, dh] as the [B, Hkv * G, Sq, dh] view the kernels
+    read (query head h = its KV head * G + g)."""
+    b, sq, hkv, g, dh = q.shape
+    return q.reshape(b, sq, hkv * g, dh).transpose(1, 2)
+
+
+def attn_lse(q, k, *, scale, causal, window, chunk, q_offset=0,
+             kv_valid=None):
+    """Pass 1, ``chunked_lse``: (m, lse), each [B, Hkv, G, Sq] f32."""
+    def kernel(**kw):
+        m, lse = _flash_mod.attn_lse(_heads(q), k.transpose(1, 2), **kw)
+        rows = (q.shape[0], q.shape[2], q.shape[3], q.shape[1])
+        return m.view(rows), lse.view(rows)
+    return _scoring_pass("attn_lse", "chunked_lse", kernel, (q, k), dict(
+        scale=scale, causal=causal, window=window, chunk=chunk,
+        q_offset=q_offset, kv_valid=kv_valid))
+
+
+def attn_colmax_pass(q, k, lse, *, scale, causal, window, chunk, q_offset=0,
+                     kv_valid=None, q_valid=None):
+    """Pass 2, ``chunked_colmax``: max_i A[i, j] over query rows and heads,
+    [B, Skv] f32 (counted as ``attn_colmax``)."""
+    def kernel(**kw):
+        return _colmax_mod.attn_colmax(
+            _heads(q), k.transpose(1, 2), lse.flatten(1, 2),
+            reduce_heads=True, **kw)
+    return _scoring_pass("attn_colmax", "chunked_colmax", kernel,
+                         (q, k, lse), dict(
+                             scale=scale, causal=causal, window=window,
+                             chunk=chunk, q_offset=q_offset,
+                             kv_valid=kv_valid, q_valid=q_valid))
+
+
+def attn_av(q, k, v, lse, *, scale, causal, window, chunk, q_offset=0,
+            kv_valid=None):
+    """Pass 3, ``chunked_av``: O = A V given lse, [B, Sq, Hkv, G, dv] in
+    v's dtype."""
+    def kernel(**kw):
+        out = torch.empty(q.shape, dtype=v.dtype, device=q.device)
+        _flash_mod.attn_av(_heads(q), k.transpose(1, 2), v.transpose(1, 2),
+                           lse.flatten(1, 2), out=_heads(out), **kw)
+        return out
+    return _scoring_pass("attn_av", "chunked_av", kernel, (q, k, v, lse),
+                         dict(scale=scale, causal=causal, window=window,
+                              chunk=chunk, q_offset=q_offset,
+                              kv_valid=kv_valid))
 
 
 def launch_counts() -> Dict[str, int]:

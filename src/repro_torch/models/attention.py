@@ -12,6 +12,11 @@ Scores and softmax run in f32 (bf16 operands are upcast exactly, as
 ``preferred_element_type=float32`` does); A@V casts A to V's dtype first,
 as the reference does.
 
+On the card (bf16, no window, no gradient) ``gqa_attention``'s exact MCA
+scoring passes run as hand-written kernels (``kernels.ops.attn_lse``,
+``attn_colmax_pass``, ``attn_av``: :func:`pass_kernels`), whose plain
+versions are the chunked passes below; the CPU calls these directly.
+
 The option paths of ``gqa_attention`` are ported with it: the fused
 conservative colmax (``mca.fast_colmax``) and the banded local passes
 (``cfg.banded_local``, causal sliding-window self-attention over
@@ -46,6 +51,7 @@ from repro_torch.core.amm import fold_in
 from repro_torch.core.policy import mca_project
 from repro_torch.dist import context as dctx
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.flash_attention import HEAD_DIMS
 from .common import apply_rope, dense_init, rmsnorm
 
 NEG_INF = -1e30
@@ -308,6 +314,28 @@ def _use_banded(cfg, window, skv, causal, kv_x):
 
 
 # ------------------------------------------------------------ GQA module
+def pass_kernels(window: int, *ts: torch.Tensor) -> bool:
+    """Whether ``gqa_attention``'s exact MCA scoring passes run as the
+    card's kernels (``kernels.ops.attn_lse``, ``attn_colmax_pass``,
+    ``attn_av``) on q and its keys (and values): bf16 tensors off the CPU
+    (on ``meta`` the wrappers count one call each, as the card launches
+    one kernel), a head width the kernels take, no sliding window and no
+    gradient.  Otherwise the chunked passes run: on the CPU (through this
+    module's attributes), in f32, under a window or for training."""
+    return (ts[0].device.type != "cpu" and window == 0
+            and ts[0].shape[-1] in HEAD_DIMS
+            and all(t.dtype == torch.bfloat16 for t in ts)
+            and not (torch.is_grad_enabled()
+                     and any(t.requires_grad for t in ts)))
+
+
+def _count_chunked(q: torch.Tensor) -> None:
+    """Count a call of the chunked passes that a device other than the CPU
+    ran (``attn.chunked_passes``: 0 where the kernels take every call)."""
+    if q.device.type != "cpu":
+        obs.get_registry().counter("attn.chunked_passes").inc()
+
+
 def init_gqa(g: torch.Generator, cfg, device):
     dt = cfg.torch_dtype
     p = {
@@ -516,7 +544,14 @@ def gqa_attention(p, cfg, x, *, pos, mca_key: Optional[int] = None,
             elif cfg.mca.fast_colmax:
                 m, lse, colmax = chunked_lse_colmax_fused(
                     qg, kq, kv_valid=kv_valid, q_valid=q_valid, **passes)
+            elif pass_kernels(window, qg, kq):
+                m, lse = kernel_ops.attn_lse(qg, kq, kv_valid=kv_valid,
+                                             **passes)
+                colmax = kernel_ops.attn_colmax_pass(
+                    qg, kq, lse, kv_valid=kv_valid, q_valid=q_valid,
+                    **passes)
             else:
+                _count_chunked(qg)
                 m, lse = chunked_lse(qg, kq, kv_valid=kv_valid, **passes)
                 colmax = chunked_colmax(qg, kq, lse, kv_valid=kv_valid,
                                         q_valid=q_valid, **passes)
@@ -527,7 +562,11 @@ def gqa_attention(p, cfg, x, *, pos, mca_key: Optional[int] = None,
         with obs.timed("attn.passes", cat="model"):
             if banded:
                 out = banded_av(qg, kq, vq, lse, **bands)
+            elif pass_kernels(window, qg, kq, vq):
+                out = kernel_ops.attn_av(qg, kq, vq, lse, kv_valid=kv_valid,
+                                         **passes)
             else:
+                _count_chunked(qg)
                 out = chunked_av(qg, kq, vq, lse, kv_valid=kv_valid,
                                  **passes)
     else:

@@ -416,7 +416,8 @@ def test_wrappers_count_launches_and_refuse_bad_inputs(cuda):
     assert c == {"kernels.mca_matmul.kernel_calls": 1.0,
                  "kernels.kv_slot_update.kernel_calls": 1.0}
     want = {"mca_matmul_fixed": 1, "mca_matmul_ragged": 0,
-            "kv_slot_update": 1, "flash_attention": 0, "attn_colmax": 0}
+            "kv_slot_update": 1, "flash_attention": 0, "attn_colmax": 0,
+            "attn_lse": 0, "attn_av": 0}
     assert ops.launch_counts() == want
     with pytest.raises(ValueError):
         ops.mca_matmul(x, w.float(), idx, inv_rp)
@@ -435,7 +436,8 @@ def test_launchers_raise_on_cpu_tensors(cuda):
     (only the ops wrappers route CPU tensors to the plain versions)."""
     from repro_torch.kernels.attn_colmax import attn_colmax
     from repro_torch.kernels.cache_update import kv_slot_update
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (attn_av, attn_lse,
+                                                     flash_attention)
     from repro_torch.kernels.mca_matmul import (mca_matmul_fixed,
                                                 mca_matmul_ragged)
     x, w = torch.ones(4, 256), torch.ones(256, 8)
@@ -449,6 +451,8 @@ def test_launchers_raise_on_cpu_tensors(cuda):
                                torch.zeros(2, **i32)),
         lambda: flash_attention(q, q, q, scale=1.0),
         lambda: attn_colmax(q, q, torch.zeros(1, 2, 64), scale=1.0),
+        lambda: attn_lse(q, q, scale=1.0),
+        lambda: attn_av(q, q, q, torch.zeros(1, 2, 64), scale=1.0),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
@@ -834,9 +838,12 @@ def _split_by_range(events):
     return split, [r for r in ranges if r[2] == "engine.insert"], timed
 
 
-def test_full_width_insertion_split_by_program_range(cuda):
+@pytest.mark.parametrize("s", [2048, 4096])
+def test_full_width_insertion_split_by_program_range(cuda, s):
     """starcoder2-3b at full width (30 layers, the benchmark's MCA) and
-    one 2,048-token insertion under the profiler: the registry's
+    one insertion of ``s`` tokens (the benchmark's two largest buckets)
+    under the profiler, its scoring passes through the kernels: the
+    registry's
     ``insert`` span, put on the profiler's clock by ``obs.profiler_ns``,
     lies within 1 ms of the ``engine.insert`` range at both ends; the
     ``attn.passes``, ``mca.project`` and ``mca.tier`` ranges hold device
@@ -855,10 +862,10 @@ def test_full_width_insertion_split_by_program_range(cuda):
     cfg = get_config("starcoder2-3b", mca=mca, dtype="bfloat16")
     model = build_model(cfg, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    eng = serve.Engine(model, params, batch_size=2, max_len=2080,
+    eng = serve.Engine(model, params, batch_size=2, max_len=s + 32,
                        mca_enabled=True, seed=0)
     prompt = np.random.default_rng(0).integers(
-        1, cfg.vocab_size, 2048).astype(np.int32)
+        1, cfg.vocab_size, s).astype(np.int32)
     state = eng.init_slot_state()
     state, _, _ = eng.prefill_into(prompt, state, 0, 16)     # warm-up
     torch.cuda.synchronize()
@@ -874,13 +881,16 @@ def test_full_width_insertion_split_by_program_range(cuda):
             prof.profiler.kineto_results.events())
         if sum(v["launches"] for v in split.values()):
             break
-    assert s_pad == 2048 and len(spans) == 1 and len(inserts) == 1
+    assert s_pad == s and len(spans) == 1 and len(inserts) == 1
     t0 = obs.profiler_ns(spans[0]["ts"])
     t1 = obs.profiler_ns(spans[0]["ts"] + spans[0]["dur"])
     lo, hi, _ = inserts[0]
     assert abs(t0 - lo) < 1e6 and abs(t1 - hi) < 1e6, (t0 - lo, t1 - hi)
     layers, tiers = cfg.n_layers, len(mca.capacity_fracs)
     assert counters["timed.attn.passes.calls"] == 2 * layers
+    for op in ("attn_lse", "attn_colmax", "attn_av"):
+        assert counters[f"kernels.{op}.kernel_calls"] == layers
+    assert counters.get("attn.chunked_passes", 0) == 0
     assert counters["timed.mca.project.calls"] == 2 * layers
     assert counters["timed.mca.tier.calls"] == 2 * layers * tiers
     assert sum(1 for r in timed if r[2] == "mca.tier") == 2 * layers * tiers

@@ -289,7 +289,7 @@ def test_cpu_tensors_never_launch():
                  "kernels.kv_slot_update.fallback_calls": 1.0}
     assert ops.launch_counts() == {
         "mca_matmul_fixed": 0, "mca_matmul_ragged": 0, "kv_slot_update": 0,
-        "flash_attention": 0, "attn_colmax": 0}
+        "flash_attention": 0, "attn_colmax": 0, "attn_lse": 0, "attn_av": 0}
 
 
 @pytest.mark.parametrize("launcher", ["mca_matmul", "kv_slot_update",
@@ -344,11 +344,18 @@ def _wrapper_call(op, grad_arg):
     idx = torch.zeros(2, dtype=torch.int32)
     q = torch.randn(1, 2, 64, 32)
     lse = torch.zeros(1, 2, 64)
+    qg, kg = torch.randn(1, 64, 2, 1, 32), torch.randn(1, 64, 2, 32)
+    passes = dict(scale=0.2, causal=True, window=0, chunk=32)
     cache, new = torch.zeros(2, 4, 8), torch.ones(2, 1, 8)
     args = {"mca_matmul": dict(x=x, w=w, inv_rp=torch.ones(2)),
             "mca_matmul_ragged": dict(x=x, w=w, inv_rp=torch.ones(1, 2)),
             "flash_attention": dict(q=q, k=q.clone(), v=q.clone()),
             "attn_colmax": dict(q=q, k=q.clone(), lse=lse),
+            "attn_lse": dict(q=qg, k=kg),
+            "attn_colmax_pass": dict(q=qg, k=kg, lse=torch.zeros(1, 2, 1,
+                                                                  64)),
+            "attn_av": dict(q=qg, k=kg, v=kg.clone(),
+                            lse=torch.zeros(1, 2, 1, 64)),
             "kv_slot_update": dict(cache=cache, new=new),
             "kv_slot_update_layer": dict(k_new=new, v_new=new.clone(),
                                          k_cache=cache,
@@ -365,6 +372,11 @@ def _wrapper_call(op, grad_arg):
             a["q"], a["k"], a["v"], scale=0.2),
         "attn_colmax": lambda: ops.attn_colmax(a["q"], a["k"], a["lse"],
                                                scale=0.2),
+        "attn_lse": lambda: ops.attn_lse(a["q"], a["k"], **passes),
+        "attn_colmax_pass": lambda: ops.attn_colmax_pass(
+            a["q"], a["k"], a["lse"], **passes),
+        "attn_av": lambda: ops.attn_av(a["q"], a["k"], a["v"], a["lse"],
+                                       **passes),
         "kv_slot_update": lambda: ops.kv_slot_update(
             a["cache"], a["new"], torch.zeros(2, dtype=torch.int32)),
         "kv_slot_update_layer": lambda: ops.kv_slot_update_layer(
@@ -377,7 +389,9 @@ GRAD_CASES = [("mca_matmul", "x"), ("mca_matmul", "w"),
               ("mca_matmul", "inv_rp"), ("mca_matmul_ragged", "x"),
               ("mca_matmul_ragged", "w"), ("flash_attention", "q"),
               ("flash_attention", "v"), ("attn_colmax", "k"),
-              ("kv_slot_update", "new"), ("kv_slot_update_layer", "v_new")]
+              ("kv_slot_update", "new"), ("kv_slot_update_layer", "v_new"),
+              ("attn_lse", "q"), ("attn_colmax_pass", "k"),
+              ("attn_av", "v")]
 
 
 @pytest.mark.parametrize("op,grad_arg", GRAD_CASES)
@@ -386,7 +400,8 @@ def test_wrappers_refuse_to_drop_a_gradient(op, grad_arg):
     a gradient, every wrapper raises, on the CPU as on the card, naming
     the op; without grad mode the same call runs its plain version."""
     call = _wrapper_call(op, grad_arg)
-    name = "kv_slot_update" if op.startswith("kv_") else op
+    name = "kv_slot_update" if op.startswith("kv_") else \
+        op.replace("_pass", "")
     with pytest.raises(RuntimeError, match=rf"kernels\.{name}: .*no "
                                            r"backward kernel"):
         call()
