@@ -195,9 +195,10 @@ Phases, each of which must pass:
              internvl patches [4, 256, 896] and 256 text tokens, max_len
              576; prefill then 32 decode steps, t on the device; every
              logit finite, kv_slot_update once per decoder layer per
-             step (12, 24), mca_matmul_fixed at the routing's count (the
-             encoder's B x 1,500 tokens and whisper's cross v_proj take
-             the plain gather: no capacity is a multiple of 128), no
+             step (12, 24), mca_matmul_fixed at the routing's count
+             (every sampled tier, the encoder's B x 1,500 tokens and
+             whisper's cross v_proj too, whose capacities are off the
+             128-row grid: the kernel masks the ragged row tile), no
              fallback, ``forward_hidden``'s flops_reduction > 1; a second
              run gives the same tokens; prefill time, decode step p50
              (each step synchronised), tokens/s, peak memory, one profiled
@@ -382,6 +383,11 @@ FAMILY_MCA_CASES = [(128, 2048, 2048, 1), (128, 2048, 2048, 2),
                     (128, 2048, 2048, 4), (128, 2560, 2560, 4),
                     (128, 256, 2560, 1)]
 FAMILY_MCA_TIMED = [(128, 2048, 2048, 4), (128, 256, 2560, 1)]
+# olmoe-1b-7b's sampled tiers at a 4,040-token bucket, as the
+# benchmark's doc-context cell pads prompts past 2,048 (to 4,032-4,080):
+# 4,040, 2,020 and 1,515 rows, each a ragged last row tile
+DOC_MCA_CASES = [(4040, 2048, 2048, 1), (2020, 2048, 2048, 2),
+                 (1515, 2048, 2048, 4)]
 # phase 11's shapes: recurrentgemma-9b's attention layers, v_proj d 4096 ->
 # f 256 (one KV head) and o_proj 4096 -> 4096, K = 32 blocks
 HYBRID_MCA_CASES = [(128, 4096, f, r) for f in (256, 4096) for r in (1, 2, 4)]
@@ -415,14 +421,22 @@ TP_KV = (272, (1, 128))
 # internvl2-1b v_proj (one KV head's 64 columns) and o_proj (448 input
 # columns, 3.5 blocks, on the block grid: 4 blocks with 64 zero columns);
 # recurrentgemma-9b v_proj (128 of 256 columns under repeat_kv) and o_proj
-# (16 input blocks).  Phase 16 fails on a shape not listed here.
+# (16 input blocks).  A chunk of 512 tokens gives tiers of 512, 256 and
+# 192 rows; whisper's encoder and cross v_proj route a chunk's 2 x 1,500
+# frames to tiers of 3,000, 1,500 and 1,125 rows.  Phase 16 fails on a
+# shape not listed here.
 TP16_MCA_CASES = [
     (512, 256, 1280, 1), (512, 1280, 2560, 1), (256, 1280, 2560, 2),
-    (512, 768, 384, 1), (256, 768, 384, 2), (512, 384, 768, 1),
-    (256, 384, 768, 2), (1024, 896, 64, 1), (512, 896, 64, 2),
+    (192, 1280, 2560, 4),
+    (512, 768, 384, 1), (256, 768, 384, 2), (192, 768, 384, 4),
+    (512, 384, 768, 1), (256, 384, 768, 2), (192, 384, 768, 4),
+    (3000, 768, 384, 1), (1500, 768, 384, 2), (1125, 768, 384, 4),
+    (3000, 384, 768, 1), (1500, 384, 768, 2), (1125, 384, 768, 4),
+    (1024, 896, 64, 1), (512, 896, 64, 2),
     (384, 896, 64, 4), (1024, 512, 896, 1), (512, 512, 896, 2),
     (384, 512, 896, 4), (512, 4096, 128, 1), (256, 4096, 128, 2),
-    (512, 2048, 4096, 1), (256, 2048, 4096, 2)]
+    (192, 4096, 128, 4),
+    (512, 2048, 4096, 1), (256, 2048, 4096, 2), (192, 2048, 4096, 4)]
 TP16_MCA_TIMED = [(128, 256, 1280, 1), (128, 1280, 2560, 4),
                   (128, 768, 384, 4), (128, 384, 768, 4), (128, 896, 64, 4),
                   (128, 512, 896, 4), (128, 4096, 128, 4),
@@ -638,8 +652,8 @@ def phase_kernels():
     from repro_torch.kernels.mca_matmul import mca_matmul_fixed
     errs = {"mca_matmul_fixed": 0.0, "kv_slot_update": 0.0}
     cases = [(c, "sampled") for c in MCA_CASES + FAMILY_MCA_CASES
-             + HYBRID_MCA_CASES + ENCDEC_VLM_MCA_CASES + TP_MCA_CASES
-             + TP16_MCA_CASES + MESH2D_MCA_CASES] + [
+             + DOC_MCA_CASES + HYBRID_MCA_CASES + ENCDEC_VLM_MCA_CASES
+             + TP_MCA_CASES + TP16_MCA_CASES + MESH2D_MCA_CASES] + [
         ((128, 3072, 3072, 24), "exact")] + [
         (c, "telemetry") for c in TEL_MCA_CASES]
     for (m, d, f, r), mode in cases:
@@ -2509,21 +2523,24 @@ FAMILY_NEW = 16                   # new tokens per request
 def _mca_launches(mca, d, n):
     """(launches, sampled blocks) of mca_matmul_fixed for one MCA
     projection of n tokens at input width d: a launch for every sampled
-    tier whose capacity the dispatch sends to the kernel (``cap % min(128,
-    cap) == 0``, block >= 128), counted from the routing's own ladder and
+    tier (the dispatch sends each to the kernel when block >= 128,
+    whatever its capacity), counted from the routing's own ladder and
     capacities; each counts, in the reference's units, ``cap // min(128,
-    cap)`` row tiles x the tier's R blocks."""
+    cap)`` row tiles x the tier's R blocks where the capacity is on the
+    128-row grid, else R (``telemetry.mca_row_tiles``)."""
     from repro_torch.core import schedule
     from repro_torch.core.policy import _caps_for
     block = mca.block_for(d)
+    if block < 128:
+        return 0, 0
     ladder = schedule.tier_ladder(d, block, mca.n_tiers, mca.r_min_blocks)
     caps = _caps_for(n, len(ladder), mca.capacity_fracs)
     n_launch = n_blocks = 0
     for t in range(len(ladder) - 1):
         cap = caps[t]
-        if block >= 128 and cap % min(128, cap) == 0:
-            n_launch += 1
-            n_blocks += cap // min(128, cap) * ladder[t]
+        tiles = cap // min(128, cap) if cap % min(128, cap) == 0 else 1
+        n_launch += 1
+        n_blocks += tiles * ladder[t]
     return n_launch, n_blocks
 
 
@@ -6020,11 +6037,15 @@ def main() -> int:
                                 "16 x 2 x 3 = 96, minicpm3 62 x (1 + 3) "
                                 "= 248; recurrentgemma-9b: 12 attention "
                                 "layers x the routing's tiers; mamba2: 0; "
-                                "whisper-small 12 x 3 x 3 = 108, none on "
-                                "the encoder; internvl2-1b 24 x 2 x 3 = "
+                                "whisper-small 12 x 3 x 3 = 108 on the "
+                                "decoder's self v_proj, self o_proj and "
+                                "cross o_proj, plus the routing's on the "
+                                "encoder and the cross v_proj (B x 1,500 "
+                                "frames: tiers off the 128-row grid); "
+                                "internvl2-1b 24 x 2 x 3 = "
                                 "144; phase 15, two chunks a rank: "
                                 "starcoder2-3b 2 x 180 = 360 a rank, "
-                                "olmoe-1b-7b 2 x 64 = 128 a rank; phase "
+                                "olmoe-1b-7b 2 x 96 = 192 a rank; phase "
                                 "16, two chunks a rank: the routing's, "
                                 "printed on its (a) lines; phase 17 (b), "
                                 "two chunks of 4 x 256 a rank: the "

@@ -60,9 +60,12 @@ def tiered_mca_matmul(key: int, x: torch.Tensor, w: torch.Tensor,
     x: [n, d]; w: [d, f]; tier/importance: [n]; ladder ascending, last
     entry == K means exact; caps: static per-tier capacities.  Returns
     [n, f].  ``use_kernel`` sends each sampled tier to
-    ``kernels.mca_matmul`` under the reference's condition
-    (``cap % min(128, cap) == 0 and block >= 128``); the exact tier stays
-    a dense ``torch.matmul``.  Tier t draws from ``fold_in(key, t)``.
+    ``kernels.mca_matmul`` when ``block >= 128``, whatever its capacity:
+    the CUDA kernel masks a ragged last row tile, where the reference's
+    Pallas kernel also needs ``cap % min(128, cap) == 0`` (a bucket of
+    4,040 tokens gives tiers of 4,040, 2,020 and 1,515 rows).  The exact
+    tier stays a dense ``torch.matmul``.  Tier t draws from
+    ``fold_in(key, t)``.
 
     ``local_blocks = (first, count)``: row-parallel tensor parallelism.
     ``x`` and ``w`` hold only the input blocks ``first .. first + count``
@@ -102,7 +105,7 @@ def tiered_mca_matmul(key: int, x: torch.Tensor, w: torch.Tensor,
                     mine = (idx >= first) & (idx < first + count)
                     idx = torch.where(mine, idx - first, 0).to(torch.int32)
                     inv_rp = torch.where(mine, inv_rp, 0.0)
-                if use_kernel and cap % min(128, cap) == 0 and block >= 128:
+                if use_kernel and block >= 128:
                     from repro_torch.kernels import mca_matmul as kernel_mm
                     out = kernel_mm(buf[:cap], w, idx, inv_rp, block=block)
                 else:

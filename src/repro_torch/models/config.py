@@ -2,10 +2,12 @@
 
 Port of ``repro/models/config.py`` with the same fields and defaults, so a
 config means the same model in both packages; ``torch_dtype`` replaces
-``jnp_dtype``.  The port runs every family of the reference: dense, MoE,
-VLM and audio with GQA or MLA attention, the encoder-decoder with GQA,
-SSM, and the hybrid with GQA (``models/api.py`` raises for an
-attention-free config of any other family).
+``jnp_dtype``.  Two fields are the port's own, ``moe_dropless`` and
+``moe_renorm_gates``: at their defaults the MoE layer is the reference's.
+The port runs every family of the reference: dense, MoE, VLM and audio
+with GQA or MLA attention, the encoder-decoder with GQA, SSM, and the
+hybrid with GQA (``models/api.py`` raises for an attention-free config of
+any other family).
 """
 from __future__ import annotations
 
@@ -15,6 +17,11 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.policy import MCAConfig
+
+
+#: the port's own ``ModelConfig`` fields, at the defaults that keep the
+#: reference's model
+PORT_ONLY = {"moe_dropless": False, "moe_renorm_gates": True}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +58,14 @@ class ModelConfig:
     top_k: int = 0
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
+    # port-only options; their defaults are the reference's behaviour.
+    # moe_dropless: every (token, expert) row is computed by grouped
+    # products over the rows each expert received, none dropped, so no
+    # capacity and no padding row moves a real token's output
+    moe_dropless: bool = False
+    # moe_renorm_gates: the top-k gates divided by their sum; off keeps
+    # the raw softmax probabilities (OLMoE's ``norm_topk_prob: false``)
+    moe_renorm_gates: bool = True
 
     # SSM (Mamba-2 / SSD)
     ssm_state: int = 0
@@ -92,6 +107,14 @@ class ModelConfig:
                                  # model axis, tp otherwise
 
     mca: MCAConfig = dataclasses.field(default_factory=MCAConfig)
+
+    def __post_init__(self):
+        if self.moe_dropless and self.mca.active("expert_ffn"):
+            raise ValueError(
+                "MCA's expert_ffn site needs the capacity layer: its "
+                "estimator samples the [E, C] dispatch buffer that "
+                "moe_dropless removes; take expert_ffn out of mca.sites "
+                "or turn moe_dropless off")
 
     # ------------------------------------------------------------ helpers
     @property

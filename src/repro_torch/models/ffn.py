@@ -14,6 +14,17 @@ over k, so the sum has one fixed order on every device (an ``index_add_``
 on the card adds in an order that changes from run to run).  In bf16 the
 reference rounds after each add, this sum once.
 
+``ModelConfig.moe_dropless`` selects the port's dropless layer instead
+(``_moe_dropless``): the (token, expert) rows sorted by expert run
+through grouped products over the rows each expert received, so no
+capacity buffer exists and no row is dropped; a bucket's padding rows
+are routed and computed like any other and reach no real token.  It
+runs on one rank, without ``expert_ffn`` (the config refuses both
+together).  ``obs.timed`` marks its ``moe.route`` (router to the experts'
+row offsets) and ``moe.experts`` (grouped products and combine);
+counter ``serve.moe_rows`` adds n * k a call.  ``moe_renorm_gates`` off
+keeps the raw top-k probabilities as gates, on either path.
+
 MoE + MCA (``expert_ffn`` site): the router gate is the slot's importance
 and the expert up-projection runs under the per-token estimator, batched
 over experts (``dispatch.per_token_mca_matmul``).  With the experts'
@@ -49,6 +60,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.core import amm, dispatch as mca_dispatch, schedule
 from repro_torch.dist import context as dctx
 from .common import dense_init, gelu
@@ -122,6 +134,9 @@ def moe_ffn(p, cfg, x, *, mca_key: Optional[int] = None):
     mesh = dctx.get_mesh()
     nm = dctx.model_size(mesh)
     if mesh is not None and mesh.size > 1:
+        if cfg.moe_dropless:
+            raise ValueError("moe_dropless runs on one rank: no mesh "
+                             "dispatch of the grouped products yet")
         dctx.require_data_parallel(mesh, "moe_ffn", cfg)
     rows = dctx.row_shards() > 1      # this rank holds its data shard
     b, s, _ = x.shape
@@ -157,6 +172,30 @@ def moe_ffn(p, cfg, x, *, mca_key: Optional[int] = None):
     return y, aux, stats
 
 
+def moe_route(p, cfg, xf):
+    """The router of tokens ``xf`` [n, d], in f32: ``(probs [n, E], gate
+    [n, k], eid [n, k])``, the top-k of the softmax; the gates divided by
+    their sum where ``cfg.moe_renorm_gates`` holds (the reference), the
+    raw probabilities where not."""
+    logits = xf.float() @ p["router"]                        # [n, E]
+    probs = torch.softmax(logits, dim=-1)
+    gate, eid = torch.topk(probs, cfg.top_k, dim=-1)         # [n, k]
+    if cfg.moe_renorm_gates:
+        gate = gate / torch.sum(gate, dim=-1, keepdim=True)
+    return probs, gate, eid
+
+
+def _aux_loss(cfg, probs, eid):
+    """Switch's load-balance loss: E * sum_e f_e * p_e."""
+    e = cfg.n_experts
+    me = torch.mean(probs, dim=0)
+    # one-hot as a comparison (jax.nn.one_hot's form): ``F.one_hot``
+    # dispatches other ops on each device, and a host read on the CPU
+    onehot = (eid[..., None] == torch.arange(e, device=eid.device)).float()
+    ce = torch.mean(torch.sum(onehot, dim=1), dim=0)
+    return cfg.router_aux_coef * e * torch.sum(me * ce / cfg.top_k)
+
+
 def _moe_local(p, cfg, x, mca_key: Optional[int] = None):
     """Dispatch + expert compute over the (local) token set."""
     b, s, d = x.shape
@@ -164,19 +203,12 @@ def _moe_local(p, cfg, x, mca_key: Optional[int] = None):
     e, k = cfg.n_experts, cfg.top_k
     dev = x.device
     xf = x.reshape(n, d)
+    if cfg.moe_dropless:
+        y, aux = _moe_dropless(p, cfg, xf)
+        return y.reshape(b, s, d), aux, _zero_stats(dev)
 
-    logits = xf.float() @ p["router"]                        # [n, E]
-    probs = torch.softmax(logits, dim=-1)
-    gate, eid = torch.topk(probs, k, dim=-1)                 # [n, k]
-    gate = gate / torch.sum(gate, dim=-1, keepdim=True)      # renormalize
-
-    # load-balance aux loss (Switch): E * sum_e f_e * p_e
-    me = torch.mean(probs, dim=0)
-    # one-hot as a comparison (jax.nn.one_hot's form): ``F.one_hot``
-    # dispatches other ops on each device, and a host read on the CPU
-    onehot = (eid[..., None] == torch.arange(e, device=dev)).float()
-    ce = torch.mean(torch.sum(onehot, dim=1), dim=0)
-    aux = cfg.router_aux_coef * e * torch.sum(me * ce / k)
+    probs, gate, eid = moe_route(p, cfg, xf)
+    aux = _aux_loss(cfg, probs, eid)
 
     cap = moe_capacity(cfg, n)
     nk = n * k
@@ -223,6 +255,42 @@ def _moe_local(p, cfg, x, mca_key: Optional[int] = None):
     inv[order] = torch.arange(nk, device=dev)
     y = torch.sum(contrib[inv].reshape(n, k, d), dim=1)
     return y.reshape(b, s, d), aux, stats
+
+
+def _moe_dropless(p, cfg, xf):
+    """The dropless layer over tokens ``xf`` [n, d]: ``(y [n, d], aux)``.
+
+    The n * k (token, expert) rows are sorted by expert (stably), each
+    expert's rows end at ``offs[e]`` (found on the device: no host
+    read), and the up, gate and down products run as grouped products
+    (``torch._grouped_mm``) over the rows each expert received, reading
+    the [E, d, f] and [E, f, d] weights in place.  The combine is the
+    capacity path's: un-permuted to [n, k, d] and summed over k."""
+    n, d = xf.shape
+    e, k = cfg.n_experts, cfg.top_k
+    nk = n * k
+    dev = xf.device
+    with obs.timed("moe.route", cat="model"):
+        probs, gate, eid = moe_route(p, cfg, xf)
+        aux = _aux_loss(cfg, probs, eid)
+        order = torch.argsort(eid.reshape(nk), stable=True)
+        offs = torch.searchsorted(eid.reshape(nk)[order],
+                                  torch.arange(e, device=dev),
+                                  right=True).to(torch.int32)
+    obs.get_registry().counter("serve.moe_rows").inc(nk)
+    with obs.timed("moe.experts", cat="model"):
+        xs = xf[order // k]                         # row i: token i // k
+        h_up = torch._grouped_mm(xs, p["w_up"], offs=offs)
+        if cfg.ffn_type == "swiglu":
+            h = F.silu(torch._grouped_mm(xs, p["w_gate"], offs=offs)) * h_up
+        else:
+            h = gelu(h_up)
+        out = torch._grouped_mm(h, p["w_down"], offs=offs)   # [nk, d]
+        contrib = out * gate.reshape(nk)[order][:, None].to(xf.dtype)
+        unsorted = torch.empty_like(contrib)
+        unsorted[order] = contrib
+        y = torch.sum(unsorted.reshape(n, k, d), dim=1)
+    return y, aux
 
 
 def _mca_expert_matmul(key: int, cfg, xe, w_up, sorted_e, slot,

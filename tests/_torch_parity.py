@@ -9,6 +9,8 @@ test asserts the margins first, so a flip names its cause.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import numpy as np
 
@@ -19,9 +21,21 @@ from repro_torch.configs import get_config
 from repro_torch.convert import params_from_jax
 from repro_torch.core import schedule
 from repro_torch.models import build_model, reduced
+from repro_torch.models.config import PORT_ONLY
 
 BOUNDARY_MARGIN = 1e-3        # relative distance of r_cols/block to a rung
 TIE_MARGIN = 1e-5             # relative gap between distinct importances
+
+
+def port_fields(cfg):
+    """The port's config as a dict of its fields (``mca`` a dict too), to
+    hold beside the reference's: the port's own fields (``PORT_ONLY``)
+    must be at the defaults that keep the reference's model, and are
+    left out."""
+    out = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    out["mca"] = dataclasses.asdict(out["mca"])
+    assert {k: out.pop(k) for k in PORT_ONLY} == PORT_ONLY
+    return out
 
 
 def model_pair(arch="starcoder2-3b", j_mca=None, t_mca=None, seed=0, **kw):

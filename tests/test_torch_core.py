@@ -217,11 +217,10 @@ def test_tiered_sampled_tiers_within_lemma1_bound():
     assert np.all(mean_err <= 1.25 * bound), float(np.max(mean_err / bound))
 
 
-def test_tiered_use_kernel_routes_sampled_tiers_to_ops():
-    """use_kernel sends each sampled tier whose capacity satisfies the
-    reference's condition to ``kernels.mca_matmul`` (its plain version on
-    the CPU); the result is the same function of the same draws."""
-    x, w, imp, tier, ladder, caps = _tiered_inputs(n=64)
+def _use_kernel_case(n):
+    """(counters, kernel-routed y, plain y, sampled tiers) of one tiered
+    product of n tokens with and without ``use_kernel``."""
+    x, w, imp, tier, ladder, caps = _tiered_inputs(n=n)
     routed = dispatch.apply_capacity(_t(tier), _t(imp), caps)
     with obs.scoped() as reg:
         y_k = dispatch.tiered_mca_matmul(5, _t(x), _t(w), routed, _t(imp),
@@ -229,14 +228,34 @@ def test_tiered_use_kernel_routes_sampled_tiers_to_ops():
         c = reg.snapshot()["counters"]
     y_p = dispatch.tiered_mca_matmul(5, _t(x), _t(w), routed, _t(imp),
                                      ladder, caps, 128)
-    ok = [cap % min(128, cap) == 0 for cap, r in zip(caps, ladder)
-          if r < ladder[-1]]
     # beside the kernel counters, each tier is one ``mca.tier`` boundary
     timed = {k: c.pop(k) for k in list(c) if k.startswith("timed.")}
-    assert c == {"kernels.mca_matmul.fallback_calls": float(sum(ok))}
     assert timed["timed.mca.tier.calls"] == len(ladder)
     assert set(timed) == {"timed.mca.tier.calls",
                           "timed.mca.tier.host_seconds"}
+    return c, y_k, y_p, sum(r < ladder[-1] for r in ladder)
+
+
+def test_tiered_use_kernel_routes_sampled_tiers_to_ops():
+    """use_kernel sends each sampled tier to ``kernels.mca_matmul`` (its
+    plain version on the CPU); the result is the same function of the
+    same draws."""
+    c, y_k, y_p, sampled = _use_kernel_case(64)
+    assert c == {"kernels.mca_matmul.fallback_calls": float(sampled)}
+    np.testing.assert_allclose(y_k.numpy(), y_p.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_tiered_use_kernel_takes_capacities_off_the_tile_grid():
+    """300 tokens at d 512 give sampled tiers of 300 and 150 rows, past
+    128 and not multiples of it: the reference's Pallas condition would
+    keep both on the plain product, but the CUDA kernel masks a ragged
+    row tile, so they still go to ``kernels.mca_matmul``; the result is
+    the plain product's (f32 sums of the same products, only their order
+    differs)."""
+    c, y_k, y_p, sampled = _use_kernel_case(300)
+    assert c == {"kernels.mca_matmul.fallback_calls": float(sampled)}
+    assert sampled == 2
     np.testing.assert_allclose(y_k.numpy(), y_p.numpy(), rtol=1e-5,
                                atol=1e-5)
 

@@ -46,7 +46,12 @@ MCA_CASES = [(64, 3072, 256, 1), (128, 3072, 256, 4), (24, 3072, 3072, 2),
              # 4 x (256 + 256) positions (internvl) fill the three tiers with
              (1024, 768, 768, 1), (512, 768, 768, 2), (384, 768, 768, 4),
              (2048, 896, 128, 1), (1024, 896, 128, 2), (768, 896, 128, 4),
-             (2048, 896, 896, 1), (1024, 896, 896, 2), (768, 896, 896, 4)]
+             (2048, 896, 896, 1), (1024, 896, 896, 2), (768, 896, 896, 4),
+             # olmoe-1b-7b's sampled tiers at a 4,040-token bucket (the
+             # doc-context cell pads prompts past 2,048 to 4,032-4,080):
+             # ragged last row tiles
+             (4040, 2048, 2048, 1), (2020, 2048, 2048, 2),
+             (1515, 2048, 2048, 4)]
 
 
 @pytest.fixture
@@ -793,12 +798,13 @@ def test_full_width_decode_launches_once_per_layer(cuda):
 TIMED = ("mca.tier", "mca.project", "attn.passes")
 
 
-def _split_by_range(events):
+def _split_by_range(events, names=TIMED):
     """One profiled insertion's device items by the innermost
-    ``obs.timed`` range their launch lies in ("none" outside them): busy
-    seconds and launches per range, and each idle gap charged to the
-    range that launched the item ending it; with the ``engine.insert``
-    ranges and every timed range's host interval (ns)."""
+    ``obs.timed`` range of ``names`` their launch lies in ("none" outside
+    them): busy seconds and launches per range, and each idle gap
+    charged to the range that launched the item ending it; with the
+    ``engine.insert`` ranges and every timed range's host interval
+    (ns)."""
     import bisect
     ranges, runtime, dev, host_names = [], {}, [], set()
     for e in events:
@@ -808,12 +814,12 @@ def _split_by_range(events):
             runtime[e.correlation_id()] = e.start_ns()
         else:
             host_names.add(e.name())
-            if e.name() in TIMED + ("engine.insert",):
+            if e.name() in names + ("engine.insert",):
                 ranges.append((e.start_ns(), e.end_ns(), e.name()))
     # the profiler mirrors host ranges onto the device timeline: not work
     items = sorted((e.start_ns(), e.end_ns(), runtime.get(e.correlation_id()))
                    for e in dev if e.name() not in host_names)
-    timed = sorted(r for r in ranges if r[2] in TIMED)
+    timed = sorted(r for r in ranges if r[2] in names)
     starts = [r[0] for r in timed]
 
     def innermost(t):
@@ -826,7 +832,7 @@ def _split_by_range(events):
         return best[1] if best else "none"
 
     split = {n: {"busy_s": 0.0, "launches": 0, "idle_s": 0.0}
-             for n in TIMED + ("none",)}
+             for n in names + ("none",)}
     end = None
     for s, e, lt in items:
         row = split[innermost(lt)]
@@ -892,6 +898,8 @@ def test_full_width_insertion_split_by_program_range(cuda, s):
         assert counters[f"kernels.{op}.kernel_calls"] == layers
     assert counters.get("attn.chunked_passes", 0) == 0
     assert counters["timed.mca.project.calls"] == 2 * layers
+    assert counters["kernels.mca_matmul.kernel_calls"] == 2 * layers * 3
+    assert "kernels.mca_matmul.fallback_calls" not in counters
     assert counters["timed.mca.tier.calls"] == 2 * layers * tiers
     assert sum(1 for r in timed if r[2] == "mca.tier") == 2 * layers * tiers
     for name in TIMED:
@@ -900,6 +908,159 @@ def test_full_width_insertion_split_by_program_range(cuda, s):
         "card": torch.cuda.get_device_name(), "layers": layers,
         "s_pad": s_pad, "insert_s": spans[0]["dur"],
         "span_vs_range_us": [(t0 - lo) / 1e3, (t1 - hi) / 1e3],
+        "host_s": {k: v for k, v in counters.items()
+                   if k.startswith("timed.")},
+        "by_innermost_range": split}))
+
+
+#: the dropless MoE layer's boundaries (``models/ffn.py``)
+MOE_TIMED = TIMED + ("moe.route", "moe.experts")
+
+
+def test_dropless_expert_layer_at_olmoe_width(cuda):
+    """One olmoe-1b-7b expert layer (64 experts of 1,024, top 8, raw
+    gates) over 2,048 bf16 tokens: the grouped products read the [E, d,
+    f] and [E, f, d] weights in place (no copy: the peak grows by the
+    rows' activations alone, under 512 MB), the output is within 3e-2 of
+    max|y| of the same experts and gates computed expert by expert in
+    f32 (bf16 inputs, weights and product outputs each round by up to
+    2^-8), and a second call is bitwise the first."""
+    from repro_torch.models import ffn
+    from repro_torch.models.config import ModelConfig
+    cfg = ModelConfig(d_model=2048, d_ff=1024, n_experts=64, top_k=8,
+                      ffn_type="swiglu", dtype="bfloat16",
+                      moe_dropless=True, moe_renorm_gates=False)
+    p = ffn.init_moe(torch.Generator(device="cuda").manual_seed(1), cfg,
+                     "cuda")
+    x = torch.randn((1, 2048, 2048), generator=torch.Generator(
+        device="cuda").manual_seed(2), device="cuda").to(torch.bfloat16)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        y, _, _ = ffn.moe_ffn(p, cfg, x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        y2, _, _ = ffn.moe_ffn(p, cfg, x)
+        xf = x.reshape(-1, 2048)
+        probs, gate, eid = ffn.moe_route(p, cfg, xf)
+        want = torch.zeros((xf.shape[0], 2048), device="cuda")
+        for e in range(64):
+            tok, j = torch.nonzero(eid == e, as_tuple=True)
+            xe = xf[tok].float()
+            h = torch.nn.functional.silu(xe @ p["w_gate"][e].float()) * (
+                xe @ p["w_up"][e].float())
+            want.index_add_(0, tok, (h @ p["w_down"][e].float())
+                            * gate[tok, j][:, None])
+    assert torch.equal(y, y2)
+    err = float((y.reshape(-1, 2048).float() - want).abs().max())
+    assert err <= 3e-2 * float(want.abs().max()), err
+    # the rows' bf16 activations (about six [rows, d] buffers live at
+    # once) and no copied weight: one [E, d, f] copy alone is 268 MB
+    rows = 2048 * 8
+    assert peak < 8 * rows * 2048 * 2, peak
+
+
+def test_tiered_kernel_takes_a_bucket_off_the_tile_grid(cuda):
+    """olmoe-1b-7b's v_proj routing of a 4,040-token bucket (bf16, d = f
+    = 2,048): tiers of 4,040, 2,020 and 1,515 rows, none a multiple of
+    128, each launch ``mca_matmul_fixed`` (none falls back to the plain
+    product), and the result is the plain sampled product's within 1e-2
+    of max|y| (bf16 outputs, f32 sums in another order)."""
+    from repro_torch import obs
+    from repro_torch.core import dispatch, policy, schedule
+    n, d = 4040, 2048
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((n, d), generator=g, device="cuda").bfloat16()
+    w = (torch.randn((d, d), generator=g, device="cuda") / d ** 0.5
+         ).bfloat16()
+    imp = torch.rand((n,), generator=g, device="cuda")
+    tier = torch.clamp((imp * 4).int(), max=3)
+    ladder = schedule.tier_ladder(d, 128, 4, 1)
+    caps = policy._caps_for(n, 4, (1.0, 0.5, 0.375, 0.25))
+    routed = dispatch.apply_capacity(tier, imp, caps)
+    with torch.no_grad():
+        with obs.scoped() as reg:
+            y_k = dispatch.tiered_mca_matmul(7, x, w, routed, imp, ladder,
+                                             caps, 128, use_kernel=True)
+            torch.cuda.synchronize()
+            c = reg.snapshot(include_device=False)["counters"]
+        y_p = dispatch.tiered_mca_matmul(7, x, w, routed, imp, ladder, caps,
+                                         128)
+    assert [cap % 128 for cap in caps[:3]] == [72, 100, 107]
+    assert c["kernels.mca_matmul.kernel_calls"] == 3
+    assert "kernels.mca_matmul.fallback_calls" not in c
+    err = float((y_k.float() - y_p.float()).abs().max())
+    assert err <= 1e-2 * float(y_p.float().abs().max()), err
+
+
+@pytest.mark.parametrize("s", [2048, 4040])
+def test_olmoe_dropless_insertion_split_by_program_range(cuda, s):
+    """olmoe-1b-7b at full width as the benchmark serves it (bf16,
+    dropless, raw gates, MCA on v_proj and o_proj through the kernel), one
+    insertion of ``s`` tokens under the profiler (4,040: a bucket the
+    doc-context cell gives prompts past 2,048, whose tiers are off the
+    128-row grid): the capacity layer is never entered (``moe_capacity``
+    not called), ``serve.moe_rows`` grows by 16 x s_pad x 8, 32 MCA
+    projections launch ``mca_matmul_fixed`` for each of their 3 sampled
+    tiers and none falls back, 16 calls of each pass kernel run, and the
+    MoE ranges hold device launches; prints the insertion's device time,
+    launches and idle time by innermost range (``-s``)."""
+    import json
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs, serve
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import MCAConfig
+    from repro_torch.models import build_model, ffn
+    mca = MCAConfig(enabled=True, alpha=0.2, block=128, n_tiers=4,
+                    capacity_fracs=(1.0, 0.5, 0.375, 0.25),
+                    sites=("v_proj", "o_proj"), use_kernel=True)
+    cfg = get_config("olmoe-1b-7b", mca=mca, dtype="bfloat16",
+                     moe_dropless=True, moe_renorm_gates=False)
+    model = build_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    eng = serve.Engine(model, params, batch_size=2, max_len=s + 16,
+                       mca_enabled=True, seed=0)
+    prompt = np.random.default_rng(0).integers(
+        1, cfg.vocab_size, s).astype(np.int32)
+    state = eng.init_slot_state()
+    state, _, _ = eng.prefill_into(prompt, state, 0, 16)     # warm-up
+    torch.cuda.synchronize()
+    capacity = ffn.moe_capacity
+    cap_calls = []
+    ffn.moe_capacity = lambda *a: cap_calls.append(a) or capacity(*a)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    try:
+        for _ in range(3):  # a short trace now and then has no device item
+            with obs.tracing(), obs.scoped() as reg:
+                with profile(activities=acts) as prof:
+                    state, _, s_pad = eng.prefill_into(prompt, state, 1, 16)
+                    torch.cuda.synchronize()
+                spans = [s for s in reg.spans() if s["name"] == "insert"]
+                counters = reg.snapshot(include_device=False)["counters"]
+            split, inserts, _ = _split_by_range(
+                prof.profiler.kineto_results.events(), MOE_TIMED)
+            if sum(v["launches"] for v in split.values()):
+                break
+    finally:
+        ffn.moe_capacity = capacity
+    layers = cfg.n_layers
+    assert s_pad == s and len(inserts) == 1 and not cap_calls
+    assert counters["serve.moe_rows"] == layers * s_pad * cfg.top_k
+    assert counters["timed.moe.route.calls"] == layers
+    assert counters["timed.moe.experts.calls"] == layers
+    assert counters["timed.mca.project.calls"] == 2 * layers
+    assert counters["kernels.mca_matmul.kernel_calls"] == 2 * layers * 3
+    assert "kernels.mca_matmul.fallback_calls" not in counters
+    for op in ("attn_lse", "attn_colmax", "attn_av"):
+        assert counters[f"kernels.{op}.kernel_calls"] == layers
+    assert counters.get("attn.chunked_passes", 0) == 0
+    for name in MOE_TIMED:
+        assert split[name]["launches"] > 0, (name, split)
+    print(json.dumps({
+        "card": torch.cuda.get_device_name(), "layers": layers,
+        "s_pad": s_pad, "insert_s": spans[0]["dur"],
         "host_s": {k: v for k, v in counters.items()
                    if k.startswith("timed.")},
         "by_innermost_range": split}))

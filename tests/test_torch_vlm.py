@@ -25,7 +25,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from _torch_parity import (assert_routing_margins, model_pair,  # noqa: E402
-                           spy_mca_project, tree_spec)
+                           port_fields, spy_mca_project, tree_spec)
 
 from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.core.policy import MCAConfig as JMCAConfig  # noqa: E402
@@ -88,7 +88,7 @@ def _both(toks, patches, labels=None):
 
 # ------------------------------------------------------------- config
 def test_internvl_config_equals_the_reference():
-    assert _fields(get_config(ARCH)) == _fields(j_get_config(ARCH))
+    assert port_fields(get_config(ARCH)) == _fields(j_get_config(ARCH))
     cfg = get_config(ARCH)
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.d_head, cfg.d_ff, cfg.vocab_size, cfg.n_patch_tokens) == (
