@@ -56,6 +56,18 @@ Phases, each of which must pass:
              max|out|, rows that see no key -1e30 and 0; then timed as
              phase 7 times a kernel (the chunked pass as the plain
              version).
+3c. route  — MCA's routing of one projection through its wrapper
+             (``ops.mca_route``) against its plain version
+             (``core.dispatch.route``) on the card, bitwise in every
+             output (tier, rank, tier_hist, mca_flops, mean_r_blocks), at
+             starcoder2-3b's and olmoe-1b-7b's ladders (1, 2, 4, 24) and
+             (1, 2, 4, 16) and capacities, at 2,048, 4,040, 4,160 and
+             20,000 tokens (the last past shared memory), on spread
+             importances, on each rung's Eq. 9 cut and two ulps either
+             side, with +-0, NaN and +-inf, and with every tier
+             overflowing; one launch a routing; then timed as phase 7
+             times a kernel at the cells' sizes (the plain version on
+             the card as the plain time, the bytes as the bound).
 4. parity  — a reduced starcoder2-3b (f32, 2 layers) served on the card
              gives the same tokens as on the CPU (and again in a second
              card run), hidden states and logits within 1e-4.
@@ -67,7 +79,9 @@ Phases, each of which must pass:
              this path: their counts print as 0); ``kv_slot_update`` must
              launch exactly once per layer per decode step, and each of
              the three scoring-pass kernels (colmax among them) once per
-             layer per prefill, with no chunked pass.
+             layer per prefill, with no chunked pass, and ``mca_route``
+             once per MCA projection (2 x 30) per prefill, with no
+             fallback.
 5b. entry  — this slice's path, ``repro_torch.kernels`` at full width on
              layer 0 of that model (4 prompts of 512 tokens): q, k, v from
              the port's own layer code; ``flash_attention`` -> (out, lse)
@@ -112,7 +126,8 @@ Phases, each of which must pass:
              leaf changed by step 1, train.flops_reduction > 1, tier
              occupancy = layers x tokens x steps; step time p50, peak
              memory, wall time, and one more step under the profiler;
-             kernel launches, reset before and read after, all 0;
+             kernel launches, reset before and read after, all 0 but
+             the routing's (``mca_route``, no gradient through it);
              (b) a reduced f32 starcoder2-3b (2 layers, MCA off, TF32
              off) takes 3 steps on the card and on the CPU from the same
              params and batches: losses within 1e-5 relative, every
@@ -125,7 +140,8 @@ Phases, each of which must pass:
              and restore_latest_valid falls back past it (directory under
              build/, removed afterwards);
              (d) a train step with use_kernel=True raises the wrappers'
-             no-backward error and launches nothing.
+             no-backward error and launches nothing but the routing
+             (``mca_route``) of the projection that refused.
 9. families — the MoE and MLA families, after the train phase (nothing
              else resident): (a) reduced olmoe-1b-7b and minicpm3-4b as in
              phase 4; (b) olmoe-1b-7b then minicpm3-4b at full width (depth
@@ -353,7 +369,7 @@ Phases, each of which must pass:
              ``MESH2D_MCA_CASES``.
 
 Phase 10 runs between phases 5b and 7; phases 14 to 18 last.
-Builds four sources (one ``nvcc`` each, in parallel).  Ends with a
+Builds five sources (one ``nvcc`` each, in parallel).  Ends with a
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
 line and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero (and
 prints no result) on any failure or without a card.
@@ -1156,6 +1172,140 @@ def phase_passes():
     return errs, nums
 
 
+# ------------------------------------------------------------ phase 3c
+#: MCA's routing at both cells' shapes: (d = f, ladder) of starcoder2-3b
+#: and olmoe-1b-7b at alpha 0.2, block 128, the capacity fractions
+#: (1, 0.5, 0.375, 0.25); the cells' insertion sizes and one past the
+#: 16,384 keys the kernel sorts in shared memory
+ROUTE_CELLS = {"starcoder2-3b": (3072, (1, 2, 4, 24)),
+               "olmoe-1b-7b": (2048, (1, 2, 4, 16))}
+ROUTE_SIZES = (2048, 4040, 4160)
+ROUTE_SPILL = 20000
+ROUTE_KINDS = ("spread", "cuts", "specials", "overflow")
+ROUTE_TIMED = ("starcoder2-3b", 4160)
+ROUTE_FRACS = (1.0, 0.5, 0.375, 0.25)
+
+
+def _route_kw(n, cell):
+    from repro_torch.core import policy
+    d, ladder = ROUTE_CELLS[cell]
+    return dict(seq_len=n, alpha=0.2, d=d, block=128, ladder=ladder,
+                caps=policy._caps_for(n, len(ladder), ROUTE_FRACS), f=d)
+
+
+def _route_importances(kind, n, ladder, seed):
+    """[n] float32 importances on the card: log-uniform over 1e-5..1
+    (``spread``), only the values at each rung's Eq. 9 cut and two ulps
+    either side (``cuts``), ``spread`` with 30% of +-0, NaN and +-inf
+    (``specials``), or all wanting the top tier (``overflow``)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    if kind == "cuts":
+        vals = []
+        for rung in ladder[:-1]:
+            c = np.float32(np.sqrt(rung * 128) * 0.2 / n)
+            vals += [c + np.float32(k) * np.spacing(c) for k in range(-2, 3)]
+        imp = rng.choice(np.asarray(vals, np.float32), n)
+    elif kind == "overflow":
+        imp = rng.uniform(0.5, 1.0, n)
+    else:
+        imp = 10.0 ** rng.uniform(-5, 0, n)
+        if kind == "specials":
+            special = np.asarray([0.0, -0.0, np.nan, np.inf, -np.inf],
+                                 np.float32)
+            imp = np.where(rng.random(n) < 0.3, rng.choice(special, n), imp)
+    return torch.from_numpy(np.asarray(imp, np.float32)).cuda()
+
+
+def _route_bytes(n, n_tiers):
+    """Bytes one routing must move: the importances in, tiers and ranks
+    out, the histogram, FLOPs and mean."""
+    return 4 * n + 2 * 4 * n + 8 * (n_tiers + 1) + 4
+
+
+def phase_route():
+    """Phase 3c: MCA's routing of one projection through its wrapper
+    (``ops.mca_route``, one launch of ``csrc/mca_route.cu``) against its
+    plain version (``core.dispatch.route``) run on the card on the same
+    importances: tier, rank, tier_hist, mca_flops and mean_r_blocks
+    bitwise, at ``ROUTE_CELLS``' ladders and capacities, ``ROUTE_SIZES``
+    and ``ROUTE_SPILL`` tokens, each of ``ROUTE_KINDS``; one kernel call
+    and one launch a routing, no fallback.  Then timed at each cell's
+    sizes: per call (CUDA events), device (profiler), host to issue, the
+    plain version per call, the bound.  Returns (mismatches, numbers at
+    ``ROUTE_TIMED`` with every shape's under ``shapes``)."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import dispatch
+    from repro_torch.kernels import ops
+    names = ("tier", "rank", "tier_hist", "mca_flops", "mean_r_blocks")
+    cases = 0
+    for cell in ROUTE_CELLS:
+        for n in ROUTE_SIZES + (ROUTE_SPILL,):
+            kw = _route_kw(n, cell)
+            for i, kind in enumerate(ROUTE_KINDS):
+                imp = _route_importances(kind, n, kw["ladder"], n + i)
+                ops.reset_launch_counts()
+                with obs.scoped() as reg:
+                    got = ops.mca_route(imp, **kw)
+                    c = reg.snapshot(include_device=False)["counters"]
+                want = dispatch.route(imp, **kw)
+                torch.cuda.synchronize()
+                launched = {k: v for k, v in ops.launch_counts().items()
+                            if v}
+                if (launched != {"mca_route": 1}
+                        or c != {"kernels.mca_route.kernel_calls": 1.0}):
+                    raise AssertionError(f"mca_route {cell} n {n} {kind}: "
+                                         f"launches {launched}, counters "
+                                         f"{c}")
+                for g, w, name in zip(got, want, names):
+                    if g.dtype != w.dtype or g.shape != w.shape:
+                        raise AssertionError(
+                            f"mca_route {cell} n {n} {kind}: {name} "
+                            f"{g.dtype} {tuple(g.shape)} != plain "
+                            f"{w.dtype} {tuple(w.shape)}")
+                    if g.dtype == torch.float32:
+                        g, w = g.view(torch.int32), w.view(torch.int32)
+                    if not torch.equal(g, w):
+                        raise AssertionError(
+                            f"mca_route {cell} n {n} {kind}: {name} differs "
+                            f"from the plain version in "
+                            f"{int((g != w).sum())} entries")
+                cases += 1
+            log(f"[route] {cell} n {n} ladder {kw['ladder']} caps "
+                f"{kw['caps']}: {len(ROUTE_KINDS)} kinds bitwise equal to "
+                f"the plain version on the card (tier_hist "
+                f"{got[2].tolist()} for {ROUTE_KINDS[-1]})")
+    log(f"[route] {cases} routings bitwise equal, one launch each")
+    nums = {"shapes": []}
+    for cell in ROUTE_CELLS:
+        for n in ROUTE_SIZES:
+            kw = _route_kw(n, cell)
+            imp = _route_importances("spread", n, kw["ladder"], n)
+            kern = functools.partial(ops.mca_route, imp, **kw)
+            plain = functools.partial(dispatch.route, imp, **kw)
+            ms = cuda_time_ms(kern)
+            dev_us, dev_names = _device_all_us(kern)
+            host = host_us(kern)
+            plain_ms = cuda_time_ms(plain, n=10, warmup=2)
+            bound, by = _bound_ms(_route_bytes(n, len(kw["ladder"])), 0)
+            row = dict(cell=cell, n=n, ms=ms, device_us=dev_us,
+                       host_us=host, plain_ms=plain_ms, bound_ms=bound,
+                       bound_by=by)
+            nums["shapes"].append(row)
+            if (cell, n) == ROUTE_TIMED:
+                nums.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                            bound_by=by, library_ms=None, device_us=dev_us,
+                            host_us=host)
+            log(f"[route] {cell} n {n}: kernel {ms * 1e3:.2f} us per call "
+                f"(device {_us(dev_us)} over {dev_names}, host "
+                f"{host:.2f} us to issue), plain version "
+                f"{plain_ms * 1e3:.2f} us, bound {bound * 1e3:.5f} us "
+                f"({by})")
+    return 0, nums
+
+
 # ------------------------------------------------------------- phase 4
 def _card_vs_cpu(arch, tag, n_layers=2, ragged=True):
     """A reduced ``arch`` (f32, ``n_layers`` layers, vocab 128, MCA off,
@@ -1264,6 +1414,23 @@ def _check_passes(name, snap, launches, n_layers):
                              f"each, or {chunked} chunked passes")
 
 
+def _check_route(name, snap, launches, n_layers):
+    """MCA's routing ran as one kernel call and one launch for each MCA
+    projection (v_proj and o_proj of every layer) of every prefill, with
+    no fallback."""
+    c = snap["counters"]
+    prefills = snap["histograms"]["serve.prefill_seconds"]["count"]
+    want = 2 * n_layers * prefills
+    got = (c.get("kernels.mca_route.kernel_calls", 0),
+           launches["mca_route"],
+           c.get("kernels.mca_route.fallback_calls", 0))
+    log(f"[serve] {name}: mca_route (kernel_calls, launches, "
+        f"fallback_calls) {got} over {prefills} prefills")
+    if got != (want, want, 0):
+        raise AssertionError(f"{name}: mca_route {got} != 2 x {n_layers} "
+                             f"x {prefills} prefills = {want}, no fallback")
+
+
 def _check_requests(name, reqs, vocab, max_new):
     for r in reqs:
         if r.status != "ok" or len(r.out) != max_new \
@@ -1319,6 +1486,7 @@ def phase_serve():
     steps = hists["serve.decode_step_seconds"]["count"] * 8
     _check_path("SlotBatcher", snap, launches["slot"], steps, cfg.n_layers)
     _check_passes("SlotBatcher", snap, launches["slot"], cfg.n_layers)
+    _check_route("SlotBatcher", snap, launches["slot"], cfg.n_layers)
     c = snap["counters"]
     occ = sum(v for k, v in c.items() if k.startswith("serve.tier_occupancy"))
     want_occ = cfg.n_layers * 2 * c["serve.prefill_tokens"]
@@ -1353,6 +1521,7 @@ def phase_serve():
     _check_path("ContinuousBatcher", wsnap, launches["wave"], max_new - 1,
                 cfg.n_layers)
     _check_passes("ContinuousBatcher", wsnap, launches["wave"], cfg.n_layers)
+    _check_route("ContinuousBatcher", wsnap, launches["wave"], cfg.n_layers)
     serve_nums["wave_prefill_s"] = \
         wsnap["histograms"]["serve.prefill_seconds"]["p50"]
     serve_nums["wave_decode_step_p50_s"] = \
@@ -1369,6 +1538,8 @@ def phase_serve():
                              "write (K, V, slot_pos) = 30"}
     per.update({k: "per prefill: 30 layers x 1 = 30 (phase 5's two "
                    "batchers)" for k in PASS_WRAPPERS})
+    per["mca_route"] = ("per prefill: 30 layers x 2 sites = 60 (phase "
+                        "5's two batchers)")
     return total, per, serve_nums, engine
 
 
@@ -2264,14 +2435,16 @@ def _train_full_width():
     log("[train] full width: " + json.dumps(nums))
     log(f"[train] every one of the {len(changed)} parameter leaves changed "
         f"in step 1; statuses {[h['status'] for h in hist]}")
-    log(f"[train] kernel launches {launches}: all 0 - the launcher leaves "
+    log(f"[train] kernel launches {launches}: all 0 but the routing "
+        "(mca_route: integers, no gradient) - the launcher leaves "
         "MCAConfig.use_kernel off (as the reference's does) and no kernel "
         "has a backward, so training runs the plain PyTorch passes")
     want_occ = cfg.n_layers * args.batch * args.seq * out["steps"]
     if (out["steps"] != 4 or any(h["status"] != "ok" for h in hist)
             or not all(map(math.isfinite, losses + norms))
             or min(norms) <= 0 or not red > 1.0 or sum(occ) != want_occ
-            or any(launches.values())):
+            or any(v for k, v in launches.items() if k != "mca_route")
+            or not launches["mca_route"]):
         raise AssertionError(f"full-width training failed its checks "
                              f"(tier occupancy {sum(occ)} != {want_occ}?)")
     del trainer, inner, step
@@ -2496,8 +2669,11 @@ def _train_refusal():
     else:
         raise AssertionError("a train step through the MCA kernel did not "
                              "raise")
-    if any(ops.launch_counts().values()):
-        raise AssertionError(f"launched {ops.launch_counts()}")
+    # the routing (integers, no gradient) ran once, for the projection
+    # whose first sampled tier refused
+    launched = {n: c for n, c in ops.launch_counts().items() if c}
+    if launched != {"mca_route": 1}:
+        raise AssertionError(f"launched {launched}")
 
 
 def phase_train():
@@ -2700,7 +2876,8 @@ SSM_HYBRID = [("mamba2-2.7b", ()), ("recurrentgemma-9b", ("v_proj", "o_proj"))]
 SSM_HYBRID_GEN = (4, 256, 32)      # generate: prompts, prompt tokens, new
 SSM_HYBRID_WAVE = (4, 128, 16)     # ContinuousBatcher: requests, tokens, new
 WINDOW_RUN = (2, 2560, 2624, 16)   # batch, prompt, max_len, decode steps
-ALL_KERNELS = SERVE_KERNELS + ENTRY_KERNELS + ("attn_lse", "attn_av")
+ALL_KERNELS = SERVE_KERNELS + ENTRY_KERNELS + ("attn_lse", "attn_av",
+                                               "mca_route")
 
 
 def _check_family_counts(what, cfg, snap, launches, steps, routed):
@@ -3781,6 +3958,17 @@ def _spy(module, name, record):
     return lambda: setattr(module, name, orig)
 
 
+def _unrouted_tiers(route, imp):
+    """Each token's tier before the capacities, by the plain schedule on
+    ``imp``'s device: where ``route`` (``policy._tiered_maybe_sharded``'s
+    argument: ``ops.mca_route`` with a projection's Eq. 9 constants)
+    starts from."""
+    from repro_torch.core import schedule
+    kw = route.keywords
+    return schedule.assign_tiers(schedule.r_blocks(
+        imp, kw["seq_len"], kw["alpha"], kw["d"], kw["block"]), kw["ladder"])
+
+
 def _call_counter(module, name):
     """Replace ``module.name`` by a wrapper that counts its calls and keeps
     no reference to their arguments or results (``_spy`` keeps both,
@@ -3839,8 +4027,8 @@ def _dist_part_b(out):
     undo()
     caps = _caps_for(n_local, cfg.mca.n_tiers, cfg.mca.capacity_fracs)
     local, summed, rerun_ok = [], [], True
-    for a, _, (_, hist, local_hist) in calls:
-        tier, imp = a[3], a[4]
+    for a, _, (_, hist, local_hist, _) in calls:
+        tier, imp = _unrouted_tiers(a[3], a[4]), a[4]
         again = dispatch.tier_histogram(dispatch.apply_capacity(
             tier.cpu(), imp.cpu(), caps), len(caps))
         rerun_ok &= bool(torch.equal(again, local_hist.cpu()))
@@ -4256,7 +4444,7 @@ def _tp_serve_a(out, rank, mesh, dev):
     undo()
     chunk = b // 2 * DIST_PROMPTS[1]
     res = {"rank": rank, "prefill_s": prefill_s, "calls": len(calls),
-           "hists": [h.tolist() for _, _, (_, h, _) in calls],
+           "hists": [h.tolist() for _, _, (_, h, _, _) in calls],
            "mca_launches": launches["mca_matmul_fixed"],
            "want_mca": 2 * _expected_mca(cfg, [chunk])[0],
            "counters": counters, "shapes": sorted(shapes.seen),
@@ -5453,11 +5641,11 @@ def _census_check(ranks, metas):
                   == card["kernel_calls"] and card["fallback_calls"] == 0,
                   "flops": kind != "train" or meta["flops"] == card["flops"]}
             launched = {k: v for k, v in card["launches"].items() if v}
-            if kind == "prefill":     # MCA's matmuls and scoring passes
+            if kind == "prefill":     # MCA's routing, matmuls, passes
                 ok["launches"] = set(launched) == {
-                    "mca_matmul_fixed", "attn_lse", "attn_colmax",
-                    "attn_av"} and sum(launched.values()) == \
-                    card["kernel_calls"]
+                    "mca_route", "mca_matmul_fixed", "attn_lse",
+                    "attn_colmax", "attn_av"} and \
+                    sum(launched.values()) == card["kernel_calls"]
             if kind == "decode":
                 ok["launches"] = launched.get("kv_slot_update") == SP_LAYERS
             coll = card["collectives"]
@@ -5676,7 +5864,8 @@ def _mesh2d_serve(rank, mesh, dev):
             "shapes": sorted(seen)}
         if part == "a":
             # the routing's inputs, for the check's rerun on the CPU
-            r["tiers"] = [a[3].tolist() for a, _, _ in calls]
+            r["tiers"] = [_unrouted_tiers(a[3], a[4]).tolist()
+                          for a, _, _ in calls]
             r["imps"] = [a[4].float().tolist() for a, _, _ in calls]
             tok = torch.argmax(logits[..., :cfg.vocab_size],
                                -1).to(torch.int32)
@@ -5998,6 +6187,7 @@ def main() -> int:
     errs = phase_kernels()
     pass_errs, pass_nums = phase_passes()
     errs.update(pass_errs)
+    errs["mca_route"], route_nums = phase_route()
     with _MCAShapes() as path_shapes:
         phase_parity()
         launches, per, serve_nums, engine = phase_serve()
@@ -6079,10 +6269,13 @@ def main() -> int:
                              "src/repro/models/attention.py:96"),
         "attn_av": ("src/repro_torch/csrc/flash_attention.cu",
                     "src/repro/models/attention.py:128"),
+        "mca_route": ("src/repro_torch/csrc/mca_route.cu",
+                      "src/repro/core/dispatch.py:47"),
     }
     per.update({k: "on the entry-point path (phase 5b), once each"
                 for k in ENTRY_KERNELS})
     nums.update(pass_nums)
+    nums["mca_route"] = route_nums
     kernels = []
     for name, (source, replaces) in meta.items():
         kernels.append({"name": name, "route": "cuda", "source": source,

@@ -16,16 +16,22 @@ import torch
 
 from repro_torch import obs
 
+from . import schedule
 from .amm import (DEFAULT_BLOCK, block_probs, draw_block_samples, fold_in,
                   generator, num_blocks, sampled_matmul)
 
 
+def _order(importance: torch.Tensor) -> torch.Tensor:
+    """Tokens by descending importance, ties in token order (stable, as
+    ``jnp.argsort``)."""
+    return torch.argsort(-importance.detach(), stable=True)
+
+
 def _rank_within_tier(tier: torch.Tensor, importance: torch.Tensor,
                       n_tiers: int) -> torch.Tensor:
-    """Rank of each token inside its tier, by descending importance
-    (stable: ties keep token order, as ``jnp.argsort``)."""
+    """Rank of each token inside its tier, by descending importance."""
     tier = tier.detach()
-    order = torch.argsort(-importance.detach(), stable=True)
+    order = _order(importance)
     tier_sorted = tier[order]
     onehot = tier_sorted[:, None] == torch.arange(
         n_tiers, device=tier.device)[None, :]
@@ -38,13 +44,47 @@ def _rank_within_tier(tier: torch.Tensor, importance: torch.Tensor,
 
 def apply_capacity(tier: torch.Tensor, importance: torch.Tensor,
                    caps: Sequence[int]) -> torch.Tensor:
-    """Demote capacity overflow to the next cheaper tier (tier 0 unbounded)."""
+    """Demote capacity overflow to the next cheaper tier (tier 0 unbounded).
+
+    From the top tier down, the tokens of tier t past its first
+    ``caps[t]`` by descending importance drop to tier t - 1; one sort
+    serves every tier, as the order never changes."""
     n_tiers = len(caps)
+    if n_tiers < 2:
+        return tier
+    order = _order(importance)
+    tier_sorted = tier.detach()[order]
     for t in range(n_tiers - 1, 0, -1):
-        rank = _rank_within_tier(tier, importance, n_tiers)
-        overflow = (tier == t) & (rank >= caps[t])
-        tier = torch.where(overflow, t - 1, tier).to(torch.int32)
-    return tier
+        in_t = tier_sorted == t
+        rank = torch.cumsum(in_t, dim=0, dtype=torch.int32) - 1
+        tier_sorted = torch.where(in_t & (rank >= caps[t]), t - 1,
+                                  tier_sorted).to(torch.int32)
+    out = torch.empty_like(tier_sorted)
+    out.scatter_(0, order, tier_sorted)
+    return out
+
+
+def route(importance: torch.Tensor, *, seq_len: int, alpha: float, d: int,
+          block: int, ladder: Sequence[int], caps: Sequence[int], f: int):
+    """The tiered routing of one projection's tokens, plain PyTorch (the
+    plain version of ``kernels.ops.mca_route``).
+
+    importance [n] -> (tier [n] int32: Eq. 9's tier after the capacity
+    demotion, rank [n] int32 within that tier by descending importance,
+    tier_hist [T] int64, mca_flops [] int64: sum over tiers of
+    ``tier_hist[t] * 2 r_t block f``, mean_r_blocks [] f32).  ``seq_len``
+    is Eq. 9's n, ``d`` the projection's input width, ``f`` its output
+    width, ``caps`` one capacity a tier of ``ladder``."""
+    r_blocks = schedule.r_blocks(importance, seq_len, alpha, d, block)
+    n_tiers = len(ladder)
+    tier = apply_capacity(schedule.assign_tiers(r_blocks, ladder),
+                          importance, caps)
+    rank = _rank_within_tier(tier, importance, n_tiers)
+    hist = tier_histogram(tier, n_tiers)
+    # int64: the sum reaches ~2e9 at d=f=3072 and a few hundred tokens
+    flops = sum(hist[t] * (2 * r_t * block * f)
+                for t, r_t in enumerate(ladder))
+    return tier, rank, hist, flops, torch.mean(r_blocks.float())
 
 
 def tiered_mca_matmul(key: int, x: torch.Tensor, w: torch.Tensor,
@@ -53,13 +93,17 @@ def tiered_mca_matmul(key: int, x: torch.Tensor, w: torch.Tensor,
                       block: int = DEFAULT_BLOCK,
                       probs: Optional[torch.Tensor] = None,
                       use_kernel: bool = False,
-                      local_blocks: Optional[Sequence[int]] = None
-                      ) -> torch.Tensor:
+                      local_blocks: Optional[Sequence[int]] = None, *,
+                      rank: torch.Tensor) -> torch.Tensor:
     """Dispatch tokens to tiers and run one sampled matmul per tier.
 
-    x: [n, d]; w: [d, f]; tier/importance: [n]; ladder ascending, last
-    entry == K means exact; caps: static per-tier capacities.  Returns
-    [n, f].  ``use_kernel`` sends each sampled tier to
+    x: [n, d]; w: [d, f]; tier/importance/rank: [n]; ladder ascending,
+    last entry == K means exact; caps: static per-tier capacities.
+    ``tier`` and ``rank`` (each token's rank within its tier) come from a
+    routing (``route`` or ``kernels.ops.mca_route``) that fitted the
+    tiers to ``caps``; ``importance`` is that routing's input.  Returns
+    [n, f].
+    ``use_kernel`` sends each sampled tier to
     ``kernels.mca_matmul`` when ``block >= 128``, whatever its capacity:
     the CUDA kernel masks a ragged last row tile, where the reference's
     Pallas kernel also needs ``cap % min(128, cap) == 0`` (a bucket of
@@ -79,11 +123,8 @@ def tiered_mca_matmul(key: int, x: torch.Tensor, w: torch.Tensor,
     f = w.shape[-1]
     k = (num_blocks(d, block) if local_blocks is None
          else probs.shape[-1])
-    n_tiers = len(ladder)
     if probs is None:
         probs = block_probs(w, block)
-    tier = apply_capacity(tier, importance, caps)
-    rank = _rank_within_tier(tier, importance, n_tiers)
 
     y = torch.zeros((n, f), dtype=x.dtype, device=x.device)
     for t, r_t in enumerate(ladder):

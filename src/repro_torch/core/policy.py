@@ -14,6 +14,11 @@ histogram to ``mca.device_tier_hist.t{i}`` on the device (one add, no
 host read); under a mesh that is this rank's own routing, so
 ``obs.snapshot(aggregate="psum")`` gives the mesh's.
 
+The tiered mode routes each group of tokens (Eq. 9, tiers, capacities,
+ranks within the tiers) in one call of ``kernels.ops.mca_route``: one
+launch on the card, ``dispatch.route`` on the CPU.  Without a mesh that
+call also gives the tier histogram, the FLOPs and the mean budget.
+
 Under a mesh of more than one rank (``dist.context.use_mesh``) the
 tiered routing is shard-local, as the reference's ``shard_map`` branch:
 shard i routes the i-th contiguous chunk of the global flat tokens with
@@ -28,9 +33,10 @@ global, as the reference's fallback: one routing of all of them with the
 capacities of their count and the unfolded key.  A rank that holds the
 whole batch runs it alone; a rank that holds its data shard's rows (its
 shard's tokens do not divide the ``"model"`` axis) gathers the data
-ranks' tiers and importances (8 bytes a token, in rank order: the
-global flat order), routes them, and runs its own rows with the global
-capacities, so each tier draws the unsharded call's samples.  The tier
+ranks' importances (4 bytes a token, in rank order: the global flat
+order; a token's tier is a function of its importance), routes them, and
+runs its own rows with the global capacities, so each tier draws the
+unsharded call's samples.  The tier
 histogram is then the global one on every rank.
 
 On a ``"model"`` axis larger than 1 (tensor parallelism) the routing is
@@ -57,6 +63,7 @@ shard the samples that fall in its blocks (``local_blocks`` as above).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -64,6 +71,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.dist import context as dctx
+from repro_torch.kernels import ops
 from repro_torch.obs import devtel
 
 from . import amm, dispatch, schedule
@@ -150,34 +158,45 @@ def mca_project(key: Optional[int], x: torch.Tensor, w: torch.Tensor,
     # one boundary: its host seconds less those of its tiers (inside
     # tiered_mca_matmul) are the routing's
     with obs.timed("mca.project", cat="model"):
-        r_cols = schedule.r_cols_from_attention(imp, seq_len, cfg.alpha,
-                                                d_full)
-        r_blocks = schedule.r_blocks_from_cols(r_cols, block)
-        tier = schedule.assign_tiers(r_blocks, ladder)
         mesh = dctx.get_mesh()
-
         if cfg.mode == "per_token":
             if shards > 1:      # the data shard's rows draw their own
                 key = amm.fold_in(key, dctx.axis_index(mesh,
                                                        dctx.dp_axes(mesh)))
             x2, w, probs, local_blocks = _tp_operands(x2, w, block, tp, mesh)
+            r_blocks = schedule.r_blocks(imp, seq_len, cfg.alpha, d_full,
+                                         block)
             y2 = dispatch.per_token_mca_matmul(key, x2, w, r_blocks, block,
                                                probs=probs,
                                                local_blocks=local_blocks)
             mca_fl = amm.sampled_flops(r_blocks, f_full, block)
-            hist = local_hist = dispatch.tier_histogram(tier, len(ladder))
+            hist = local_hist = dispatch.tier_histogram(
+                schedule.assign_tiers(r_blocks, ladder), len(ladder))
             if shards > 1:
                 dp = dctx.dp_axes(mesh)
                 mca_fl = dctx.psum(torch.as_tensor(mca_fl), mesh, dp)
                 hist = dctx.psum(hist, mesh, dp)
+            mean_r = torch.mean(r_blocks.float())
         else:
-            y2, hist, local_hist = _tiered_maybe_sharded(
-                key, x2, w, tier, imp, ladder, cfg, block, tp)
-            # int64 on the device: the sum reaches ~2e9 at d=f=3072 and a
-            # few hundred tokens, where int32 would overflow
-            hist64 = hist.to(torch.int64)
-            mca_fl = sum(hist64[t] * (2 * r_t * block * f_full)
-                         for t, r_t in enumerate(ladder))
+            # a routing of tokens with this projection's Eq. 9 constants:
+            # one launch on the card
+            route = functools.partial(ops.mca_route, seq_len=seq_len,
+                                      alpha=cfg.alpha, d=d_full, block=block,
+                                      ladder=ladder, f=f_full)
+            y2, hist, local_hist, own = _tiered_maybe_sharded(
+                key, x2, w, route, imp, ladder, cfg, block, tp)
+            if own is not None:     # the one routing gave the stats too
+                mca_fl, mean_r = own
+            else:
+                # int64 on the device: the sum reaches ~2e9 at d=f=3072
+                # and a few hundred tokens, where int32 would overflow
+                hist64 = hist.to(torch.int64)
+                mca_fl = sum(hist64[t] * (2 * r_t * block * f_full)
+                             for t, r_t in enumerate(ladder))
+                mean_r = torch.mean(schedule.r_blocks(
+                    imp, seq_len, cfg.alpha, d_full, block).float())
+        if shards > 1:
+            mean_r = dctx.psum(mean_r, mesh, dctx.dp_axes(mesh)) / shards
 
         y = y2.reshape(*lead, n, f)
         # device-side tier occupancy, per call (the stats are read once
@@ -185,9 +204,6 @@ def mca_project(key: Optional[int], x: torch.Tensor, w: torch.Tensor,
         devtel.emit_vec(
             tuple(f"mca.device_tier_hist.t{i}" for i in range(len(ladder))),
             local_hist)
-        mean_r = torch.mean(r_blocks.float())
-        if shards > 1:
-            mean_r = dctx.psum(mean_r, mesh, dctx.dp_axes(mesh)) / shards
         stats = {"site": site, "exact_flops": exact_fl, "mca_flops": mca_fl,
                  "tokens": flat_n * shards, "tier_hist": hist,
                  "mean_r_blocks": mean_r, "ladder": ladder}
@@ -223,18 +239,21 @@ def _tp_operands(x2, w, block, tp, mesh):
     return x2, w, probs, (first, count)
 
 
-def _tiered_maybe_sharded(key, x2, w, tier, imp, ladder, cfg, block,
+def _tiered_maybe_sharded(key, x2, w, route, imp, ladder, cfg, block,
                           tp=None):
     """Tiered dispatch, shard-local under a mesh of more than one rank.
 
-    Returns (y2, tier_hist over the mesh, this rank's own tier_hist).
-    Each chunk i of the global flat tokens is routed with the capacities
-    of its own token count and drawn from ``fold_in(key, i)``; a rank
-    holding its data shard's rows routes that shard's chunks (one, or
-    ``n_model`` on a model axis) and sums the histogram over the data
-    ranks, a rank holding the whole batch routes every chunk itself.
-    Tokens that do not divide the mesh are routed globally
-    (:func:`_tiered_global` for a rank holding its rows)."""
+    ``route(importances, caps=...)`` is the projection's routing
+    (``kernels.ops.mca_route`` with its Eq. 9 constants).  Returns (y2,
+    tier_hist over the mesh, this rank's own tier_hist, and the routing's
+    (mca_flops, mean_r_blocks) where one routing took exactly this
+    rank's tokens and they are all the mesh's, else None).  Each chunk i of
+    the global flat tokens is routed with the capacities of its own token
+    count and drawn from ``fold_in(key, i)``; a rank holding its data
+    shard's rows routes that shard's chunks (one, or ``n_model`` on a
+    model axis) and sums the histogram over the data ranks, a rank
+    holding the whole batch routes every chunk itself.  Tokens that do
+    not divide the mesh are routed globally (:func:`_tiered_global`)."""
     n_tiers = len(ladder)
     flat_n = x2.shape[0]
     mesh = dctx.get_mesh()
@@ -245,7 +264,7 @@ def _tiered_maybe_sharded(key, x2, w, tier, imp, ladder, cfg, block,
     if mesh is not None and mesh.size > 1:
         if shards > 1:
             if flat_n % nm:
-                return _tiered_global(key, x2, w, tier, imp, ladder, cfg,
+                return _tiered_global(key, x2, w, route, imp, ladder, cfg,
                                       block, probs, local_blocks, mesh,
                                       shards)
             n_local = flat_n // nm
@@ -255,55 +274,56 @@ def _tiered_maybe_sharded(key, x2, w, tier, imp, ladder, cfg, block,
             n_local = flat_n // mesh.size
             chunks = [(i, i * n_local) for i in range(mesh.size)]
     if chunks is None:
-        return _tiered_global(key, x2, w, tier, imp, ladder, cfg, block,
+        return _tiered_global(key, x2, w, route, imp, ladder, cfg, block,
                               probs, local_blocks, mesh, 1)
 
     caps = _caps_for(n_local, n_tiers, cfg.capacity_fracs)
     ys, hist = [], 0
     for i, start in chunks:
         sl = slice(start, start + n_local)
-        tier_r = dispatch.apply_capacity(tier[sl], imp[sl], caps)
+        tier, rank, chunk_hist, _, _ = route(imp[sl], caps=caps)
         ys.append(dispatch.tiered_mca_matmul(
-            amm.fold_in(key, i), x2[sl], w, tier_r, imp[sl], ladder, caps,
+            amm.fold_in(key, i), x2[sl], w, tier, imp[sl], ladder, caps,
             block, probs=probs, use_kernel=cfg.use_kernel,
-            local_blocks=local_blocks))
-        hist = hist + dispatch.tier_histogram(tier_r, n_tiers)
+            local_blocks=local_blocks, rank=rank))
+        hist = hist + chunk_hist
     y2 = ys[0] if len(ys) == 1 else torch.cat(ys)
     if shards > 1:
-        return y2, dctx.psum(hist, mesh, dctx.dp_axes(mesh)), hist
-    return y2, hist, hist
+        return y2, dctx.psum(hist, mesh, dctx.dp_axes(mesh)), hist, None
+    return y2, hist, hist, None
 
 
-def _tiered_global(key, x2, w, tier, imp, ladder, cfg, block, probs,
+def _tiered_global(key, x2, w, route, imp, ladder, cfg, block, probs,
                    local_blocks, mesh, shards):
     """One routing of all the mesh's tokens, with the capacities of their
     count and the unfolded key (the reference's fallback).  A rank that
     holds its data shard's rows (``shards > 1``) gathers the data ranks'
-    tiers and importances in rank order, the global flat order, routes
-    them, and runs its own rows with the global capacities, so each tier
-    draws the samples of the unsharded call.  Returns (y2 of this rank's
-    rows, the global tier_hist, this rank's rows' tier_hist)."""
+    importances in rank order, the global flat order (a token's tier is
+    a function of its importance alone), routes them, and runs its own
+    rows with the global capacities and ranks, so each tier draws the
+    samples of the unsharded call.  Returns (y2 of this rank's rows, the
+    global tier_hist, this rank's rows' tier_hist, the routing's
+    (mca_flops, mean_r_blocks) where this rank routed only its own
+    tokens, else None)."""
     n_tiers = len(ladder)
     flat_n = x2.shape[0]
     caps = _caps_for(flat_n * shards, n_tiers, cfg.capacity_fracs)
-    tier_all, imp_all = tier, imp
+    imp_all = imp
     if shards > 1:
         dp = dctx.dp_axes(mesh)
-        tier_all = dctx.all_gather(tier, mesh, dp, 0)
         imp_all = dctx.all_gather(imp.detach(), mesh, dp, 0)
-    routed = dispatch.apply_capacity(tier_all, imp_all, caps)
-    hist = dispatch.tier_histogram(routed, n_tiers)
+    routed, rank, hist, flops, mean_r = route(imp_all, caps=caps)
     mine, local = routed, hist
     if shards > 1:
         start = dctx.axis_index(mesh, dp) * flat_n
         mine = routed[start:start + flat_n]
+        rank = rank[start:start + flat_n]
         local = dispatch.tier_histogram(mine, n_tiers)
-    # the rank's rows fit every global capacity: nothing is demoted again
     y2 = dispatch.tiered_mca_matmul(key, x2, w, mine, imp, ladder, caps,
                                     block, probs=probs,
                                     use_kernel=cfg.use_kernel,
-                                    local_blocks=local_blocks)
-    return y2, hist, local
+                                    local_blocks=local_blocks, rank=rank)
+    return y2, hist, local, (flops, mean_r) if shards == 1 else None
 
 
 def merge_stats(stats_list) -> Stats:

@@ -30,6 +30,14 @@ def r_blocks_from_cols(r_cols: torch.Tensor, block: int = DEFAULT_BLOCK
     return torch.clamp(torch.ceil(r_cols / block), min=1.0).to(torch.int32)
 
 
+def r_blocks(importance: torch.Tensor, n: int, alpha: float, d: int,
+             block: int = DEFAULT_BLOCK) -> torch.Tensor:
+    """Eq. (9)'s budget of each token in whole blocks:
+    ``r_blocks_from_cols(r_cols_from_attention(...))``."""
+    return r_blocks_from_cols(r_cols_from_attention(importance, n, alpha, d),
+                              block)
+
+
 def tier_ladder(d: int, block: int = DEFAULT_BLOCK, n_tiers: int = 4,
                 r_min_blocks: int = 1) -> tuple[int, ...]:
     """Geometric ladder of block counts; final tier is exact (R = K)."""

@@ -13,12 +13,14 @@ and, with no TPU kernel behind them, MCA prefill's three scoring passes
 (ops.attn_lse, ops.attn_colmax_pass, ops.attn_av: the flash and colmax
 kernels in further modes, with a causal offset, left-padding masks and,
 for colmax, the max over heads), whose plain versions are the chunked
-passes of models/attention.py.
+passes of models/attention.py, and MCA's routing of one projection
+(ops.mca_route, csrc/mca_route.cu: Eq. 9, tiers, capacity demotion and
+ranks from one sort), whose plain version is core.dispatch.route.
 
-With ``telemetry=True`` each launcher (and plain version) also returns
-the ``[1, 8]`` int32 buffer its kernel fills in the reference's units
-(``kernels/telemetry.py``); the wrappers fold it into ``obs.devtel``
-while that is enabled.
+With ``telemetry=True`` each ported kernel's launcher (and plain version)
+also returns the ``[1, 8]`` int32 buffer its kernel fills in the
+reference's units (``kernels/telemetry.py``); the wrappers fold it into
+``obs.devtel`` while that is enabled.
 """
 from .ops import (attn_colmax, flash_attention, kv_slot_update, launch_counts,
                   mca_matmul, mca_matmul_ragged, reset_launch_counts)

@@ -22,7 +22,8 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("attn_colmax", "flash_attention", "kv_slot_update", "mca_matmul")
+SOURCES = ("attn_colmax", "flash_attention", "kv_slot_update", "mca_matmul",
+           "mca_route")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"   # the CUDA toolkit's own place
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -34,7 +34,8 @@ launches and 2B rows, while ``launch_counts()`` counts its one launch.
 MCA prefill's scoring passes (``attn_lse``, ``attn_colmax_pass``,
 ``attn_av``) take the chunked passes' signatures, and the chunked passes
 of ``models.attention`` are their plain versions; they emit no device
-telemetry.
+telemetry.  Nor does ``mca_route``, MCA's routing of one projection,
+whose plain version is ``core.dispatch.route``.
 
 No kernel has a backward yet (the reference's Pallas kernels have none
 either).  A CUDA launch writes into a fresh tensor that autograd would
@@ -42,6 +43,8 @@ see as a constant, so every wrapper refuses, on either device, to run
 while grad mode is on and an input it reads requires a gradient
 (:func:`_refuse_grad`): a loss taken through a kernel raises instead of
 silently training without the gradient that passes through it.
+``mca_route`` is the exception: its outputs are integers and counts,
+through which no gradient passes, so it reads its input detached.
 """
 from __future__ import annotations
 
@@ -56,6 +59,7 @@ from . import attn_colmax as _colmax_mod
 from . import cache_update as _cache_mod
 from . import flash_attention as _flash_mod
 from . import mca_matmul as _mca_mod
+from . import mca_route as _route_mod
 from . import ref as _ref
 from .telemetry import LANE_COUNT, LANE_LAUNCH
 
@@ -66,14 +70,15 @@ _LAUNCHERS = {"mca_matmul_fixed": _mca_mod.mca_matmul_fixed,
               "flash_attention": _flash_mod.flash_attention,
               "attn_colmax": _colmax_mod.attn_colmax,
               "attn_lse": _flash_mod.attn_lse,
-              "attn_av": _flash_mod.attn_av}
+              "attn_av": _flash_mod.attn_av,
+              "mca_route": _route_mod.mca_route}
 
 
 #: each op's (fallback_calls, kernel_calls) counter names, indexed by bool
 _COUNTERS = {op: (f"kernels.{op}.fallback_calls", f"kernels.{op}.kernel_calls")
              for op in ("mca_matmul", "mca_matmul_ragged", "kv_slot_update",
                         "flash_attention", "attn_colmax", "attn_lse",
-                        "attn_av")}
+                        "attn_av", "mca_route")}
 
 
 def _plain(x: torch.Tensor) -> bool:
@@ -360,6 +365,26 @@ def attn_av(q, k, v, lse, *, scale, causal, window, chunk, q_offset=0,
                          dict(scale=scale, causal=causal, window=window,
                               chunk=chunk, q_offset=q_offset,
                               kv_valid=kv_valid))
+
+
+# ------------------------------------------------ MCA's routing
+def mca_route(importance: torch.Tensor, *, seq_len: int, alpha: float,
+              d: int, block: int, ladder, caps, f: int):
+    """The tiered routing of one projection's tokens (``core.dispatch.
+    route``, its plain version, reached through that module's attributes):
+    importance [n] -> (tier [n] int32, rank within the tier [n] int32,
+    tier_hist [T] int64, mca_flops [] int64, mean_r_blocks [] f32), the
+    importance read detached."""
+    plain = _plain(importance)
+    _count("mca_route", not plain)
+    kw = dict(seq_len=seq_len, alpha=alpha, d=d, block=block, ladder=ladder,
+              caps=caps, f=f)
+    with _CustomCall("mca_route"):
+        imp = importance.detach()
+        if plain:
+            from repro_torch.core import dispatch
+            return dispatch.route(imp, **kw)
+        return _route_mod.mca_route(imp, **kw)
 
 
 def launch_counts() -> Dict[str, int]:

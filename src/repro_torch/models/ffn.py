@@ -312,8 +312,8 @@ def _mca_expert_matmul(key: int, cfg, xe, w_up, sorted_e, slot,
     imp = torch.zeros((e, cap + 1), dtype=torch.float32, device=xe.device)
     imp = imp.index_put((sorted_e, slot), gate_sorted.detach().float())
     imp = imp[:, :cap]
-    r_cols = schedule.r_cols_from_attention(imp, seq_len, cfg.mca.alpha, d)
-    r_blocks = schedule.r_blocks_from_cols(r_cols, block)    # [E, C]
+    r_blocks = schedule.r_blocks(imp, seq_len, cfg.mca.alpha, d,
+                                 block)                      # [E, C]
     out = mca_dispatch.per_token_mca_matmul(key, xe, w_up, r_blocks, block,
                                             probs=probs)
     # exact FLOPs are a host number (no host-to-device copy, which would

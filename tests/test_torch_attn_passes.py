@@ -93,7 +93,8 @@ def test_gqa_attention_takes_the_pass_kernels_by_its_inputs(
     the CPU, with a head width the kernels take, no window and no
     gradient; otherwise it calls the chunked passes itself, through this
     module's attributes, and counts ``attn.chunked_passes`` where the
-    device is not the CPU."""
+    device is not the CPU.  Each of the two MCA projections adds the
+    custom call of its routing (``ops.mca_route``) in every case."""
     calls = []
     for name in PASSES:
         def spy(*a, _f=getattr(attention, name), _n=name, **k):
@@ -107,7 +108,7 @@ def test_gqa_attention_takes_the_pass_kernels_by_its_inputs(
             kv_valid=kw["kv_valid"]))
         counters = reg.snapshot(include_device=False)["counters"]
     assert calls == [(n, kernels) for n in PASSES]
-    assert res["op_census"]["custom-call"] == (3 if kernels else 0)
+    assert res["op_census"]["custom-call"] == (3 if kernels else 0) + 2
     for op in ("attn_lse", "attn_colmax", "attn_av"):
         assert counters.get(f"kernels.{op}.fallback_calls", 0) == kernels
     assert counters.get("attn.chunked_passes", 0) == \

@@ -190,9 +190,11 @@ def test_tiered_exact_tier_and_routing_match_reference():
     want = np.asarray(j_dispatch.tiered_mca_matmul(
         jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(w),
         jnp.asarray(routed), jnp.asarray(imp), ladder, caps, 128))
+    tier_r = dispatch.apply_capacity(_t(tier), _t(imp), caps)
     got = dispatch.tiered_mca_matmul(
-        3, _t(x), _t(w), dispatch.apply_capacity(_t(tier), _t(imp), caps),
-        _t(imp), ladder, caps, 128).numpy()
+        3, _t(x), _t(w), tier_r, _t(imp), ladder, caps, 128,
+        rank=dispatch._rank_within_tier(tier_r, _t(imp), len(ladder))
+    ).numpy()
     exact = routed == len(ladder) - 1
     assert exact.sum() == caps[-1]
     np.testing.assert_allclose(got[exact], x[exact] @ w, rtol=1e-4,
@@ -206,10 +208,12 @@ def test_tiered_sampled_tiers_within_lemma1_bound():
     with r = the tier's block count (25% slack, as the reference)."""
     x, w, imp, tier, ladder, caps = _tiered_inputs(n=64, d=512, f=64)
     routed = dispatch.apply_capacity(_t(tier), _t(imp), caps)
+    rank = dispatch._rank_within_tier(routed, _t(imp), len(ladder))
     errs = []
     for trial in range(64):
         y = dispatch.tiered_mca_matmul(amm.fold_in(99, trial), _t(x), _t(w),
-                                       routed, _t(imp), ladder, caps, 128)
+                                       routed, _t(imp), ladder, caps, 128,
+                                       rank=rank)
         errs.append(np.linalg.norm(y.numpy() - x @ w, axis=-1))
     mean_err = np.mean(errs, axis=0)
     r_tok = np.asarray(ladder)[routed.numpy()]
@@ -222,12 +226,14 @@ def _use_kernel_case(n):
     product of n tokens with and without ``use_kernel``."""
     x, w, imp, tier, ladder, caps = _tiered_inputs(n=n)
     routed = dispatch.apply_capacity(_t(tier), _t(imp), caps)
+    rank = dispatch._rank_within_tier(routed, _t(imp), len(ladder))
     with obs.scoped() as reg:
         y_k = dispatch.tiered_mca_matmul(5, _t(x), _t(w), routed, _t(imp),
-                                         ladder, caps, 128, use_kernel=True)
+                                         ladder, caps, 128, use_kernel=True,
+                                         rank=rank)
         c = reg.snapshot()["counters"]
     y_p = dispatch.tiered_mca_matmul(5, _t(x), _t(w), routed, _t(imp),
-                                     ladder, caps, 128)
+                                     ladder, caps, 128, rank=rank)
     # beside the kernel counters, each tier is one ``mca.tier`` boundary
     timed = {k: c.pop(k) for k in list(c) if k.startswith("timed.")}
     assert timed["timed.mca.tier.calls"] == len(ladder)

@@ -422,7 +422,7 @@ def test_wrappers_count_launches_and_refuse_bad_inputs(cuda):
                  "kernels.kv_slot_update.kernel_calls": 1.0}
     want = {"mca_matmul_fixed": 1, "mca_matmul_ragged": 0,
             "kv_slot_update": 1, "flash_attention": 0, "attn_colmax": 0,
-            "attn_lse": 0, "attn_av": 0}
+            "attn_lse": 0, "attn_av": 0, "mca_route": 0}
     assert ops.launch_counts() == want
     with pytest.raises(ValueError):
         ops.mca_matmul(x, w.float(), idx, inv_rp)
@@ -844,11 +844,12 @@ def _split_by_range(events, names=TIMED):
     return split, [r for r in ranges if r[2] == "engine.insert"], timed
 
 
-@pytest.mark.parametrize("s", [2048, 4096])
+@pytest.mark.parametrize("s", [2048, 4040, 4096])
 def test_full_width_insertion_split_by_program_range(cuda, s):
     """starcoder2-3b at full width (30 layers, the benchmark's MCA) and
-    one insertion of ``s`` tokens (the benchmark's two largest buckets)
-    under the profiler, its scoring passes through the kernels: the
+    one insertion of ``s`` tokens (the benchmark's two largest buckets,
+    and olmoe-1b-7b's 4,040) under the profiler, its scoring passes and
+    its routing through the kernels: the
     registry's
     ``insert`` span, put on the profiler's clock by ``obs.profiler_ns``,
     lies within 1 ms of the ``engine.insert`` range at both ends; the
@@ -868,7 +869,7 @@ def test_full_width_insertion_split_by_program_range(cuda, s):
     cfg = get_config("starcoder2-3b", mca=mca, dtype="bfloat16")
     model = build_model(cfg, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    eng = serve.Engine(model, params, batch_size=2, max_len=s + 32,
+    eng = serve.Engine(model, params, batch_size=2, max_len=s + 16,
                        mca_enabled=True, seed=0)
     prompt = np.random.default_rng(0).integers(
         1, cfg.vocab_size, s).astype(np.int32)
@@ -898,6 +899,8 @@ def test_full_width_insertion_split_by_program_range(cuda, s):
         assert counters[f"kernels.{op}.kernel_calls"] == layers
     assert counters.get("attn.chunked_passes", 0) == 0
     assert counters["timed.mca.project.calls"] == 2 * layers
+    assert counters["kernels.mca_route.kernel_calls"] == 2 * layers
+    assert "kernels.mca_route.fallback_calls" not in counters
     assert counters["kernels.mca_matmul.kernel_calls"] == 2 * layers * 3
     assert "kernels.mca_matmul.fallback_calls" not in counters
     assert counters["timed.mca.tier.calls"] == 2 * layers * tiers
@@ -979,14 +982,16 @@ def test_tiered_kernel_takes_a_bucket_off_the_tile_grid(cuda):
     ladder = schedule.tier_ladder(d, 128, 4, 1)
     caps = policy._caps_for(n, 4, (1.0, 0.5, 0.375, 0.25))
     routed = dispatch.apply_capacity(tier, imp, caps)
+    rank = dispatch._rank_within_tier(routed, imp, len(ladder))
     with torch.no_grad():
         with obs.scoped() as reg:
             y_k = dispatch.tiered_mca_matmul(7, x, w, routed, imp, ladder,
-                                             caps, 128, use_kernel=True)
+                                             caps, 128, use_kernel=True,
+                                             rank=rank)
             torch.cuda.synchronize()
             c = reg.snapshot(include_device=False)["counters"]
         y_p = dispatch.tiered_mca_matmul(7, x, w, routed, imp, ladder, caps,
-                                         128)
+                                         128, rank=rank)
     assert [cap % 128 for cap in caps[:3]] == [72, 100, 107]
     assert c["kernels.mca_matmul.kernel_calls"] == 3
     assert "kernels.mca_matmul.fallback_calls" not in c
@@ -1051,6 +1056,8 @@ def test_olmoe_dropless_insertion_split_by_program_range(cuda, s):
     assert counters["timed.moe.route.calls"] == layers
     assert counters["timed.moe.experts.calls"] == layers
     assert counters["timed.mca.project.calls"] == 2 * layers
+    assert counters["kernels.mca_route.kernel_calls"] == 2 * layers
+    assert "kernels.mca_route.fallback_calls" not in counters
     assert counters["kernels.mca_matmul.kernel_calls"] == 2 * layers * 3
     assert "kernels.mca_matmul.fallback_calls" not in counters
     for op in ("attn_lse", "attn_colmax", "attn_av"):

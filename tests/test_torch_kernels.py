@@ -18,7 +18,8 @@ from repro.kernels import mca_matmul_ragged as j_ragged  # noqa: E402
 from repro.kernels import ref as kref  # noqa: E402
 from repro.kernels.mca_matmul import mca_matmul_fixed as j_fixed  # noqa: E402
 from repro_torch import obs  # noqa: E402
-from repro_torch.kernels import _build, cache_update, ops, ref  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    _build, cache_update, mca_route, ops, ref)
 from repro_torch.kernels.attn_colmax import attn_colmax  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.mca_matmul import (  # noqa: E402
@@ -284,17 +285,22 @@ def test_cpu_tensors_never_launch():
                        torch.zeros(1, dtype=torch.int32), torch.ones(1))
         ops.kv_slot_update(torch.zeros(2, 4, 8), torch.ones(2, 1, 8),
                            torch.zeros(2, dtype=torch.int32))
+        ops.mca_route(torch.ones(8), seq_len=8, alpha=0.2, d=256, block=128,
+                      ladder=(1, 2), caps=(8, 4), f=8)
         c = reg.snapshot()["counters"]
     assert c == {"kernels.mca_matmul.fallback_calls": 1.0,
-                 "kernels.kv_slot_update.fallback_calls": 1.0}
+                 "kernels.kv_slot_update.fallback_calls": 1.0,
+                 "kernels.mca_route.fallback_calls": 1.0}
     assert ops.launch_counts() == {
         "mca_matmul_fixed": 0, "mca_matmul_ragged": 0, "kv_slot_update": 0,
-        "flash_attention": 0, "attn_colmax": 0, "attn_lse": 0, "attn_av": 0}
+        "flash_attention": 0, "attn_colmax": 0, "attn_lse": 0, "attn_av": 0,
+        "mca_route": 0}
 
 
 @pytest.mark.parametrize("launcher", ["mca_matmul", "kv_slot_update",
                                       "mca_matmul_ragged", "flash_attention",
-                                      "attn_colmax", "kv_slot_update_layer"])
+                                      "attn_colmax", "kv_slot_update_layer",
+                                      "mca_route"])
 def test_kernel_launchers_refuse_cpu_tensors(launcher):
     """The CUDA launchers check their inputs before touching a pointer."""
     q = torch.zeros(1, 2, 64, 64)
@@ -317,6 +323,9 @@ def test_kernel_launchers_refuse_cpu_tensors(launcher):
                 torch.zeros(2, 4, 8), torch.ones(2, 1, 8),
                 torch.zeros(2, 4, 8), torch.ones(2, 1, 8),
                 torch.zeros(2, 4, dtype=torch.int32), 1, window=0)
+        elif launcher == "mca_route":
+            mca_route.mca_route(torch.ones(8), seq_len=8, alpha=0.2, d=256,
+                                block=128, ladder=(1, 2), caps=(8, 4), f=8)
         else:
             cache_update.kv_slot_update(
                 torch.zeros(2, 4, 8), torch.ones(2, 1, 8),

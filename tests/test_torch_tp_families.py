@@ -419,18 +419,18 @@ _WORLD = textwrap.dedent("""
                                                          mesh)
                 ladder = schedule.tier_ladder(w.shape[0], blk, 4, 1)
                 imp2 = imp.reshape(-1)
-                rb = schedule.r_blocks_from_cols(
-                    schedule.r_cols_from_attention(imp2, x.shape[1],
-                                                   pm["alpha"], w.shape[0]),
-                    blk)
-                tier = schedule.assign_tiers(rb, ladder)
                 caps = policy._caps_for(x2.shape[0], len(ladder),
                                         cfg.capacity_fracs)
+                tier, tok_rank, _, _, _ = dispatch.route(
+                    imp2, seq_len=x.shape[1], alpha=pm["alpha"],
+                    d=w.shape[0], block=blk, ladder=ladder, caps=caps,
+                    f=w.shape[1])
                 whole = dispatch.tiered_mca_matmul(
-                    5, x2, w, tier, imp2, ladder, caps, blk, probs=probs)
+                    5, x2, w, tier, imp2, ladder, caps, blk, probs=probs,
+                    rank=tok_rank)
                 part = dispatch.tiered_mca_matmul(
                     5, xp, wp, tier, imp2, ladder, caps, blk, probs=probs,
-                    local_blocks=lbk)
+                    local_blocks=lbk, rank=tok_rank)
                 res["split_whole"] = whole.numpy()
                 res["split_sum"] = dctx.psum(part, mesh, ("model",)).numpy()
                 res["split_probs"] = probs.numpy()
